@@ -1,0 +1,30 @@
+"""Device and precision helpers.
+
+Geometry is always float32. On the card, float32 matrix products and cuDNN
+convolutions may silently run in TF32 (about three decimal digits); the JAX
+reference pins its camera math to full precision
+(`mvgformer_tpu/geometry/cameras.py`, `Precision.HIGHEST`), so float32
+comparisons against it turn TF32 off with `strict_float32()`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mvgformer_tpu_torch.config import Config
+
+
+def strict_float32() -> None:
+    """Run float32 matmuls and convolutions in full float32 (no TF32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def compute_dtype(cfg: Config) -> torch.dtype:
+    """`PARALLEL.COMPUTE_DTYPE` as a torch dtype."""
+    name = cfg.PARALLEL.COMPUTE_DTYPE
+    if name == "bfloat16":
+        return torch.bfloat16
+    if name == "float32":
+        return torch.float32
+    raise ValueError(f"unsupported PARALLEL.COMPUTE_DTYPE: {name!r}")

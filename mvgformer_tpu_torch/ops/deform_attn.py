@@ -1,0 +1,171 @@
+"""Multi-scale deformable sampling on the card: the Hopper kernel's wrapper.
+
+`deform_sample` has the contract of `ops/sampling.py::deform_sample`.
+
+    * A CPU tensor goes to that plain PyTorch version.
+    * A CUDA tensor launches the hand-written kernel
+      `csrc/deform_sample.cu` (forward only) or raises. Nothing falls back.
+
+The kernel is compiled with nvcc at first use into `build/kernels/` at the
+root of the checkout, keyed by a hash of its source and flags, and bound
+with ctypes. `deform_sample.launches` counts kernel launches; nothing else
+changes it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Sequence, Tuple
+
+import torch
+
+from mvgformer_tpu_torch.ops import sampling
+
+_SRC = Path(__file__).resolve().parent.parent / "csrc" / "deform_sample.cu"
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_LEVELS = 4
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.isfile(path):
+        return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME): the deformable-sampling kernel "
+            "is built from source with the CUDA toolkit")
+    return found
+
+
+def _library_path() -> Path:
+    """Where the shared library for the current source and flags lives."""
+    key = hashlib.sha256(_SRC.read_bytes() + " ".join(_NVCC_FLAGS).encode())
+    return _BUILD_DIR / f"deform_sample-{key.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernel unless the library for this source exists.
+
+    The compiler's output (ptxas registers, shared memory and spills) is
+    kept beside the library as `<name>.log`."""
+    lib = _library_path()
+    if lib.is_file():
+        return lib
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                           f"\n{proc.stdout}{proc.stderr}")
+    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    fn = lib.mvg_deform_sample_forward
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                      ctypes.c_void_p])
+    return lib
+
+
+def _check(value, spatial_shapes, sampling_locations, attention_weights):
+    if value.dim() != 4:
+        raise ValueError(f"value must be (N, Len_in, H, D), got "
+                         f"{tuple(value.shape)}")
+    N, Len_in, H, D = value.shape
+    if sampling_locations.dim() != 6 or sampling_locations.shape[-1] != 2:
+        raise ValueError("sampling_locations must be (N, Lq, H, L, P, 2), "
+                         f"got {tuple(sampling_locations.shape)}")
+    _, Lq, _, L, P, _ = sampling_locations.shape
+    if (tuple(sampling_locations.shape[:3]) != (N, Lq, H)
+            or tuple(attention_weights.shape) != (N, Lq, H, L, P)):
+        raise ValueError(
+            f"shapes disagree: value {tuple(value.shape)}, locations "
+            f"{tuple(sampling_locations.shape)}, weights "
+            f"{tuple(attention_weights.shape)}")
+    if len(spatial_shapes) != L or not 1 <= L <= _MAX_LEVELS:
+        raise ValueError(f"{L} levels with spatial shapes {spatial_shapes}")
+    if sum(h * w for h, w in spatial_shapes) != Len_in:
+        raise ValueError(f"spatial shapes {spatial_shapes} do not sum to "
+                         f"Len_in = {Len_in}")
+    devices = {value.device, sampling_locations.device,
+               attention_weights.device}
+    if len(devices) != 1:
+        raise ValueError(f"inputs on several devices: {devices}")
+
+
+def deform_sample(value: torch.Tensor,
+                  spatial_shapes: Sequence[Tuple[int, int]],
+                  sampling_locations: torch.Tensor,
+                  attention_weights: torch.Tensor) -> torch.Tensor:
+    """(N, Lq, H*D) deformable sampling; see `ops/sampling.py`.
+
+    value (N, Len_in, H, D) float32 or bfloat16; sampling_locations
+    (N, Lq, H, L, P, 2) float32; attention_weights (N, Lq, H, L, P) in the
+    dtype of value. On CUDA all three must be contiguous, and none may
+    require grad (the backward kernel is not written yet).
+    """
+    _check(value, spatial_shapes, sampling_locations, attention_weights)
+    if value.device.type == "cpu":
+        return sampling.deform_sample(value, spatial_shapes,
+                                      sampling_locations, attention_weights)
+    if value.device.type != "cuda":
+        raise ValueError(f"unsupported device {value.device}")
+    if any(t.requires_grad for t in (value, sampling_locations,
+                                     attention_weights)):
+        raise NotImplementedError(
+            "deform_sample has no backward kernel yet; call it under "
+            "torch.no_grad() or on tensors that do not require grad")
+    if value.dtype not in _DTYPE_CODE:
+        raise TypeError(f"value must be float32 or bfloat16, got "
+                        f"{value.dtype}")
+    if attention_weights.dtype != value.dtype:
+        raise TypeError(f"attention_weights are {attention_weights.dtype}, "
+                        f"value is {value.dtype}")
+    if sampling_locations.dtype != torch.float32:
+        raise TypeError("sampling_locations must be float32, got "
+                        f"{sampling_locations.dtype}")
+    for name, t in (("value", value), ("sampling_locations",
+                                       sampling_locations),
+                    ("attention_weights", attention_weights)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+    N, Len_in, H, D = value.shape
+    _, Lq, _, L, P, _ = sampling_locations.shape
+    levels, start = [], 0
+    for h, w in spatial_shapes:
+        levels += [int(h), int(w), start]
+        start += int(h) * int(w)
+    out = torch.empty((N, Lq, H * D), dtype=value.dtype, device=value.device)
+    fn = _library().mvg_deform_sample_forward
+    with torch.cuda.device(value.device):
+        stream = torch.cuda.current_stream(value.device).cuda_stream
+        err = fn(value.data_ptr(), sampling_locations.data_ptr(),
+                 attention_weights.data_ptr(), out.data_ptr(), N, Len_in, H,
+                 D, Lq, L, P, (ctypes.c_int * len(levels))(*levels),
+                 _DTYPE_CODE[value.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"deform_sample kernel launch failed: error {err}")
+    deform_sample.launches += 1
+    return out
+
+
+deform_sample.launches = 0

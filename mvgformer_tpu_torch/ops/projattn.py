@@ -1,0 +1,135 @@
+"""Projective attention (ProjAttn) as an nn.Module.
+
+Port of `mvgformer_tpu/ops/projattn.py` with the parameter names of the
+original torch module (sampling_offsets / attention_weights / rayconv /
+output_proj) and the same forward math, including the row-major
+reinterpretation of the stacked per-level offsets: with
+num_feature_levels = 1 and several feature maps, the (level, head, point)
+axes are scrambled in a trained-in way that converted checkpoints rely on.
+
+Deformable sampling goes through `ops.deform_attn.deform_sample`, which runs
+the Hopper kernel on CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mvgformer_tpu_torch.models.mlp import Dense
+from mvgformer_tpu_torch.ops.deform_attn import deform_sample
+from mvgformer_tpu_torch.ops.sampling import bilinear_sample
+
+
+def radial_offsets_bias(n_heads: int, n_levels: int,
+                        n_points: int) -> torch.Tensor:
+    """The radial-grid init of the sampling-offsets bias, flat
+    (n_heads * n_levels * n_points * 2,)."""
+    thetas = torch.arange(n_heads, dtype=torch.float32) * (
+        2.0 * math.pi / n_heads)
+    grid = torch.stack([thetas.cos(), thetas.sin()], dim=-1)
+    grid = grid / grid.abs().amax(dim=-1, keepdim=True)
+    grid = grid.reshape(n_heads, 1, 1, 2).repeat(1, n_levels, n_points, 1)
+    scale = torch.arange(1, n_points + 1, dtype=torch.float32)
+    return (grid * scale[None, None, :, None]).reshape(-1)
+
+
+def top_indices(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest entries along the last axis, lowest index
+    first among ties (the rule of jax.lax.top_k; torch.topk has none)."""
+    return torch.sort(x, dim=-1, descending=True, stable=True)[1][..., :k]
+
+
+class ProjAttn(nn.Module):
+    """Projective attention over multi-scale per-view feature maps."""
+
+    def __init__(self, d_model: int = 256, n_levels: int = 1,
+                 n_heads: int = 8, n_points: int = 8,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.d_model, self.n_levels = d_model, n_levels
+        self.n_heads, self.n_points = n_heads, n_points
+        self.dtype = dtype
+        # offsets and weights are float32 layers whatever the compute dtype
+        self.sampling_offsets = Dense(d_model, n_heads * n_levels * n_points
+                                      * 2, dtype=torch.float32, init="zeros")
+        self.attention_weights = Dense(d_model, n_heads * n_levels * n_points,
+                                       dtype=torch.float32, init="zeros")
+        self.rayconv = Dense(d_model, d_model, dtype=dtype, init="xavier",
+                             generator=generator)
+        self.output_proj = Dense(d_model, d_model, dtype=dtype,
+                                 init="xavier", generator=generator)
+        with torch.no_grad():
+            self.sampling_offsets.bias.copy_(
+                radial_offsets_bias(n_heads, n_levels, n_points))
+
+    def forward(self, query: torch.Tensor, reference_points: torch.Tensor,
+                src_views: Sequence[torch.Tensor],
+                spatial_shapes: Sequence[Tuple[int, int]],
+                point_topm: Optional[int] = None) -> torch.Tensor:
+        """
+        Args:
+            query:            (N, Lq, C) per-view queries (pos-embedded).
+            reference_points: (N, Lq, L, 2) per-level [0, 1] centers.
+            src_views:        per-level (N, h, w, C) maps (NHWC).
+            spatial_shapes:   static ((h, w), ...) matching src_views.
+            point_topm:       keep only the top-m of P points per
+                              (query, head, level) by attention weight.
+        Returns:
+            (N, Lq, C) attended features.
+        """
+        N, Lq, C = query.shape
+        H, P = self.n_heads, self.n_points
+
+        # the per-level reference-point feature: grid_sample
+        # (align_corners=False) on the grid clamp(2r - 1, -1.1, 1.1)
+        ref_feats = []
+        for lvl, (h, w) in enumerate(spatial_shapes):
+            g = torch.clamp(reference_points[:, :, lvl, :] * 2.0 - 1.0,
+                            -1.1, 1.1)
+            x = (g[..., 0] + 1.0) * 0.5 * w - 0.5
+            y = (g[..., 1] + 1.0) * 0.5 * h - 0.5
+            v = src_views[lvl].reshape(N, h * w, C)
+            ref_feats.append(bilinear_sample(v, x, y, h, w))
+        ref_feats = torch.stack(ref_feats, dim=2)  # (N, Lq, L, C)
+
+        input_flatten = torch.cat([s.reshape(N, -1, C) for s in src_views],
+                                  dim=1)
+        value = self.rayconv(input_flatten)
+        Len_in = value.shape[1]
+        value = value.reshape(N, Len_in, H, self.d_model // H)
+
+        mix = (ref_feats + query[:, :, None, :]).to(self.dtype)
+        offsets = self.sampling_offsets(mix)   # (N, Lq, L, H*n_levels*P*2)
+        weights = self.attention_weights(mix)  # (N, Lq, L, H*n_levels*P)
+
+        # row-major reinterpretation across the stacked level axis
+        Lt = len(src_views) * self.n_levels
+        offsets = offsets.reshape(N, Lq, H, Lt, P, 2)
+        weights = F.softmax(weights.reshape(N, Lq, H, Lt * P), dim=-1)
+        weights = weights.reshape(N, Lq, H, Lt, P)
+
+        normalizer = torch.tensor([[w, h] for h, w in spatial_shapes],
+                                  dtype=torch.float32, device=query.device)
+        locations = (reference_points[:, :, None, :, None, :]
+                     + offsets / normalizer[None, None, None, :, None, :])
+
+        if point_topm is not None and point_topm < P:
+            # keep the top-m points per (query, head, level) and
+            # renormalize over (level, point) so the mass stays 1
+            idx = top_indices(weights, int(point_topm))
+            w_sel = torch.gather(weights, -1, idx)
+            kept = w_sel.sum(dim=(-2, -1), keepdim=True)
+            weights = w_sel / torch.clamp(kept, min=1e-6)
+            locations = torch.gather(
+                locations, 4, idx[..., None].expand(idx.shape + (2,)))
+
+        out = deform_sample(value.contiguous(), spatial_shapes,
+                            locations.float().contiguous(),
+                            weights.to(value.dtype).contiguous())
+        return self.output_proj(out)
