@@ -8,19 +8,31 @@ into build/kernels/. Phases, each printed on its own line; any failure
 exits non-zero:
 
   1. find the card and print its name and power limit;
-  2. build the deformable-sampling kernel;
-  3. hold the kernel against its plain PyTorch version on the card at the
-     flagship shapes (float32 and bfloat16, edge and non-finite locations
-     included) and time both with CUDA events;
-  4. the flagship-width model (random weights from a fixed seed, float32,
+  2. build the three kernels at once (deformable sampling and the two
+     window kernels), one nvcc each;
+  3. hold the deformable-sampling kernel against its plain PyTorch version
+     on the card at the flagship shapes (float32 and bfloat16, edge and
+     non-finite locations included) and time both with CUDA events;
+  4. hold the two window kernels against their plain versions on the card,
+     on the level operands of the flagship rig's layer-1 plans (K = 28, and
+     K = 20 under layer1_offset_clamp 4), P 4 and 8, float32 and bfloat16,
+     offsets inside and outside the halo; then the whole window_sample with
+     each kernel against the deformable-sampling kernel on in-halo offsets;
+  5. the flagship-width model (random weights from a fixed seed, float32,
      TF32 off): one frame through the kernel path on the card and through
      the plain path on the CPU, layer-1 logits and 3D compared at the
      golden tolerance classes;
-  5. serve: bfloat16, batch 1, one camera rig, distinct synthetic frames
+  6. the same with the windowed layer-1 path (impls 'pallas' and
+     'pallas_dma'), and on the card the windowed model against the gather
+     model at init;
+  7. serve: bfloat16, batch 1, one camera rig, distinct synthetic frames
      through core.infer.make_eval_step; shape, NaN and kernel-launch checks,
-     frames/s and peak device memory.
+     frames/s and peak device memory;
+  8. serve the windowed path the same way, once per impl, with the plan
+     built once, and the escaped mass read per frame.
 
-The last two lines are the kernel table and the device, as JSON.
+The last three lines are the kernel table, the card, and the device, as
+JSON.
 """
 
 import copy
@@ -33,14 +45,25 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from mvgformer_tpu_torch.ops import deform_attn, sampling
+from mvgformer_tpu_torch.ops import (_build, deform_attn, sampling,
+                                     window_block, window_dma,
+                                     window_sampling)
 
 REPO = Path(__file__).resolve().parent
 SPATIAL_SHAPES = ((128, 240), (64, 120), (32, 60))  # flagship levels
 N_VIEWS, HEADS, HEAD_DIM = 5, 8, 32
 SEED = 0
 THRESHOLD = 0.1
-SERVE_FRAMES, SERVE_WARMUP = 10, 2
+SERVE_FRAMES, SERVE_WARMUP = 6, 2
+WINDOW_FRAMES = 10  # distinct frames per windowed impl, 2 of them warm-up
+SOURCES = ("deform_sample.cu", "window_block.cu", "window_dma.cu")
+IMPL_KERNEL = {"pallas": window_block.window_block_matmul,
+               "pallas_dma": window_dma.window_block_dma}
+PLAIN = {window_block.window_block_matmul:
+         window_block.window_block_matmul_plain,
+         window_dma.window_block_dma: window_dma.window_block_dma_plain}
+# window plans of the rig: K = 28 (default halo 10) and K = 20 (clamp 4)
+WINDOW_CLAMPS = {28: None, 20: 4.0}
 
 
 def phase(name, **fields):
@@ -148,14 +171,161 @@ def check_kernel(card):
     return worst_f32, serving
 
 
-def check_slice(card):
-    """Phase 4: kernel path on the card against the plain path on the CPU,
-    flagship width, float32 with TF32 off."""
+def window_setup(clamp):
+    """The flagship rig's layer-1 plan and static centers, on the host."""
     from mvgformer_tpu_torch.data.synthetic import make_batch
-    from mvgformer_tpu_torch.device import strict_float32
+    from mvgformer_tpu_torch.models.mvgformer import (
+        build_layer1_window_plan, layer1_centers_px)
+
+    cfg = flagship_cfg("float32")
+    cfg.DECODER.layer1_offset_clamp = clamp
+    batch = make_batch(cfg, batch_size=1, seed=SEED, num_people=3,
+                       cam_seed=SEED)
+    return (build_layer1_window_plan(cfg, batch.view_data),
+            layer1_centers_px(cfg, batch.view_data))
+
+
+def window_inputs(centers_px, halo, P, dtype, gen, escape):
+    """value, locations and weights on the card around the plan's static
+    centers. Offsets are uniform within +-(halo - 2) px; with `escape`, one
+    sample in eight reaches +-(halo + 6) px, out of the K window and in
+    part out of the wider Kx window. Weights sum to 1 per (query, head)."""
+    dev = "cuda"
+    L = len(SPATIAL_SHAPES)
+    len_in = sum(h * w for h, w in SPATIAL_SHAPES)
+    c = torch.from_numpy(centers_px).to(dev)  # (V, Lq, L, 2)
+    V, Lq = c.shape[:2]
+    value = torch.randn(V, len_in, HEADS, HEAD_DIM, device=dev,
+                        generator=gen).to(dtype)
+    off = (torch.rand(V, Lq, HEADS, L, P, 2, device=dev, generator=gen)
+           * 2.0 - 1.0) * (halo - 2)
+    if escape:
+        far = torch.rand(V, Lq, HEADS, L, P, 1, device=dev,
+                         generator=gen) < 0.125
+        off = torch.where(far, off * (halo + 6) / (halo - 2), off)
+    wh = torch.tensor([[w, h] for h, w in SPATIAL_SHAPES],
+                      dtype=torch.float32, device=dev)
+    loc = (c[:, :, None, :, None, :] + off + 0.5) / wh[:, None, :]
+    aw = torch.rand(V, Lq, HEADS, L, P, device=dev, generator=gen)
+    aw = aw / aw.sum(dim=(3, 4), keepdim=True)
+    return value, loc.contiguous(), aw
+
+
+def check_window_kernels(card):
+    """Phase 4: each window kernel against its plain version on the level
+    operands of the flagship plans, then window_sample with each kernel
+    against the deformable-sampling kernel; one line per (K, P, dtype).
+    Returns, per kernel, the worst float32 error and the summed ms / plain
+    ms over the three levels at bfloat16, K = 28, P = 4 (the serving
+    shape)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    stats = {fn: {"max_abs_err": 0.0} for fn in PLAIN}
+    for K, clamp in WINDOW_CLAMPS.items():
+        plan, centers_px = window_setup(clamp)
+        if plan.levels[0].K != K:
+            fail(f"the plan's window is {plan.levels[0].K}, expected {K}")
+        plan = plan.to("cuda")
+        for P in (4, 8):
+            for dtype in (torch.float32, torch.bfloat16):
+                value, loc, aw = window_inputs(centers_px, plan.halo, P,
+                                               dtype, gen, escape=True)
+                kernels = {}
+                for impl, kernel in IMPL_KERNEL.items():
+                    levels = [check_window_level(kernel, call, dtype)
+                              for call in window_sampling.level_calls(
+                                  value, SPATIAL_SHAPES, loc, aw, plan,
+                                  impl=impl)]
+                    kernels[kernel.__name__] = levels
+                    errs = [lv["max_abs_err"] for lv in levels]
+                    if dtype == torch.float32:
+                        stats[kernel]["max_abs_err"] = max(
+                            stats[kernel]["max_abs_err"], *errs)
+                    if (K, P, dtype) == (28, 4, torch.bfloat16):
+                        stats[kernel].update(
+                            ms=sum(lv["ms"] for lv in levels),
+                            plain_ms=sum(lv["plain_ms"] for lv in levels))
+                sample = check_window_sample(value, centers_px, plan, P,
+                                             dtype, gen)
+                phase("window_kernels_vs_plain", K=K, P=P, dtype=str(dtype),
+                      Kx=plan.levels[0].Kx, halo=plan.halo, kernels=kernels,
+                      window_sample_vs_deform_sample=sample, card=card)
+                bad = [name for name, levels in kernels.items()
+                       if not all(lv["ok"] for lv in levels)]
+                bad += [f"window_sample {impl}" for impl, r in sample.items()
+                        if not r["ok"]]
+                if bad:
+                    fail(f"disagreement at K={K} P={P} {dtype}: {bad}")
+        del plan
+        torch.cuda.empty_cache()
+    return stats
+
+
+def check_window_level(kernel, call, dtype):
+    """One level's window kernel call against its plain version (float32,
+    on the same operands), and both timed."""
+    if call.fn is not kernel:
+        fail(f"level call goes to {call.fn}, expected {kernel.__name__}")
+    out = call.fn(*call.args, **call.kwargs)
+    torch.cuda.synchronize()
+    ref = PLAIN[kernel](call.args[0].float(), *call.args[1:], **call.kwargs)
+    err = (out.float() - ref).abs().max().item()
+    if dtype == torch.float32:
+        ok = err <= 1e-4
+    else:
+        ok = torch.allclose(out.float(), ref, atol=2e-2, rtol=2e-2)
+    del out, ref
+    return {"rows": call.args[1].shape[0],
+            "max_abs_err": err, "ok": bool(ok),
+            "ms": cuda_ms(lambda: call.fn(*call.args, **call.kwargs)),
+            "plain_ms": cuda_ms(lambda: PLAIN[kernel](
+                *call.args, **call.kwargs), runs=5, warmup=1)}
+
+
+def check_window_sample(value, centers_px, plan, P, dtype, gen):
+    """window_sample through each window kernel against deform_sample
+    through the deformable-sampling kernel, on in-halo offsets."""
+    _, loc, aw = window_inputs(centers_px, plan.halo, P, dtype, gen,
+                               escape=False)
+    ref = deform_attn.deform_sample(value.float(), SPATIAL_SHAPES, loc, aw)
+    results = {}
+    for impl in IMPL_KERNEL:
+        out, escaped = window_sampling.window_sample(
+            value, SPATIAL_SHAPES, loc, aw, plan, impl=impl)
+        torch.cuda.synchronize()
+        err = (out.float() - ref).abs().max().item()
+        if dtype == torch.float32:
+            ok = err <= 1e-4
+        else:
+            ok = torch.allclose(out.float(), ref, atol=2e-2, rtol=2e-2)
+        escaped = escaped.item()
+        results[impl] = {"max_abs_err": err, "escaped_mass": escaped,
+                         "ok": bool(ok) and escaped <= 1e-5}
+    return results
+
+
+def compare_layer1(name, got, want, card, **fields):
+    """Layer-1 logits and 3D of two runs at the golden tolerance classes."""
+    lg, lw = got["pred_logits"].cpu().numpy(), want["pred_logits"].cpu().numpy()
+    logit_err = float(np.abs(lg - lw).max())
+    logits_ok = bool(np.allclose(lg, lw, rtol=1e-3, atol=2e-3))
+    err3d = np.abs(got["pred_poses"].cpu().numpy()
+                   - want["pred_poses"].cpu().numpy())
+    p99, mx = float(np.percentile(err3d, 99)), float(err3d.max())
+    finite = bool(np.isfinite(lg).all()
+                  and torch.isfinite(got["pred_poses"]).all())
+    phase(name, layer=1, logits_max_abs_err=logit_err, poses_mm_p99=p99,
+          poses_mm_max=mx, finite=finite, card=card, **fields)
+    if not (logits_ok and p99 < 2.0 and mx < 6.0 and finite):
+        fail(f"{name}: the two runs disagree on layer 1")
+
+
+def check_slice(card):
+    """Phase 5: kernel path on the card against the plain path on the CPU,
+    flagship width, float32 with TF32 off. Returns the two models and the
+    frame for phase 6."""
+    from mvgformer_tpu_torch.data.synthetic import make_batch
     from mvgformer_tpu_torch.models.mvgformer import MVGFormer
 
-    strict_float32()
     cfg = flagship_cfg("float32")
     model_cpu = MVGFormer(cfg, generator=torch.Generator().manual_seed(SEED))
     model_gpu = copy.deepcopy(model_cpu).cuda().eval()
@@ -171,65 +341,100 @@ def check_slice(card):
         t2 = time.perf_counter()
     if deform_attn.deform_sample.launches == before:
         fail("the card's forward did not launch the kernel")
-    logits_gpu = gpu["pred_logits"].cpu().numpy()
-    logits_cpu = cpu["pred_logits"].numpy()
-    logit_err = float(np.abs(logits_gpu - logits_cpu).max())
-    logits_ok = bool(np.allclose(logits_gpu, logits_cpu, rtol=1e-3,
-                                 atol=2e-3))
-    err3d = np.abs(gpu["pred_poses"].cpu().numpy()
-                   - cpu["pred_poses"].numpy())
-    p99, mx = float(np.percentile(err3d, 99)), float(err3d.max())
-    finite = bool(np.isfinite(logits_gpu).all()
-                  and torch.isfinite(gpu["pred_poses"]).all())
-    phase("slice_kernel_vs_plain", layer=1, logits_max_abs_err=logit_err,
-          poses_mm_p99=p99, poses_mm_max=mx, finite=finite,
-          gpu_s=t1 - t0, cpu_s=t2 - t1, card=card)
-    if not (logits_ok and p99 < 2.0 and mx < 6.0 and finite):
-        fail("kernel path and plain path disagree on layer 1")
+    compare_layer1("slice_kernel_vs_plain", gpu, cpu, card, gpu_s=t1 - t0,
+                   cpu_s=t2 - t1)
+    return cfg, model_cpu, model_gpu, batch, gpu
+
+
+def check_windowed_slice(card, cfg, model_cpu, model_gpu, batch, gather):
+    """Phase 6: the windowed layer-1 path, kernels on the card against the
+    plain path on the CPU, for each impl; and on the card the windowed
+    model against the gather model at init (exact while the offsets stay
+    inside the halo)."""
+    from mvgformer_tpu_torch.models.mvgformer import build_layer1_window_plan
+
+    gpu_batch = batch.to("cuda")
+    for impl, kernel in IMPL_KERNEL.items():
+        cfg.DECODER.layer1_window_impl = impl
+        plan = build_layer1_window_plan(cfg, batch.view_data)
+        before = kernel.launches
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            gpu = model_gpu(gpu_batch, threshold=THRESHOLD,
+                            window_plan=plan.to("cuda"))[0]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            cpu = model_cpu(batch, threshold=THRESHOLD, window_plan=plan)[0]
+            t2 = time.perf_counter()
+        if kernel.launches == before:
+            fail(f"the card's windowed forward did not launch "
+                 f"{kernel.__name__}")
+        escaped = gpu["escaped_mass"].item()
+        compare_layer1("windowed_slice_kernel_vs_plain", gpu, cpu, card,
+                       impl=impl, escaped_mass=escaped,
+                       escaped_mass_cpu=cpu["escaped_mass"].item(),
+                       gpu_s=t1 - t0, cpu_s=t2 - t1)
+        compare_layer1("windowed_vs_gather_on_card", gpu, gather, card,
+                       impl=impl)
     del model_gpu
     torch.cuda.empty_cache()
 
 
-def serve(card):
-    """Phase 5: the serving path at bfloat16. Returns the kernel launches
-    counted during it."""
+def serve(card, cfg, model, frames, impl=None):
+    """Phases 7 and 8: the serving path at bfloat16, through the gather
+    (impl None) or the windowed layer 1. Every kernel count is set to 0
+    first; returns the counts after the run."""
     from mvgformer_tpu_torch.core.infer import make_eval_step
-    from mvgformer_tpu_torch.data.synthetic import make_batch
-    from mvgformer_tpu_torch.models.mvgformer import MVGFormer
+    from mvgformer_tpu_torch.models.mvgformer import build_layer1_window_plan
 
-    cfg = flagship_cfg("bfloat16")
-    model = MVGFormer(cfg, generator=torch.Generator().manual_seed(SEED))
-    model = model.cuda()
-    step = make_eval_step(cfg, model, THRESHOLD)
-    frames = [make_batch(cfg, batch_size=1, seed=SEED + 1 + i,
-                         num_people=3, cam_seed=SEED)
-              for i in range(SERVE_FRAMES)]
     Q, J = cfg.DECODER.num_instance, cfg.DECODER.num_keypoints
     layers = cfg.DECODER.num_decoder_layers
+    plan = None
+    t_plan = time.perf_counter()
+    if impl is not None:
+        cfg.DECODER.layer1_window_impl = impl
+        plan = build_layer1_window_plan(cfg, frames[0].view_data).to("cuda")
+    t_plan = time.perf_counter() - t_plan
+    step = make_eval_step(cfg, model, THRESHOLD, window_plan=plan,
+                          with_escape_telemetry=True)
+    counters = [deform_attn.deform_sample, *IMPL_KERNEL.values()]
+    window = IMPL_KERNEL.get(impl)
+    # launches per frame: every layer through the deformable-sampling
+    # kernel, or layer 1 through the window kernel (one launch per level)
+    want_per_frame = {deform_attn.deform_sample: layers - (impl is not None)}
+    if window is not None:
+        want_per_frame[window] = len(SPATIAL_SHAPES)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    deform_attn.deform_sample.launches = 0
-    times = []
+    for fn in counters:
+        fn.launches = 0
+    times, escaped = [], []
     for i, frame in enumerate(frames):
         t0 = time.perf_counter()
-        pred = step(frame.to("cuda"))
+        pred, esc = step(frame.to("cuda"))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        escaped.append(esc.item())
         if tuple(pred.shape) != (1, Q, J, 5):
             fail(f"pred shape {tuple(pred.shape)}")
         if torch.isnan(pred).any():
             fail(f"NaN in the pred of frame {i}")
-        if deform_attn.deform_sample.launches != layers * (i + 1):
-            fail(f"{deform_attn.deform_sample.launches} kernel launches "
-                 f"after {i + 1} frames, expected {layers * (i + 1)}")
-    launches = deform_attn.deform_sample.launches
+        for fn in counters:
+            want = want_per_frame.get(fn, 0) * (i + 1)
+            if fn.launches != want:
+                fail(f"{fn.launches} launches of {fn.__name__} after "
+                     f"{i + 1} frames, expected {want}")
+    launches = {fn.__name__: fn.launches for fn in counters}
     steady = times[SERVE_WARMUP:]
-    phase("serve", frames=SERVE_FRAMES, batch=1, dtype="bfloat16",
-          frames_per_s=len(steady) / sum(steady),
-          first_frame_s=times[0], peak_mem_gib=(
-              torch.cuda.max_memory_allocated() / 2 ** 30),
-          kernel_launches=launches, card=card)
+    phase("serve" if impl is None else "serve_windowed", impl=impl,
+          frames=len(frames), batch=1, dtype="bfloat16",
+          frames_per_s=len(steady) / sum(steady), first_frame_s=times[0],
+          plan_s=t_plan if impl is not None else None,
+          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+          escaped_mass_max=max(escaped), kernel_launches=launches, card=card)
+    if impl is not None and max(escaped) >= 1e-5:
+        fail(f"escaped mass {max(escaped)} at init with the unclamped plan")
     return launches
 
 
@@ -239,28 +444,66 @@ def main():
     card = card_line()
     phase("card", nvidia_smi=card, torch=torch.__version__,
           cuda=torch.version.cuda, device=torch.cuda.get_device_name(0))
+    from mvgformer_tpu_torch.data.synthetic import make_batch
+    from mvgformer_tpu_torch.device import strict_float32
+    from mvgformer_tpu_torch.models.mvgformer import MVGFormer
 
+    strict_float32()
     t0 = time.perf_counter()
-    lib = deform_attn.build()
-    phase("build", seconds=time.perf_counter() - t0, library=str(lib))
+    built = _build.build_all([_build.CSRC / src for src in SOURCES])
+    phase("build", seconds=time.perf_counter() - t0, kernels=[
+        {"source": src, "seconds": sec, "library": str(lib)}
+        for src, (lib, sec) in zip(SOURCES, built)])
 
     worst_f32, (ms, plain_ms) = check_kernel(card)
-    check_slice(card)
-    launches = serve(card)
-    if launches == 0:
-        fail("the serving path never launched the kernel")
+    window_stats = check_window_kernels(card)
+    check_windowed_slice(card, *check_slice(card))
 
-    print(json.dumps({"kernels": [{
+    cfg = flagship_cfg("bfloat16")
+    model = MVGFormer(cfg, generator=torch.Generator().manual_seed(SEED))
+    model = model.cuda()
+    n = max(SERVE_FRAMES, WINDOW_FRAMES)
+    frames = [make_batch(cfg, batch_size=1, seed=SEED + 1 + i,
+                         num_people=3, cam_seed=SEED) for i in range(n)]
+    launches = {"deform_sample": serve(card, cfg, model,
+                                       frames[:SERVE_FRAMES])["deform_sample"]}
+    for impl, kernel in IMPL_KERNEL.items():
+        counts = serve(card, cfg, model, frames[:WINDOW_FRAMES], impl)
+        launches[kernel.__name__] = counts[kernel.__name__]
+    for name, count in launches.items():
+        if count == 0:
+            fail(f"the serving path never launched {name}")
+
+    kernels = [{
         "name": "deform_sample",
         "route": "cuda",
         "source": "mvgformer_tpu_torch/csrc/deform_sample.cu",
         "replaces": "mvgformer_tpu/ops/pallas_deform.py:32",
-        "launches": launches,
+        "launches": launches["deform_sample"],
         "max_abs_err": worst_f32,
         "ms": ms,
         "plain_ms": plain_ms,
         "at": "bfloat16 N=5 Lq=15360 H=8 D=32 L=3 P=4 (dense layer 1)",
-    }]}))
+    }]
+    for kernel, source, replaces in (
+            (window_block.window_block_matmul, "window_block.cu",
+             "mvgformer_tpu/ops/window_pallas.py:34"),
+            (window_dma.window_block_dma, "window_dma.cu",
+             "mvgformer_tpu/ops/window_dma.py:38")):
+        st = window_stats[kernel]
+        kernels.append({
+            "name": kernel.__name__,
+            "route": "cuda",
+            "source": f"mvgformer_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": launches[kernel.__name__],
+            "max_abs_err": st["max_abs_err"],
+            "ms": st["ms"],
+            "plain_ms": st["plain_ms"],
+            "at": "bfloat16 layer-1 plan of the flagship rig, K=28 H=8 D=32 "
+                  "P=4, summed over the 3 levels",
+        })
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,15 +20,20 @@ from mvgformer_tpu_torch.geometry.transforms import (
 )
 
 
-def _to(obj, device):
-    """Move every tensor field of a dataclass (recursively) to `device`."""
+def map_tensors(obj, fn):
+    """Apply `fn` to every tensor field of a dataclass (recursively)."""
     if obj is None:
         return None
     if isinstance(obj, torch.Tensor):
-        return obj.to(device)
+        return fn(obj)
     return dataclasses.replace(obj, **{
-        f.name: _to(getattr(obj, f.name), device)
+        f.name: map_tensors(getattr(obj, f.name), fn)
         for f in dataclasses.fields(obj)})
+
+
+def _to(obj, device):
+    """Move every tensor field of a dataclass (recursively) to `device`."""
+    return map_tensors(obj, lambda t: t.to(device))
 
 
 @dataclasses.dataclass

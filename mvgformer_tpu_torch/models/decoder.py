@@ -34,6 +34,7 @@ from mvgformer_tpu_torch.geometry.transforms import apply_affine
 from mvgformer_tpu_torch.geometry.triangulate import triangulate_dlt
 from mvgformer_tpu_torch.models.mlp import Dense, OffsetNet
 from mvgformer_tpu_torch.ops.projattn import ProjAttn, top_indices
+from mvgformer_tpu_torch.ops.window_sampling import WindowPlan
 
 # flax's nn.LayerNorm default; torch's is 1e-5
 LN_EPS = 1e-6
@@ -138,6 +139,8 @@ class DQDecoderLayer(nn.Module):
                 view_data: ViewData, threshold: float = 0.5,
                 filter_method: str = "threshold",
                 triangulate_topk: Optional[int] = None,
+                window_plan: Optional[WindowPlan] = None,
+                offset_clamp: Optional[float] = None,
                 point_topm: Optional[int] = None):
         """
         Args:
@@ -147,9 +150,14 @@ class DQDecoderLayer(nn.Module):
             src_views:        list of (V*B, h, w, C) maps (view-major
                               fold), finest first.
             view_data:        cameras and crops, fields (B, V, ...).
+            window_plan:      rig-static plan of the windowed sampler
+                              (layer 1 only).
+            offset_clamp:     clamp of the learned sampling offsets, px
+                              (layer 1 only).
         Returns:
             (tgt_update, new_refs (B, Nq, 3), refined_2d (B, V, Nq, 2),
-             projs_2d (B, V, Nq, 2), class_prob (B, Q, 2))
+             projs_2d (B, V, Nq, 2), class_prob (B, Q, 2), escaped mass of
+             the windowed sampler or None)
         """
         B, Nq, C = tgt.shape
         V = view_data.num_views
@@ -167,8 +175,11 @@ class DQDecoderLayer(nn.Module):
         q_fold = q_in[None].expand(V, B, Nq, C).reshape(V * B, Nq, C)
         ref_fold = ref_lvl.transpose(0, 1).reshape(
             V * B, Nq, len(spatial_shapes), 2)
-        attn = self.proj_attn(q_fold, ref_fold, src_views, spatial_shapes,
-                              point_topm=point_topm).reshape(V, B, Nq, C)
+        attn, escaped = self.proj_attn(
+            q_fold, ref_fold, src_views, spatial_shapes,
+            window_plan=window_plan, offset_clamp_px=offset_clamp,
+            point_topm=point_topm)
+        attn = attn.reshape(V, B, Nq, C)
         # zero features whose projection fell outside the image
         attn = attn * bounds.transpose(0, 1)[..., None].to(attn.dtype)
 
@@ -231,7 +242,8 @@ class DQDecoderLayer(nn.Module):
             new_refs = _scatter_queries(new_refs, sel, Q, J, 1)
             refined_out = _scatter_queries(refined_out, sel, Q, J, 2)
             projs_out = _scatter_queries(projs_out, sel, Q, J, 2)
-        return tgt_update, new_refs, refined_out, projs_out, class_prob
+        return (tgt_update, new_refs, refined_out, projs_out, class_prob,
+                escaped)
 
 
 class DQDecoder(nn.Module):
@@ -239,7 +251,11 @@ class DQDecoder(nn.Module):
 
     topk_queries: after the first layer keep the top-K queries by class
     score and run the later layers compacted; their outputs are scattered
-    back to dense (dropped queries read as zeros)."""
+    back to dense (dropped queries read as zeros).
+
+    window_plan and layer1_offset_clamp reach the first layer only, whose
+    sampling centers are the static grid; the first layer's output dict
+    then carries the windowed sampler's "escaped_mass"."""
 
     def __init__(self, num_layers: int, num_joints: int, **layer_kwargs):
         super().__init__()
@@ -251,21 +267,26 @@ class DQDecoder(nn.Module):
     def forward(self, tgt, query_pos, reference_points, src_views,
                 spatial_shapes, view_data, threshold=0.5,
                 filter_method="threshold", topk_queries=None,
+                window_plan=None, layer1_offset_clamp=None,
                 point_topm=None):
         J = self.num_joints
         Q = tgt.shape[1] // J
         outputs = []
         out, qpos, refs, sel = tgt, query_pos, reference_points, None
         for lid, layer in enumerate(self.layers):
-            out, refs, ref2d, projs2d, class_prob = layer(
+            out, refs, ref2d, projs2d, class_prob, escaped = layer(
                 out, qpos, refs, src_views, spatial_shapes, view_data,
                 threshold=threshold, filter_method=filter_method,
                 triangulate_topk=topk_queries if lid == 0 else None,
+                window_plan=window_plan if lid == 0 else None,
+                offset_clamp=layer1_offset_clamp if lid == 0 else None,
                 point_topm=point_topm)
             if sel is None:
                 outputs.append({"hs": out, "refs": refs, "refs_2d": ref2d,
                                 "projs_2d": projs2d,
                                 "class_prob": class_prob})
+                if escaped is not None:
+                    outputs[-1]["escaped_mass"] = escaped
             else:
                 outputs.append({
                     "hs": _scatter_queries(out, sel, Q, J, 1),

@@ -10,7 +10,11 @@ reference init:
   * reference points on a ceil(sqrt(Q))^2 grid over (x, y) at z = 0.5 of
     the normalized space, plus T-pose offsets;
   * the DQ decoder; per-layer outputs {pred_logits, pred_poses,
-    pred_poses_2d, pred_poses_2d_proj}.
+    pred_poses_2d, pred_poses_2d_proj};
+  * the windowed layer-1 serving path (DECODER.layer1_windowed_sampling):
+    `build_layer1_window_plan` buckets the static layer-1 centers once per
+    rig, and `forward(..., window_plan=plan)` samples layer 1 through the
+    window kernels.
 
 Parameter names follow the original torch model, so
 `mvgformer_tpu.utils.torch_convert.convert_mvgformer_state_dict` reads this
@@ -29,11 +33,14 @@ import torch
 from torch import nn
 
 from mvgformer_tpu_torch.config import Config
-from mvgformer_tpu_torch.data.meta import Batch
+from mvgformer_tpu_torch.data.meta import Batch, ViewData, map_tensors
 from mvgformer_tpu_torch.data.synthetic import T_POSE
 from mvgformer_tpu_torch.device import compute_dtype
-from mvgformer_tpu_torch.models.decoder import DQDecoder
+from mvgformer_tpu_torch.models.decoder import (DQDecoder,
+                                                project_reference_points)
 from mvgformer_tpu_torch.models.pose_resnet import PoseResNet
+from mvgformer_tpu_torch.ops.window_sampling import (WindowPlan,
+                                                     build_window_plan)
 
 # the T-pose asset is shared with the JAX package
 _TPOSE_ASSET = (Path(__file__).resolve().parents[2] / "mvgformer_tpu"
@@ -92,9 +99,6 @@ def check_supported(cfg: Config) -> None:
         "DECODER.clamp_refs_to_space": (dec.clamp_refs_to_space, False),
         "DECODER.convert_joint_format_indices": (
             dec.convert_joint_format_indices, None),
-        "DECODER.layer1_windowed_sampling": (dec.layer1_windowed_sampling,
-                                             False),
-        "DECODER.layer1_offset_clamp": (dec.layer1_offset_clamp, None),
     }
     bad = [f"{k}={got!r}" for k, (got, want) in wanted.items()
            if got != want]
@@ -149,14 +153,24 @@ class MVGFormer(nn.Module):
                 cfg.MULTI_PERSON.SPACE_SIZE,
                 cfg.MULTI_PERSON.SPACE_CENTER)), persistent=False)
 
-    def forward(self, batch: Batch, threshold: float = 0.5):
+    def forward(self, batch: Batch, threshold: float = 0.5,
+                window_plan: Optional[WindowPlan] = None):
         """Per decoder layer, a dict of
             pred_logits:        (B, Q, 2) inverse-sigmoid of avg joint prob
             pred_poses:         (B, Q*J, 3) absolute mm
             pred_poses_2d:      (B, V, Q*J, 2) refined 2D (net image, px)
             pred_poses_2d_proj: (B, V, Q*J, 2) projected 2D (net image, px)
+        With a window_plan (`build_layer1_window_plan`), layer 1 samples
+        through the window kernels and its dict also holds
+            escaped_mass:       float32 scalar, the attention mass of
+                                samples that escaped their window.
         """
         dec = self.cfg.DECODER
+        if window_plan is not None and dec.init_ref_method != "sample_space":
+            raise ValueError(
+                "windowed layer-1 sampling requires the rig-static "
+                "'sample_space' reference init (got %r)"
+                % dec.init_ref_method)
         B, V = batch.views.shape[:2]
 
         # backbone on the view-major fold, levels finest-first
@@ -184,9 +198,80 @@ class MVGFormer(nn.Module):
             filter_method=(dec.query_filter_method if dec.filter_query
                            else "all"),
             topk_queries=dec.inference_topk_queries,
+            window_plan=window_plan,
+            layer1_offset_clamp=dec.layer1_offset_clamp,
             point_topm=dec.inference_point_topm)
-        return [{"pred_logits": inverse_sigmoid(lo["class_prob"]),
-                 "pred_poses": lo["refs"],
-                 "pred_poses_2d": lo["refs_2d"],
-                 "pred_poses_2d_proj": lo["projs_2d"]}
-                for lo in layer_outputs]
+        outs = []
+        for lo in layer_outputs:
+            outs.append({"pred_logits": inverse_sigmoid(lo["class_prob"]),
+                         "pred_poses": lo["refs"],
+                         "pred_poses_2d": lo["refs_2d"],
+                         "pred_poses_2d_proj": lo["projs_2d"]})
+            if "escaped_mass" in lo:
+                outs[-1]["escaped_mass"] = lo["escaped_mass"]
+        return outs
+
+
+def feature_spatial_shapes(cfg: Config):
+    """Static (h, w) of each selected backbone level, finest-first: the
+    backbone's levels come out at strides 16, 8, 4 (filtered by membership
+    in DECODER.use_feat_level) and are reversed."""
+    W, H = cfg.NETWORK.IMAGE_SIZE
+    strides = [16, 8, 4]
+    sel = [s for i, s in enumerate(strides)
+           if i in tuple(cfg.DECODER.use_feat_level)][::-1]
+    return tuple((H // s, W // s) for s in sel)
+
+
+def layer1_centers_px(cfg: Config, view_data: ViewData) -> np.ndarray:
+    """(V, Q*J, L, 2) static layer-1 sampling centers, in each level's
+    pixels (loc * size - 0.5): the sample_space grid projected through the
+    rig of the first batch item."""
+    dec = cfg.DECODER
+    shapes = feature_spatial_shapes(cfg)
+    refs = sample_space_reference_points(
+        dec.num_instance, load_tpose(dec.t_pose_dir),
+        cfg.MULTI_PERSON.SPACE_SIZE, cfg.MULTI_PERSON.SPACE_CENTER)
+    vd0 = map_tensors(view_data, lambda t: t[:1].cpu())
+    with torch.no_grad():
+        _, lvl, _ = project_reference_points(
+            torch.from_numpy(refs)[None], vd0, shapes,
+            cfg.NETWORK.IMAGE_SIZE)
+    lvl = lvl[0].numpy()  # (V, Nq, L, 2) normalized per level
+    centers_px = np.empty_like(lvl)
+    for li, (h, w) in enumerate(shapes):
+        centers_px[:, :, li, 0] = lvl[:, :, li, 0] * w - 0.5
+        centers_px[:, :, li, 1] = lvl[:, :, li, 1] * h - 0.5
+    return centers_px
+
+
+def build_layer1_window_plan(cfg: Config, view_data: ViewData,
+                             tile: Optional[int] = None,
+                             halo: Optional[int] = None) -> WindowPlan:
+    """Host-side, once per rig: bucket the static layer-1 sampling centers
+    into feature-map tiles for the windowed sampler. Only the first batch
+    item of view_data is read (a rig is batch-constant). halo defaults to
+    dec_n_points + 2, which makes the windowed op exact at offset init
+    (radial bias <= n_points px), or to ceil(clamp) + 2 under
+    DECODER.layer1_offset_clamp. Call `.to(device)` on the result once."""
+    dec = cfg.DECODER
+    if tile is None:
+        tile = dec.layer1_window_tile
+    if halo is None:
+        halo = dec.layer1_window_halo
+    if halo is None:
+        if dec.layer1_offset_clamp is not None:
+            # clamped offsets: the window is exact once it covers
+            # clamp + 2 px (bilinear stencil + border) past the tile
+            halo = int(np.ceil(dec.layer1_offset_clamp)) + 2
+        else:
+            halo = dec.dec_n_points + 2
+    if (dec.layer1_offset_clamp is not None
+            and dec.layer1_offset_clamp > halo - 2):
+        raise ValueError(
+            "layer1_offset_clamp=%g exceeds halo-2=%d: escaped samples "
+            "would read zero; raise layer1_window_halo"
+            % (dec.layer1_offset_clamp, halo - 2))
+    return build_window_plan(layer1_centers_px(cfg, view_data),
+                             feature_spatial_shapes(cfg), tile=tile,
+                             halo=halo, impl=dec.layer1_window_impl)

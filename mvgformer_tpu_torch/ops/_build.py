@@ -1,0 +1,87 @@
+"""Build and load the port's CUDA sources: one nvcc call and one ctypes load
+per `csrc/*.cu` file.
+
+Each source is compiled for sm_90a into a shared library with a plain C
+interface, at first use, into `build/kernels/` at the root of the checkout.
+The library's name carries a hash of the source, the shared headers of
+`csrc/` and the flags, so an edit rebuilds and an unchanged source loads the
+library already built. The compiler's report (ptxas registers, shared memory
+and spills) is kept beside the library as `<name>.log`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import List, Sequence, Tuple
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.isfile(path):
+        return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME): the port's kernels are built "
+            "from source with the CUDA toolkit")
+    return found
+
+
+def library_path(src: Path) -> Path:
+    """Where the shared library for this source, the headers and the flags
+    lives."""
+    key = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{key.hexdigest()[:16]}.so"
+
+
+def build(src: Path) -> Path:
+    """Compile `src` unless its library exists; return the library."""
+    lib = library_path(src)
+    if lib.is_file():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                           f"\n{proc.stdout}{proc.stderr}")
+    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)
+    return lib
+
+
+def _timed_build(src: Path) -> Tuple[Path, float]:
+    t0 = time.perf_counter()
+    lib = build(src)
+    return lib, time.perf_counter() - t0
+
+
+def build_all(sources: Sequence[Path]) -> List[Tuple[Path, float]]:
+    """Build every source at once, one nvcc process each; return each
+    library with the seconds its build took."""
+    with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
+        return list(pool.map(_timed_build, sources))
+
+
+@functools.lru_cache(maxsize=None)
+def load(src: Path) -> ctypes.CDLL:
+    """The library of `src`, built if needed, loaded once per process."""
+    return ctypes.CDLL(str(build(src)))

@@ -7,76 +7,34 @@
       `csrc/deform_sample.cu` (forward only) or raises. Nothing falls back.
 
 The kernel is compiled with nvcc at first use into `build/kernels/` at the
-root of the checkout, keyed by a hash of its source and flags, and bound
-with ctypes. `deform_sample.launches` counts kernel launches; nothing else
-changes it.
+root of the checkout (`ops/_build.py`) and bound with ctypes.
+`deform_sample.launches` counts kernel launches; nothing else changes it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Sequence, Tuple
 
 import torch
 
-from mvgformer_tpu_torch.ops import sampling
+from mvgformer_tpu_torch.ops import _build, sampling
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "deform_sample.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_SRC = _build.CSRC / "deform_sample.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_LEVELS = 4
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    path = os.path.join(home, "bin", "nvcc")
-    if os.path.isfile(path):
-        return path
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError(
-            "nvcc not found (set CUDA_HOME): the deformable-sampling kernel "
-            "is built from source with the CUDA toolkit")
-    return found
-
-
-def _library_path() -> Path:
-    """Where the shared library for the current source and flags lives."""
-    key = hashlib.sha256(_SRC.read_bytes() + " ".join(_NVCC_FLAGS).encode())
-    return _BUILD_DIR / f"deform_sample-{key.hexdigest()[:16]}.so"
-
-
 def build() -> Path:
-    """Compile the kernel unless the library for this source exists.
-
-    The compiler's output (ptxas registers, shared memory and spills) is
-    kept beside the library as `<name>.log`."""
-    lib = _library_path()
-    if lib.is_file():
-        return lib
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stdout}{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
+    """Compile the kernel unless the library for this source exists."""
+    return _build.build(_SRC)
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+    lib = _build.load(_SRC)
     fn = lib.mvg_deform_sample_forward
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7

@@ -8,7 +8,9 @@ num_feature_levels = 1 and several feature maps, the (level, head, point)
 axes are scrambled in a trained-in way that converted checkpoints rely on.
 
 Deformable sampling goes through `ops.deform_attn.deform_sample`, which runs
-the Hopper kernel on CUDA tensors.
+the Hopper kernel on CUDA tensors; with a window plan (layer 1 of the
+windowed serving path) it goes through `ops.window_sampling.window_sample`
+and the window kernels instead.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from torch import nn
 from mvgformer_tpu_torch.models.mlp import Dense
 from mvgformer_tpu_torch.ops.deform_attn import deform_sample
 from mvgformer_tpu_torch.ops.sampling import bilinear_sample
+from mvgformer_tpu_torch.ops.window_sampling import WindowPlan, window_sample
 
 
 def radial_offsets_bias(n_heads: int, n_levels: int,
@@ -71,17 +74,26 @@ class ProjAttn(nn.Module):
     def forward(self, query: torch.Tensor, reference_points: torch.Tensor,
                 src_views: Sequence[torch.Tensor],
                 spatial_shapes: Sequence[Tuple[int, int]],
-                point_topm: Optional[int] = None) -> torch.Tensor:
+                window_plan: Optional[WindowPlan] = None,
+                offset_clamp_px: Optional[float] = None,
+                point_topm: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """
         Args:
             query:            (N, Lq, C) per-view queries (pos-embedded).
             reference_points: (N, Lq, L, 2) per-level [0, 1] centers.
             src_views:        per-level (N, h, w, C) maps (NHWC).
             spatial_shapes:   static ((h, w), ...) matching src_views.
+            window_plan:      rig-static layer-1 plan: sample through the
+                              window kernels (ops/window_sampling.py).
+            offset_clamp_px:  clamp the learned offsets to +-this many
+                              pixels of each level
+                              (DECODER.layer1_offset_clamp).
             point_topm:       keep only the top-m of P points per
                               (query, head, level) by attention weight.
         Returns:
-            (N, Lq, C) attended features.
+            (N, Lq, C) attended features, and the escaped attention mass of
+            the windowed sampler (a float32 scalar; None without a plan).
         """
         N, Lq, C = query.shape
         H, P = self.n_heads, self.n_points
@@ -111,6 +123,10 @@ class ProjAttn(nn.Module):
         # row-major reinterpretation across the stacked level axis
         Lt = len(src_views) * self.n_levels
         offsets = offsets.reshape(N, Lq, H, Lt, P, 2)
+        if offset_clamp_px is not None:
+            # in each level's own pixel units, before the division by (w, h)
+            offsets = torch.clamp(offsets, -float(offset_clamp_px),
+                                  float(offset_clamp_px))
         weights = F.softmax(weights.reshape(N, Lq, H, Lt * P), dim=-1)
         weights = weights.reshape(N, Lq, H, Lt, P)
 
@@ -129,7 +145,15 @@ class ProjAttn(nn.Module):
             locations = torch.gather(
                 locations, 4, idx[..., None].expand(idx.shape + (2,)))
 
-        out = deform_sample(value.contiguous(), spatial_shapes,
-                            locations.float().contiguous(),
-                            weights.to(value.dtype).contiguous())
-        return self.output_proj(out)
+        escaped = None
+        if window_plan is not None:
+            # the windowed sampler takes float32 weights, the gather takes
+            # them in the value dtype
+            out, escaped = window_sample(value, spatial_shapes,
+                                         locations.float(), weights.float(),
+                                         window_plan)
+        else:
+            out = deform_sample(value.contiguous(), spatial_shapes,
+                                locations.float().contiguous(),
+                                weights.to(value.dtype).contiguous())
+        return self.output_proj(out), escaped

@@ -1,6 +1,7 @@
 """The port imports and runs with jax and flax blocked: in a fresh
 interpreter where importing either raises, import every module of
-mvgformer_tpu_torch and run a toy forward and eval step on the CPU."""
+mvgformer_tpu_torch and run a toy forward and eval step on the CPU, through
+the gather and through each windowed layer-1 impl."""
 
 import os
 import subprocess
@@ -38,9 +39,18 @@ SCRIPT = textwrap.dedent("""
     cfg.DATASET.CAMERA_NUM = 3
     cfg.MULTI_PERSON.MAX_PEOPLE_NUM = 4
     model = MVGFormer(cfg, generator=torch.Generator().manual_seed(0))
-    pred = make_eval_step(cfg, model, 0.1)(make_batch(cfg, seed=1))
+    batch = make_batch(cfg, seed=1)
+    pred = make_eval_step(cfg, model, 0.1)(batch)
     assert pred.shape == (1, 16, 15, 5), pred.shape
     assert not torch.isnan(pred).any()
+    from mvgformer_tpu_torch.models.mvgformer import build_layer1_window_plan
+    for impl in ("xla", "pallas", "pallas_dma"):
+        cfg.DECODER.layer1_window_impl = impl
+        plan = build_layer1_window_plan(cfg, batch.view_data)
+        pred, esc = make_eval_step(cfg, model, 0.1, window_plan=plan,
+                                   with_escape_telemetry=True)(batch)
+        assert pred.shape == (1, 16, 15, 5), pred.shape
+        assert not torch.isnan(pred).any() and float(esc) < 1e-5
     jax_side = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "flax", "jaxlib",
                                              "mvgformer_tpu")

@@ -61,7 +61,7 @@ def test_projattn_matches_jax(rng, perturb, topm):
     jmod, params, jargs, tmod, targs = _setup(rng, perturb)
     want = np.asarray(jmod.apply(params, *jargs, point_topm=topm))
     with torch.no_grad():
-        got = tmod(*targs, point_topm=topm).numpy()
+        got = tmod(*targs, point_topm=topm)[0].numpy()
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
 
 
@@ -97,3 +97,19 @@ def test_fresh_init_matches_jax_init():
     for lin in (mod.sampling_offsets, mod.attention_weights):
         assert torch.count_nonzero(lin.weight) == 0
     assert torch.count_nonzero(mod.attention_weights.bias) == 0
+
+
+@pytest.mark.parametrize("topm", [None, 4])
+def test_projattn_offset_clamp_matches_jax(rng, topm):
+    """DECODER.layer1_offset_clamp without a window plan: the offsets are
+    clamped in each level's pixels before the division by (w, h), and the
+    gather samples at the clamped locations."""
+    jmod, params, jargs, tmod, targs = _setup(rng, perturb=True)
+    want = np.asarray(jmod.apply(params, *jargs, offset_clamp_px=0.5,
+                                 point_topm=topm))
+    with torch.no_grad():
+        got, escaped = tmod(*targs, offset_clamp_px=0.5, point_topm=topm)
+        free, _ = tmod(*targs, point_topm=topm)
+    assert escaped is None
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+    assert np.abs(free.numpy() - want).max() > 10 * TOL  # the clamp binds
