@@ -8,8 +8,9 @@ into build/kernels/. Phases, each printed on its own line; any failure
 exits non-zero:
 
   1. find the card and print its name and power limit;
-  2. build the three kernels at once (deformable sampling and the two
-     window kernels), one nvcc each;
+  2. build the five sources at once (deformable sampling, the two window
+     kernels, the corner-table build and the table gather-reduce forward
+     and backward), one nvcc each;
   3. hold the deformable-sampling kernel against its plain PyTorch version
      on the card at the flagship shapes (float32 and bfloat16, edge and
      non-finite locations included) and time both with CUDA events;
@@ -29,7 +30,25 @@ exits non-zero:
      through core.infer.make_eval_step; shape, NaN and kernel-launch checks,
      frames/s and peak device memory;
   8. serve the windowed path the same way, once per impl, with the plan
-     built once, and the escaped mass read per frame.
+     built once, and the escaped mass read per frame. Serving launches no
+     training kernel;
+  9. the corner-table build (B2) against its plain version on the flagship
+     value, every level, float32 and bfloat16: bit for bit; both timed;
+ 10. the table gather-reduce (B3) forward and backward against the plain
+     versions at one training layer's shape (40 pairs, 122,880 samples per
+     level, rows from random locations with border and missing samples),
+     float32 and bfloat16, both timed, and the peak memory of one layer's
+     forward and backward through the kernels and through plain autograd;
+ 11. the corner sampler (B2 + B3) against the deformable-sampling kernel
+     (B1), the same contract, float32;
+ 12. one training step of a toy config in float32 (TF32 off), kernels on
+     the card against the plain path on the CPU: every loss term and every
+     gradient;
+ 13. train: the flagship training config (bfloat16, batch 1, gt match,
+     Jacobi DLT, remat, dropout 0.1), 2 warm-up and 5 timed steps through
+     core.train.make_train_step on batches made before the clock starts;
+     finite losses, the backbone unchanged, non-zero sampler gradients,
+     the launch counts the design predicts, steps/s and peak memory.
 
 The last three lines are the kernel table, the card, and the device, as
 JSON.
@@ -37,6 +56,7 @@ JSON.
 
 import copy
 import json
+import math
 import subprocess
 import sys
 import time
@@ -46,19 +66,28 @@ import numpy as np
 import torch
 
 from mvgformer_tpu_torch.ops import (_build, deform_attn, sampling,
+                                     table_build, table_gather,
                                      window_block, window_dma,
                                      window_sampling)
 
 REPO = Path(__file__).resolve().parent
 SPATIAL_SHAPES = ((128, 240), (64, 120), (32, 60))  # flagship levels
 N_VIEWS, HEADS, HEAD_DIM = 5, 8, 32
+TRAIN_LQ, TRAIN_P = 1024 * 15, 8  # dense training layer: Q*J queries
 SEED = 0
 THRESHOLD = 0.1
 SERVE_FRAMES, SERVE_WARMUP = 6, 2
 WINDOW_FRAMES = 10  # distinct frames per windowed impl, 2 of them warm-up
-SOURCES = ("deform_sample.cu", "window_block.cu", "window_dma.cu")
+TRAIN_STEPS, TRAIN_WARMUP = 7, 2
+SOURCES = ("deform_sample.cu", "window_block.cu", "window_dma.cu",
+           "table_build.cu", "table_gather.cu")
 IMPL_KERNEL = {"pallas": window_block.window_block_matmul,
                "pallas_dma": window_dma.window_block_dma}
+TRAIN_KERNELS = (table_build.build_corner_table,
+                 table_gather.gather_reduce_forward,
+                 table_gather.gather_reduce_backward)
+ALL_KERNELS = (deform_attn.deform_sample, *IMPL_KERNEL.values(),
+               *TRAIN_KERNELS)
 PLAIN = {window_block.window_block_matmul:
          window_block.window_block_matmul_plain,
          window_dma.window_block_dma: window_dma.window_block_dma_plain}
@@ -397,10 +426,11 @@ def serve(card, cfg, model, frames, impl=None):
     t_plan = time.perf_counter() - t_plan
     step = make_eval_step(cfg, model, THRESHOLD, window_plan=plan,
                           with_escape_telemetry=True)
-    counters = [deform_attn.deform_sample, *IMPL_KERNEL.values()]
+    counters = ALL_KERNELS
     window = IMPL_KERNEL.get(impl)
     # launches per frame: every layer through the deformable-sampling
-    # kernel, or layer 1 through the window kernel (one launch per level)
+    # kernel, or layer 1 through the window kernel (one launch per level);
+    # none of the training sampler's
     want_per_frame = {deform_attn.deform_sample: layers - (impl is not None)}
     if window is not None:
         want_per_frame[window] = len(SPATIAL_SHAPES)
@@ -435,6 +465,324 @@ def serve(card, cfg, model, frames, impl=None):
           escaped_mass_max=max(escaped), kernel_launches=launches, card=card)
     if impl is not None and max(escaped) >= 1e-5:
         fail(f"escaped mass {max(escaped)} at init with the unclamped plan")
+    return launches
+
+
+def level_views(value):
+    """The (N, H, h, w, D) level views of a (N, Len_in, H, D) value, strided
+    as the corner sampler hands them to the table build."""
+    sizes = [h * w for h, w in SPATIAL_SHAPES]
+    return [v.unflatten(2, (h, w)) for v, (h, w) in zip(
+        value.transpose(1, 2).split(sizes, dim=2), SPATIAL_SHAPES)]
+
+
+def check_table_build(card):
+    """Phase 9: B2 against its plain version on the flagship value, bit for
+    bit; returns the float32 worst error (0 when equal) and the summed
+    bfloat16 ms and plain ms over the three levels."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    len_in = sum(h * w for h, w in SPATIAL_SHAPES)
+    stats = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        value = torch.randn(N_VIEWS, len_in, HEADS, HEAD_DIM, device="cuda",
+                            generator=gen).to(dtype)
+        views = level_views(value)
+        equal = all(torch.equal(table_build.build_corner_table(v),
+                                table_build.build_corner_table_plain(v))
+                    for v in views)
+        torch.cuda.synchronize()
+        ms = sum(cuda_ms(lambda v=v: table_build.build_corner_table(v))
+                 for v in views)
+        plain_ms = sum(cuda_ms(lambda v=v: table_build.build_corner_table_plain(
+            v), runs=5, warmup=1) for v in views)
+        phase("table_build_vs_plain", N=N_VIEWS, H=HEADS, D=HEAD_DIM,
+              levels=SPATIAL_SHAPES, rows=[
+                  (h + 2) * table_build.padded_width(w)
+                  for h, w in SPATIAL_SHAPES],
+              dtype=str(dtype), bitwise_equal=equal, ms=ms,
+              plain_ms=plain_ms, card=card)
+        if not equal:
+            fail(f"table_build differs from its plain version ({dtype})")
+        stats[dtype] = (ms, plain_ms)
+    return stats[torch.bfloat16]
+
+
+def training_layer_inputs(dtype, gen):
+    """value, locations and weights of one dense training layer (Lq = 1024
+    queries x 15 joints, P = 8) with border and far-outside locations; the
+    non-finite ones of `sampling_inputs` are made far-outside, since only
+    finite locations reach the table rows."""
+    value, loc, aw = sampling_inputs(TRAIN_LQ, TRAIN_P, dtype, gen)
+    loc = torch.nan_to_num(loc, nan=5.0, posinf=50.0, neginf=-50.0)
+    return value, loc, aw
+
+
+def layer_peak_gib(fn, tables, samples, cts):
+    """Peak device memory (GiB above what was allocated before) of one
+    layer's gather-reduce forward and backward through `fn`."""
+    tbls = [t.detach().requires_grad_(True) for t in tables]
+    w4s = [w.detach().requires_grad_(True) for _, w in samples]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    outs = [fn(t, idx, w) for t, (idx, _), w in zip(tbls, samples, w4s)]
+    torch.autograd.backward(outs, cts)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    del outs, tbls, w4s
+    torch.cuda.empty_cache()
+    return peak
+
+
+def check_table_gather(card):
+    """Phase 10: B3 forward and backward against the plain versions at one
+    training layer's shape. Returns, per kernel, the float32 worst error
+    and the bfloat16 ms and plain ms summed over the three levels."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    fwd, bwd = (table_gather.gather_reduce_forward,
+                table_gather.gather_reduce_backward)
+    stats = {fwd: {"max_abs_err": 0.0}, bwd: {"max_abs_err": 0.0}}
+    for dtype in (torch.float32, torch.bfloat16):
+        value, loc, aw = training_layer_inputs(dtype, gen)
+        with torch.no_grad():
+            tables, _ = table_build.build_corner_tables(
+                value.transpose(1, 2), SPATIAL_SHAPES)
+            samples = sampling.corner_samples(SPATIAL_SHAPES, loc, aw, dtype)
+        cts = [torch.randn(idx.shape + (HEAD_DIM,), device="cuda",
+                           generator=gen).to(dtype) for idx, _ in samples]
+        errs = {fwd: 0.0, bwd: 0.0, "bwd_rel": 0.0}
+        ok = True
+        for tbl, (idx, w4), ct in zip(tables, samples, cts):
+            out = fwd(tbl, idx, w4)
+            g_tbl, g_w4 = bwd(tbl, idx, w4, ct)
+            torch.cuda.synchronize()
+            f32 = (tbl.float(), idx, w4.float())
+            ref = table_gather.deform_gather_reduce_plain(*f32)
+            ref_t, ref_w = table_gather.gather_reduce_backward_plain(
+                *f32, ct.float())
+            err = (out.float() - ref).abs().max().item()
+            errs[fwd] = max(errs[fwd], err)
+            if dtype == torch.float32:
+                ok &= err <= 1e-5
+            else:
+                ok &= torch.allclose(out.float(), ref, atol=2e-2, rtol=2e-2)
+            for got, want in ((g_tbl, ref_t), (g_w4, ref_w)):
+                err = (got.float() - want).abs().max().item()
+                scale = want.abs().max().item()
+                errs[bwd] = max(errs[bwd], err)
+                errs["bwd_rel"] = max(errs["bwd_rel"], err / scale)
+                if dtype == torch.float32:
+                    ok &= err <= 1e-4 * scale
+                else:
+                    ok &= torch.allclose(got.float(), want,
+                                         atol=2e-2 * scale, rtol=2e-2)
+            del out, g_tbl, g_w4, ref, ref_t, ref_w
+        times = {
+            "fwd_ms": sum(cuda_ms(lambda a=a: fwd(*a)) for a in zip(
+                tables, *zip(*samples))),
+            "plain_fwd_ms": sum(cuda_ms(
+                lambda a=a: table_gather.deform_gather_reduce_plain(*a),
+                runs=5, warmup=1) for a in zip(tables, *zip(*samples))),
+            "bwd_ms": sum(cuda_ms(lambda a=a: bwd(*a)) for a in zip(
+                tables, *zip(*samples), cts)),
+            "plain_bwd_ms": sum(cuda_ms(
+                lambda a=a: table_gather.gather_reduce_backward_plain(*a),
+                runs=5, warmup=1) for a in zip(tables, *zip(*samples), cts)),
+        }
+        peaks = {
+            "peak_gib_kernel_autograd": layer_peak_gib(
+                table_gather.deform_gather_reduce, tables, samples, cts),
+            "peak_gib_plain_autograd": layer_peak_gib(
+                table_gather.deform_gather_reduce_plain, tables, samples,
+                cts),
+        }
+        phase("table_gather_vs_plain", NH=N_VIEWS * HEADS,
+              S_per_level=TRAIN_LQ * TRAIN_P, D=HEAD_DIM,
+              table_rows=[t.shape[1] for t in tables], dtype=str(dtype),
+              fwd_max_abs_err=errs[fwd], bwd_max_abs_err=errs[bwd],
+              bwd_max_err_per_max_grad=errs["bwd_rel"],
+              ok=bool(ok), **times, **peaks, card=card)
+        if not ok:
+            fail(f"table_gather disagrees with its plain versions ({dtype})")
+        if dtype == torch.float32:
+            stats[fwd]["max_abs_err"] = errs[fwd]
+            stats[bwd]["max_abs_err"] = errs[bwd]
+        else:
+            stats[fwd].update(ms=times["fwd_ms"],
+                              plain_ms=times["plain_fwd_ms"])
+            stats[bwd].update(ms=times["bwd_ms"],
+                              plain_ms=times["plain_bwd_ms"], **peaks)
+        del tables, samples, cts, value, loc, aw
+        torch.cuda.empty_cache()
+    return stats
+
+
+def check_corner_sampler(card):
+    """Phase 11: the corner sampler (B2 + B3) against B1 on the same
+    float32 inputs of a dense training layer. The locations lie on a 2^-16
+    grid, so loc * size - 0.5 is exact in float32 whether or not the
+    compiler fuses the multiply-add (B1's nvcc does, torch does not): an
+    unfused rounding at x ~ 240 px moves a bilinear weight by ~1e-5."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    value, loc, aw = training_layer_inputs(torch.float32, gen)
+    loc = torch.round(loc * 2.0 ** 16) / 2.0 ** 16
+    with torch.no_grad():
+        got = sampling.deform_sample_corner(value, SPATIAL_SHAPES, loc, aw)
+        want = deform_attn.deform_sample(value, SPATIAL_SHAPES, loc, aw)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        ms = cuda_ms(lambda: sampling.deform_sample_corner(
+            value, SPATIAL_SHAPES, loc, aw))
+        b1_ms = cuda_ms(lambda: deform_attn.deform_sample(
+            value, SPATIAL_SHAPES, loc, aw))
+    phase("corner_sampler_vs_deform_sample", N=N_VIEWS, Lq=TRAIN_LQ,
+          P=TRAIN_P, dtype="float32", max_abs_err=err, ok=err <= 1e-5,
+          ms=ms, deform_sample_ms=b1_ms, card=card)
+    if err > 1e-5:
+        fail(f"the corner sampler differs from deform_sample by {err}")
+
+
+def toy_train_cfg():
+    """A small float32 training config: 96x64 images, 3 views, d_model 32,
+    4 heads, 2 points, 2 layers, 16 queries, Jacobi DLT, no dropout (the
+    CPU's and the card's generators draw different masks)."""
+    from mvgformer_tpu_torch.config import load_config
+
+    cfg = load_config()
+    cfg.NETWORK.IMAGE_SIZE = [96, 64]
+    cfg.DECODER.d_model = 32
+    cfg.DECODER.dim_feedforward = 64
+    cfg.DECODER.nhead = 4
+    cfg.DECODER.dec_n_points = 2
+    cfg.DECODER.num_decoder_layers = 2
+    cfg.DECODER.num_instance = 16
+    cfg.DECODER.triangulation_method = "jacobi"
+    cfg.DECODER.dropout = 0.0
+    cfg.POSE_RESNET.NUM_DECONV_FILTERS = [32, 32, 32]
+    cfg.DATASET.CAMERA_NUM = 3
+    cfg.MULTI_PERSON.MAX_PEOPLE_NUM = 4
+    cfg.PARALLEL.COMPUTE_DTYPE = "float32"
+    return cfg
+
+
+def check_train_step(card):
+    """Phase 12: one training step of the toy config, kernels on the card
+    against the plain path on the CPU, float32 with TF32 off: loss terms
+    at rtol 1e-4, every gradient within 1e-3 of its leaf's largest."""
+    from mvgformer_tpu_torch.core.train import (create_train_state,
+                                                make_train_step)
+    from mvgformer_tpu_torch.data.synthetic import make_batch
+    from mvgformer_tpu_torch.models.mvgformer import MVGFormer
+
+    cfg = toy_train_cfg()
+    model_cpu = MVGFormer(cfg, generator=torch.Generator().manual_seed(SEED))
+    model_gpu = copy.deepcopy(model_cpu).cuda()
+    batch = make_batch(cfg, batch_size=1, seed=SEED, num_people=2)
+    before = [fn.launches for fn in TRAIN_KERNELS]
+    results = []
+    for model, b in ((model_gpu, batch.to("cuda")), (model_cpu, batch)):
+        state, tx = create_train_state(cfg, model)
+        _, metrics = make_train_step(cfg, model, tx)(state, b)
+        results.append((metrics, {k: p.grad for k, p in
+                                  model.named_parameters()}))
+    (m_gpu, g_gpu), (m_cpu, g_cpu) = results
+    if [fn.launches for fn in TRAIN_KERNELS] == before:
+        fail("the card's training step launched no training kernel")
+    loss_err = max(abs(m_gpu[k].item() - m_cpu[k].item())
+                   / max(abs(m_cpu[k].item()), 1e-6) for k in m_cpu)
+    grad_err, worst = 0.0, None
+    for k, g in g_cpu.items():
+        if g is None:
+            if g_gpu[k] is not None:
+                fail(f"{k} has a gradient on the card only")
+            continue
+        rel = ((g_gpu[k].cpu() - g).abs().max()
+               / max(g.abs().max().item(), 1e-12)).item()
+        if rel > grad_err:
+            grad_err, worst = rel, k
+    ok = loss_err <= 1e-4 and grad_err <= 1e-3
+    phase("train_step_card_vs_cpu", dtype="float32",
+          loss_max_rel_err=loss_err, grad_max_rel_err=grad_err,
+          worst_grad=worst, ok=ok, card=card)
+    if not ok:
+        fail("the card's training step disagrees with the CPU's")
+
+
+def train(card):
+    """Phase 13: the flagship training config through make_train_step.
+    Every kernel count is set to 0 first; returns the counts after the
+    run, the steps/s and the peak memory."""
+    from mvgformer_tpu_torch.config import load_config
+    from mvgformer_tpu_torch.core.train import (create_train_state,
+                                                make_train_step)
+    from mvgformer_tpu_torch.data.synthetic import make_batch
+    from mvgformer_tpu_torch.models.mvgformer import MVGFormer
+
+    cfg = load_config(str(REPO / "configs" / "panoptic"
+                          / "knn5-lr4-q1024.yaml"))
+    cfg.DECODER.triangulation_method = "jacobi"
+    cfg.PARALLEL.COMPUTE_DTYPE = "bfloat16"
+    layers = cfg.DECODER.num_decoder_layers
+    model = MVGFormer(cfg, generator=torch.Generator().manual_seed(SEED))
+    model = model.cuda()
+    batches = [make_batch(cfg, batch_size=1, seed=SEED + 100 + i,
+                          num_people=3, cam_seed=SEED).to("cuda")
+               for i in range(TRAIN_STEPS)]
+    state, tx = create_train_state(cfg, model)
+    step = make_train_step(cfg, model, tx)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    backbone = {k: v.clone() for k, v in model.state_dict().items()
+                if k.startswith("backbone.")}
+    # launches per step: per layer and level one table build and one
+    # gather-reduce forward in the forward and again in the remat
+    # recompute, one gather-reduce backward; nothing else
+    L = len(SPATIAL_SHAPES)
+    remat = 2 if cfg.PARALLEL.REMAT_DECODER else 1
+    want_per_step = {table_build.build_corner_table: remat * L * layers,
+                     table_gather.gather_reduce_forward: remat * L * layers,
+                     table_gather.gather_reduce_backward: L * layers}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in ALL_KERNELS:
+        fn.launches = 0
+    times = []
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        bad = [k for k, v in metrics.items() if not torch.isfinite(v)]
+        if bad:
+            fail(f"non-finite {bad} in training step {i}")
+        for fn in ALL_KERNELS:
+            want = want_per_step.get(fn, 0) * (i + 1)
+            if fn.launches != want:
+                fail(f"{fn.launches} launches of {fn.__name__} after "
+                     f"{i + 1} steps, expected {want}")
+    launches = {fn.__name__: fn.launches for fn in ALL_KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    sd = model.state_dict()
+    if not all(torch.equal(v, sd[k]) for k, v in backbone.items()):
+        fail("the frozen backbone changed")
+    grads = {}
+    for i in range(layers):
+        for lin in ("sampling_offsets", "attention_weights", "output_proj"):
+            g = model.decoder.layers[i].proj_attn.get_submodule(lin).weight.grad
+            grads[f"layer{i}.{lin}"] = (float("nan") if g is None
+                                        else g.abs().max().item())
+    dead = [k for k, v in grads.items() if not (math.isfinite(v) and v > 0)]
+    if dead:
+        fail(f"no finite non-zero gradient reached {dead}")
+    steady = times[TRAIN_WARMUP:]
+    phase("train", steps=len(times), batch=1, dtype="bfloat16",
+          solver="jacobi", remat=cfg.PARALLEL.REMAT_DECODER,
+          dropout=cfg.DECODER.dropout, steps_per_s=len(steady) / sum(steady),
+          first_step_s=times[0], step_s=times,
+          peak_mem_gib=peak, losses={k: v.item() for k, v in metrics.items()},
+          sampler_grad_max_abs=grads, kernel_launches=launches,
+          launches_per_step={fn.__name__: n for fn, n in
+                             want_per_step.items()}, card=card)
     return launches
 
 
@@ -473,6 +821,17 @@ def main():
     for name, count in launches.items():
         if count == 0:
             fail(f"the serving path never launched {name}")
+    del model, frames
+    torch.cuda.empty_cache()
+
+    build_ms, build_plain_ms = check_table_build(card)
+    gather_stats = check_table_gather(card)
+    check_corner_sampler(card)
+    check_train_step(card)
+    train_launches = train(card)
+    for fn in TRAIN_KERNELS:
+        if train_launches[fn.__name__] == 0:
+            fail(f"the training path never launched {fn.__name__}")
 
     kernels = [{
         "name": "deform_sample",
@@ -502,6 +861,36 @@ def main():
             "plain_ms": st["plain_ms"],
             "at": "bfloat16 layer-1 plan of the flagship rig, K=28 H=8 D=32 "
                   "P=4, summed over the 3 levels",
+        })
+    kernels.append({
+        "name": "build_corner_table",
+        "route": "cuda",
+        "source": "mvgformer_tpu_torch/csrc/table_build.cu",
+        "replaces": "mvgformer_tpu/ops/table_pallas.py:60",
+        "launches": train_launches["build_corner_table"],
+        "max_abs_err": 0.0,
+        "ms": build_ms,
+        "plain_ms": build_plain_ms,
+        "at": "bfloat16 N=5 H=8 D=32, the 3 flagship levels summed "
+              "(bit for bit against the plain version)",
+    })
+    for fn, replaces in (
+            (table_gather.gather_reduce_forward,
+             "mvgformer_tpu/ops/onehot_gather.py:59"),
+            (table_gather.gather_reduce_backward,
+             "mvgformer_tpu/ops/onehot_gather.py:216")):
+        st = gather_stats[fn]
+        kernels.append({
+            "name": fn.__name__,
+            "route": "cuda",
+            "source": "mvgformer_tpu_torch/csrc/table_gather.cu",
+            "replaces": replaces,
+            "launches": train_launches[fn.__name__],
+            "max_abs_err": st["max_abs_err"],
+            "ms": st["ms"],
+            "plain_ms": st["plain_ms"],
+            "at": "bfloat16 NH=40 S=122880 D=32 per level, the 3 flagship "
+                  "levels summed (one training layer)",
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,0 +1,258 @@
+"""The training step: match -> forward -> criterion -> backward -> clip ->
+Adam.
+
+Port of `mvgformer_tpu/core/train.py`. The optimizer is written out as
+optax composes it there, so the two frameworks update alike:
+
+    apply_if_finite(                      # TRAIN.SKIP_NONFINITE only
+      chain(clip_by_global_norm(TRAIN.clip_max_norm),
+            multi_transform({main: adam(lr), proj: adam(lr * mult),
+                             frozen: set_to_zero()})))
+
+  * one global norm over every gradient, the frozen ones included (they
+    are absent here, zeros in JAX); the gradients are scaled by
+    max_norm / norm only when norm >= max_norm, with no epsilon;
+  * Adam with b1 0.9, b2 0.999, eps 1e-8 outside the square root, bias
+    corrected; the step size follows `make_lr_schedule` per group: 'proj'
+    (names holding 'sampling_offsets' or 'reference_points') at
+    DECODER.lr_linear_proj_mult times 'main'; 'frozen' (the backbone unless
+    TRAIN.TRAIN_BACKBONE) is never updated;
+  * with SKIP_NONFINITE a step whose gradients are not all finite updates
+    nothing and does not advance Adam, unless it is the 101st such step in
+    a row (optax's max_consecutive_errors=100); `notfinite_total` counts
+    them.
+
+The model's parameters are the state's parameters: a step updates them in
+place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict, Iterable, Mapping, Optional, Tuple
+
+import torch
+
+from mvgformer_tpu_torch.config import Config
+from mvgformer_tpu_torch.core.criterion import compute_losses, match_queries
+from mvgformer_tpu_torch.data.meta import Batch
+from mvgformer_tpu_torch.models.mvgformer import MVGFormer
+from mvgformer_tpu_torch.ops.window_sampling import WindowPlan
+
+MAX_CONSECUTIVE_ERRORS = 100
+
+
+@dataclasses.dataclass
+class OptState:
+    count: int                    # Adam and schedule steps taken
+    mu: Dict[str, torch.Tensor]   # first moments of the updated params
+    nu: Dict[str, torch.Tensor]   # second moments
+    notfinite_count: int = 0      # non-finite steps in a row
+    total_notfinite: int = 0      # non-finite steps in all
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    model: MVGFormer
+    opt_state: OptState
+
+
+def make_lr_schedule(cfg: Config, steps_per_epoch: int
+                     ) -> Callable[[int], float]:
+    """step -> learning rate: multistep (LR_FACTOR at each LR_STEP epoch) or
+    cosine over END_EPOCH, joined at `warmup` steps to a linear warmup from
+    0 (TRAIN.WARMUP_EPOCHS); the multistep boundaries sit at
+    epoch * steps_per_epoch - warmup steps of the main schedule."""
+    base = cfg.TRAIN.LR
+    total = cfg.TRAIN.END_EPOCH * steps_per_epoch
+    warmup = int(cfg.TRAIN.WARMUP_EPOCHS * steps_per_epoch)
+    if cfg.TRAIN.LR_SCHEDULER == "cosine":
+        decay_steps = max(total - warmup, 1)
+
+        def main(step):
+            count = min(step, decay_steps)
+            return base * 0.5 * (1.0 + math.cos(math.pi * count
+                                                / decay_steps))
+    else:
+        boundaries = sorted({max(int(e) * steps_per_epoch - warmup, 1):
+                             cfg.TRAIN.LR_FACTOR
+                             for e in cfg.TRAIN.LR_STEP}.items())
+
+        def main(step):
+            lr = base
+            for boundary, scale in boundaries:
+                if step >= boundary:
+                    lr *= scale
+            return lr
+    if not warmup:
+        return main
+
+    def schedule(step):
+        if step < warmup:
+            return base * step / warmup
+        return main(step - warmup)
+
+    return schedule
+
+
+def _param_labels(names: Iterable[str],
+                  train_backbone: bool = False) -> Dict[str, str]:
+    """name -> 'frozen' (the backbone), 'proj' (the lr_linear_proj_mult
+    group: 'sampling_offsets' or 'reference_points' in the name) or
+    'main'."""
+    labels = {}
+    for name in names:
+        if name.startswith("backbone.") and not train_backbone:
+            labels[name] = "frozen"
+        elif "sampling_offsets" in name or "reference_points" in name:
+            labels[name] = "proj"
+        else:
+            labels[name] = "main"
+    return labels
+
+
+class Optimizer:
+    """The clipped two-group Adam of `make_optimizer`, on dicts of tensors
+    keyed by parameter name: `init(params)` and `update(grads, state,
+    params) -> (updates, state)`, as an optax transformation."""
+
+    b1, b2, eps = 0.9, 0.999, 1e-8
+
+    def __init__(self, cfg: Config, steps_per_epoch: int):
+        self.schedule = make_lr_schedule(cfg, steps_per_epoch)
+        self.scale = {"main": 1.0, "proj": cfg.DECODER.lr_linear_proj_mult}
+        self.max_norm = cfg.TRAIN.clip_max_norm
+        self.train_backbone = cfg.TRAIN.TRAIN_BACKBONE
+        self.skip_nonfinite = cfg.TRAIN.SKIP_NONFINITE
+
+    def labels(self, names: Iterable[str]) -> Dict[str, str]:
+        return _param_labels(names, self.train_backbone)
+
+    def init(self, params: Mapping[str, torch.Tensor]) -> OptState:
+        labels = self.labels(params)
+        moments = {k: torch.zeros_like(p, dtype=torch.float32)
+                   for k, p in params.items() if labels[k] != "frozen"}
+        return OptState(count=0, mu=moments,
+                        nu={k: torch.zeros_like(m)
+                            for k, m in moments.items()})
+
+    def update(self, grads: Mapping[str, Optional[torch.Tensor]],
+               state: OptState, params: Mapping[str, torch.Tensor]
+               ) -> Tuple[Dict[str, Optional[torch.Tensor]], OptState]:
+        """Updates to add to the params (None: leave it as it is). A
+        gradient of None counts as zeros."""
+        present = [g for g in grads.values() if g is not None]
+        notfinite_count = state.notfinite_count
+        total_notfinite = state.total_notfinite
+        if self.skip_nonfinite:
+            finite = bool(torch.stack([torch.isfinite(g).all()
+                                       for g in present]).all())
+            notfinite_count = 0 if finite else notfinite_count + 1
+            total_notfinite += 0 if finite else 1
+            if not finite and notfinite_count <= MAX_CONSECUTIVE_ERRORS:
+                return ({k: None for k in grads}, dataclasses.replace(
+                    state, notfinite_count=notfinite_count,
+                    total_notfinite=total_notfinite))
+
+        grads = {k: g.float() for k, g in grads.items() if g is not None}
+        if self.max_norm > 0:
+            norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
+            if not bool(norm < self.max_norm):
+                grads = {k: (g / norm) * self.max_norm
+                         for k, g in grads.items()}
+
+        labels = self.labels(params)
+        count = state.count + 1
+        one = torch.ones((), dtype=torch.float32)
+        bc1 = float(1 - (one * self.b1) ** count)
+        bc2 = float(1 - (one * self.b2) ** count)
+        lr = self.schedule(state.count)
+        mu, nu, updates = {}, {}, {k: None for k in params}
+        for k, m in state.mu.items():
+            g = grads.get(k)
+            if g is None:
+                g = torch.zeros_like(m)
+            mu[k] = (1 - self.b1) * g + self.b1 * m
+            nu[k] = (1 - self.b2) * (g * g) + self.b2 * state.nu[k]
+            step = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + self.eps)
+            updates[k] = (-lr * self.scale[labels[k]]) * step
+        return updates, OptState(count=count, mu=mu, nu=nu,
+                                 notfinite_count=notfinite_count,
+                                 total_notfinite=total_notfinite)
+
+
+def make_optimizer(cfg: Config, steps_per_epoch: int) -> Optimizer:
+    return Optimizer(cfg, steps_per_epoch)
+
+
+def create_train_state(cfg: Config, model: MVGFormer,
+                       steps_per_epoch: int = 1000
+                       ) -> Tuple[TrainState, Optimizer]:
+    """The state of an initialized model (its weights made from a seed or
+    loaded) at step 0, and its optimizer."""
+    tx = make_optimizer(cfg, steps_per_epoch)
+    opt_state = tx.init(dict(model.named_parameters()))
+    return TrainState(step=0, model=model, opt_state=opt_state), tx
+
+
+def make_train_step(cfg: Config, model: MVGFormer, tx: Optimizer,
+                    num_replicas: int = 1) -> Callable:
+    """train_step(state, batch, generator=None) -> (state, metrics).
+
+    The gt match on the initial query grid, the training forward of every
+    decoder layer (dropout from `generator`), the criterion, the backward,
+    the clipped Adam update of the model's parameters in place. metrics
+    holds every loss term as a scalar tensor, and `notfinite_total` under
+    TRAIN.SKIP_NONFINITE."""
+    gt_match = cfg.DECODER.gt_match
+
+    def train_step(state: TrainState, batch: Batch,
+                   generator: Optional[torch.Generator] = None):
+        mdl = state.model
+        mdl.train()
+        params = dict(mdl.named_parameters())
+        for p in params.values():
+            p.grad = None
+        init_refs = mdl.initial_reference_points_static(
+            batch.views.shape[0])
+        # with gt_match off the criterion matches per layer and this match
+        # is unused, as in JAX
+        match = match_queries(cfg, init_refs, batch)
+        outs = mdl(batch, query_mask=match.query_mask if gt_match else None,
+                   train=True, generator=generator)
+        losses = compute_losses(cfg, outs, batch,
+                                match if gt_match else None,
+                                init_reference=init_refs,
+                                num_replicas=num_replicas)
+        losses["total"].backward()
+        updates, opt_state = tx.update(
+            {k: p.grad for k, p in params.items()}, state.opt_state, params)
+        with torch.no_grad():
+            for k, u in updates.items():
+                if u is not None:
+                    params[k].add_(u)
+        metrics = {k: v.detach() for k, v in losses.items()}
+        if cfg.TRAIN.SKIP_NONFINITE:
+            metrics["notfinite_total"] = opt_state.total_notfinite
+        return TrainState(step=state.step + 1, model=mdl,
+                          opt_state=opt_state), metrics
+
+    return train_step
+
+
+def make_eval_loss_step(cfg: Config, model: MVGFormer, threshold: float,
+                        window_plan: Optional[WindowPlan] = None
+                        ) -> Callable:
+    """The loss dict on eval batches (DEBUG.LOG_VAL_LOSS): the serving
+    forward (threshold filtering, no gt match) with the criterion matching
+    each layer's own outputs."""
+
+    @torch.no_grad()
+    def loss_step(batch: Batch) -> Dict[str, torch.Tensor]:
+        model.eval()
+        outs = model(batch, threshold=threshold, window_plan=window_plan)
+        return compute_losses(cfg, outs, batch, None)
+
+    return loss_step

@@ -76,6 +76,27 @@ def jacobi4_smallest(G: torch.Tensor, sweeps: int = 6) -> torch.Tensor:
     return torch.gather(cols, -1, idx)[..., 0]
 
 
+class _ClipCotangent(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, max_norm):
+        ctx.max_norm = max_norm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = torch.linalg.vector_norm(g.float(), dim=-1, keepdim=True)
+        scale = torch.clamp(ctx.max_norm / torch.clamp(n, min=1e-30), max=1.0)
+        return g * scale.to(g.dtype), None
+
+
+def clip_cotangent(x: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """Identity whose backward clips each last-axis vector's cotangent to
+    norm `max_norm` (rescaled, direction kept): TRAIN.TRI_GRAD_CLIP, the
+    from-scratch stabilizer for gradients that reach the offset net through
+    an ill-conditioned DLT solve. The forward is exact."""
+    return _ClipCotangent.apply(x, float(max_norm))
+
+
 def homogeneous_to_euclidean(points: torch.Tensor) -> torch.Tensor:
     """(..., D+1) -> (..., D)."""
     return points[..., :-1] / points[..., -1:]

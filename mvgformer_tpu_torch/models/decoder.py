@@ -1,10 +1,17 @@
 """Dynamic-query decoder: iterative project -> attend -> refine -> triangulate.
 
-Port of the inference branches of `mvgformer_tpu/models/decoder.py`:
-feature_update_method 'MLP', the FFN, threshold (or 'all') query filtering,
-the in-layer top-K of layer 1, the decoder-level top-K compaction of the
-later layers and point-top-m. Everything is dense with a boolean query mask:
+Port of `mvgformer_tpu/models/decoder.py` for feature_update_method 'MLP':
+the FFN, threshold (or 'all') query filtering, the in-layer top-K of layer
+1, the decoder-level top-K compaction of the later layers and point-top-m
+in serving; in training (`train=True`) the gt-match query mask, dropout at
+JAX's sites (dropout2-4), the corner-table sampler, TRAIN.TRI_GRAD_CLIP and
+per-layer rematerialization (PARALLEL.REMAT_DECODER), with no compaction,
+point-top-m or window plan. Everything is dense with a boolean query mask:
 inactive queries' outputs and next-layer reference points become zeros.
+
+Dropout draws its masks from a generator seeded per layer and step, so a
+layer recomputed for the backward draws the same masks; which layers drop
+out is decided by the `train` argument, as in JAX, not by nn.Module.train().
 
 Per layer:
   1. project each query's 3D joints into every view, bounds-mask, clamp,
@@ -25,13 +32,15 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mvgformer_tpu_torch.data.meta import ViewData
 from mvgformer_tpu_torch.geometry.cameras import (project_points,
                                                   projection_matrices,
                                                   undistort_points)
 from mvgformer_tpu_torch.geometry.transforms import apply_affine
-from mvgformer_tpu_torch.geometry.triangulate import triangulate_dlt
+from mvgformer_tpu_torch.geometry.triangulate import (clip_cotangent,
+                                                      triangulate_dlt)
 from mvgformer_tpu_torch.models.mlp import Dense, OffsetNet
 from mvgformer_tpu_torch.ops.projattn import ProjAttn, top_indices
 from mvgformer_tpu_torch.ops.window_sampling import WindowPlan
@@ -54,14 +63,19 @@ class LayerNorm(nn.LayerNorm):
 
 
 def project_reference_points(reference_points: torch.Tensor,
-                             view_data: ViewData, spatial_shapes, img_size):
-    """3D refs (B, Nq, 3) mm -> per-view normalized net-image points.
+                             view_data: ViewData, spatial_shapes, img_size,
+                             detach: bool = True):
+    """3D refs (B, Nq, 3) mm -> per-view normalized net-image points; with
+    `detach` (DECODER.detach_refpoints_cameraprj_firstlayer) no gradient
+    flows back into the refs.
 
     Returns (ref2d_norm (B, V, Nq, 2), ref2d_lvl (B, V, Nq, L, 2), bounds
     (B, V, Nq) bool)."""
     B, Nq, _ = reference_points.shape
     V = view_data.num_views
-    x = reference_points.detach()[:, None].expand(B, V, Nq, 3).float()
+    if detach:
+        reference_points = reference_points.detach()
+    x = reference_points[:, None].expand(B, V, Nq, 3).float()
     pix = project_points(x, view_data.cameras)
 
     wh = view_data.centers * 2.0  # (B, V, 2)
@@ -104,23 +118,38 @@ def _scatter_queries(x: torch.Tensor, sel: torch.Tensor, num_queries: int,
     return dense.movedim(1, q_axis)
 
 
+def _dropout(x: torch.Tensor, p: float,
+             generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout as flax's nn.Dropout: keep with probability 1 - p,
+    scale the kept values by 1 / (1 - p); the mask from `generator`."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
+
+
 class DQDecoderLayer(nn.Module):
-    """One iterative-geometry decoder layer (dense-masked, inference)."""
+    """One iterative-geometry decoder layer (dense-masked)."""
 
     def __init__(self, d_model: int = 256, d_ffn: int = 1024,
+                 dropout: float = 0.1,
                  n_levels: int = 1, n_heads: int = 8, n_points: int = 8,
                  img_size: Tuple[int, int] = (960, 512),
-                 num_joints: int = 15, open_forward_ffn: bool = True,
+                 num_joints: int = 15, detach_refpoints: bool = True,
+                 open_forward_ffn: bool = True,
                  triangulation_solver: str = "eigh",
                  pose_embed_layers: int = 3,
+                 tri_grad_clip: Optional[float] = None,
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         g = generator
+        self.dropout = float(dropout)
         self.img_size = tuple(img_size)
         self.num_joints = num_joints
+        self.detach_refpoints = detach_refpoints
         self.open_forward_ffn = open_forward_ffn
         self.triangulation_solver = triangulation_solver
+        self.tri_grad_clip = tri_grad_clip
         self.proj_attn = ProjAttn(d_model, n_levels, n_heads, n_points,
                                   dtype=dtype, generator=g)
         self.feature_update_mlp = Dense(d_model, d_model, dtype, generator=g)
@@ -141,7 +170,10 @@ class DQDecoderLayer(nn.Module):
                 triangulate_topk: Optional[int] = None,
                 window_plan: Optional[WindowPlan] = None,
                 offset_clamp: Optional[float] = None,
-                point_topm: Optional[int] = None):
+                point_topm: Optional[int] = None,
+                query_mask: Optional[torch.Tensor] = None,
+                train: bool = False,
+                dropout_seed: Optional[int] = None):
         """
         Args:
             tgt:              (B, Nq, C) query features, Nq = Q * J.
@@ -154,6 +186,12 @@ class DQDecoderLayer(nn.Module):
                               (layer 1 only).
             offset_clamp:     clamp of the learned sampling offsets, px
                               (layer 1 only).
+            query_mask:       (B, Q) bool active queries (the gt match in
+                              training); None derives it from the class
+                              probability and `filter_method`.
+            train:            the training forward: dropout, the corner
+                              sampler, no top-K.
+            dropout_seed:     seed of this layer's dropout masks (train).
         Returns:
             (tgt_update, new_refs (B, Nq, 3), refined_2d (B, V, Nq, 2),
              projs_2d (B, V, Nq, 2), class_prob (B, Q, 2), escaped mass of
@@ -165,10 +203,21 @@ class DQDecoderLayer(nn.Module):
         Q = Nq // J
         img_wh = torch.tensor(self.img_size, dtype=torch.float32,
                               device=tgt.device)
+        drop_gen = None
+        if train and self.dropout > 0.0:
+            if dropout_seed is None:
+                raise ValueError("training with dropout needs a dropout_seed")
+            drop_gen = torch.Generator(device=tgt.device)
+            drop_gen.manual_seed(int(dropout_seed))
+
+        def drop(x):
+            return x if drop_gen is None else _dropout(x, self.dropout,
+                                                       drop_gen)
 
         # (1) project the query joints into every view
         ref_norm, ref_lvl, bounds = project_reference_points(
-            reference_points, view_data, spatial_shapes, self.img_size)
+            reference_points, view_data, spatial_shapes, self.img_size,
+            detach=self.detach_refpoints)
 
         # (2) projective attention, views folded view-major (v*B + b)
         q_in = tgt if query_pos is None else tgt + query_pos
@@ -178,34 +227,37 @@ class DQDecoderLayer(nn.Module):
         attn, escaped = self.proj_attn(
             q_fold, ref_fold, src_views, spatial_shapes,
             window_plan=window_plan, offset_clamp_px=offset_clamp,
-            point_topm=point_topm)
+            point_topm=point_topm, train=train)
         attn = attn.reshape(V, B, Nq, C)
         # zero features whose projection fell outside the image
         attn = attn * bounds.transpose(0, 1)[..., None].to(attn.dtype)
 
-        # (3) fuse the view mean into the query features, then the FFN
-        tgt_update = self.norm2(tgt + self.feature_update_mlp(
-            attn.mean(dim=0)))
+        # (3) fuse the view mean into the query features (dropout2), then
+        # the FFN (dropout3 after the ReLU, dropout4 after linear2)
+        tgt_update = self.norm2(tgt + drop(self.feature_update_mlp(
+            attn.mean(dim=0))))
         if self.open_forward_ffn:
-            x = self.linear2(F.relu(self.linear1(tgt_update)))
-            tgt_update = self.norm3(tgt_update + x)
+            x = self.linear2(drop(F.relu(self.linear1(tgt_update))))
+            tgt_update = self.norm3(tgt_update + drop(x))
 
         # (4) classify; the active-query mask
         prob = torch.sigmoid(self.class_embed(tgt_update).float())
         class_prob = prob.reshape(B, Q, J, 2).mean(dim=2)  # (B, Q, 2)
-        if filter_method == "all":
-            query_mask = torch.ones((B, Q), dtype=torch.bool,
-                                    device=tgt.device)
-        elif filter_method == "threshold":
-            query_mask = class_prob[..., 1] > threshold
-        else:
-            raise ValueError(filter_method)
+        if query_mask is None:
+            if filter_method == "all":
+                query_mask = torch.ones((B, Q), dtype=torch.bool,
+                                        device=tgt.device)
+            elif filter_method == "threshold":
+                query_mask = class_prob[..., 1] > threshold
+            else:
+                raise ValueError(filter_method)
         mask_nq = query_mask.repeat_interleave(J, dim=1)  # (B, Nq)
 
         # (5) in-layer compaction: stages 6-8 run on the top-K queries
         sel = None
         Nqc = Nq
-        if triangulate_topk is not None and triangulate_topk < Q:
+        if (triangulate_topk is not None and not train
+                and triangulate_topk < Q):
             sel = top_indices(class_prob[..., 1], triangulate_topk)
             Nqc = triangulate_topk * J
             attn = _take_queries(attn.transpose(0, 1), sel, J,
@@ -231,6 +283,12 @@ class DQDecoderLayer(nn.Module):
         # (8) triangulate, then the masked dense update
         pts = orig_undist.transpose(1, 2)  # (B, Nqc, V, 2)
         conf_bqv = conf.permute(1, 2, 0)  # (B, Nqc, V)
+        if train and self.tri_grad_clip is not None:
+            # TRAIN.TRI_GRAD_CLIP: bound the solver-amplified cotangents
+            # reaching the offset net and the confidence head
+            pts = clip_cotangent(pts, self.tri_grad_clip)
+            conf_bqv = clip_cotangent(conf_bqv[..., None],
+                                      self.tri_grad_clip)[..., 0]
         pm = proj_mats[:, None].expand(B, Nqc, V, 3, 4)
         new_refs = triangulate_dlt(pm, pts, conf_bqv,
                                    solver=self.triangulation_solver)
@@ -255,11 +313,17 @@ class DQDecoder(nn.Module):
 
     window_plan and layer1_offset_clamp reach the first layer only, whose
     sampling centers are the static grid; the first layer's output dict
-    then carries the windowed sampler's "escaped_mass"."""
+    then carries the windowed sampler's "escaped_mass".
 
-    def __init__(self, num_layers: int, num_joints: int, **layer_kwargs):
+    In training (`train=True`) the top-K, the window plan, the offset clamp
+    and point-top-m are off, as in JAX; with `remat` each layer runs under
+    torch.utils.checkpoint and is recomputed in the backward."""
+
+    def __init__(self, num_layers: int, num_joints: int, remat: bool = False,
+                 **layer_kwargs):
         super().__init__()
         self.num_joints = num_joints
+        self.remat = remat
         self.layers = nn.ModuleList(
             DQDecoderLayer(num_joints=num_joints, **layer_kwargs)
             for _ in range(num_layers))
@@ -268,19 +332,37 @@ class DQDecoder(nn.Module):
                 spatial_shapes, view_data, threshold=0.5,
                 filter_method="threshold", topk_queries=None,
                 window_plan=None, layer1_offset_clamp=None,
-                point_topm=None):
+                point_topm=None, query_mask=None, train=False,
+                generator: Optional[torch.Generator] = None):
+        """`generator` draws one dropout seed per layer in training (the
+        default generator if None)."""
         J = self.num_joints
         Q = tgt.shape[1] // J
+        seeds = [None] * len(self.layers)
+        if train:
+            topk_queries = window_plan = layer1_offset_clamp = None
+            point_topm = None
+            if self.layers[0].dropout > 0.0:
+                dev = generator.device if generator is not None else "cpu"
+                seeds = torch.randint(0, 2 ** 62, (len(self.layers),),
+                                      generator=generator,
+                                      device=dev).tolist()
         outputs = []
         out, qpos, refs, sel = tgt, query_pos, reference_points, None
         for lid, layer in enumerate(self.layers):
-            out, refs, ref2d, projs2d, class_prob, escaped = layer(
+            run = layer
+            if train and self.remat:
+                def run(*args, _layer=layer, **kwargs):
+                    return checkpoint(_layer, *args, use_reentrant=False,
+                                      **kwargs)
+            out, refs, ref2d, projs2d, class_prob, escaped = run(
                 out, qpos, refs, src_views, spatial_shapes, view_data,
                 threshold=threshold, filter_method=filter_method,
                 triangulate_topk=topk_queries if lid == 0 else None,
                 window_plan=window_plan if lid == 0 else None,
                 offset_clamp=layer1_offset_clamp if lid == 0 else None,
-                point_topm=point_topm)
+                point_topm=point_topm, query_mask=query_mask, train=train,
+                dropout_seed=seeds[lid])
             if sel is None:
                 outputs.append({"hs": out, "refs": refs, "refs_2d": ref2d,
                                 "projs_2d": projs2d,
@@ -303,4 +385,6 @@ class DQDecoder(nn.Module):
                 refs = _take_queries(refs, sel, J, 1)
                 if qpos is not None:
                     qpos = _take_queries(qpos, sel, J, 1)
+                if query_mask is not None:
+                    query_mask = torch.gather(query_mask, 1, sel)
         return outputs

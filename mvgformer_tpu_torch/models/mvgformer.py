@@ -104,6 +104,11 @@ def check_supported(cfg: Config) -> None:
            if got != want]
     if dec.triangulation_method == "st":
         bad.append("DECODER.triangulation_method='st'")
+    # training knobs
+    if cfg.TRAIN.SAMPLE_CHUNKS is not None and cfg.TRAIN.SAMPLE_CHUNKS > 1:
+        bad.append(f"TRAIN.SAMPLE_CHUNKS={cfg.TRAIN.SAMPLE_CHUNKS!r}")
+    if cfg.PARALLEL.REMAT_DECODER and cfg.PARALLEL.REMAT_POLICY != "full":
+        bad.append(f"PARALLEL.REMAT_POLICY={cfg.PARALLEL.REMAT_POLICY!r}")
     if bad:
         raise NotImplementedError("not ported yet: " + ", ".join(bad))
 
@@ -133,18 +138,22 @@ class MVGFormer(nn.Module):
         self.decoder = DQDecoder(
             num_layers=dec.num_decoder_layers,
             num_joints=dec.num_keypoints,
+            remat=cfg.PARALLEL.REMAT_DECODER,
             d_model=dec.d_model,
             d_ffn=dec.dim_feedforward,
+            dropout=dec.dropout,
             n_levels=dec.num_feature_levels,
             n_heads=dec.nhead,
             n_points=dec.dec_n_points,
             img_size=tuple(cfg.NETWORK.IMAGE_SIZE),
+            detach_refpoints=dec.detach_refpoints_cameraprj_firstlayer,
             open_forward_ffn=dec.open_forward_ffn,
             # 'linalg'/'batch'/'default' are the reference's SVD variants
             triangulation_solver=(dec.triangulation_method
                                   if dec.triangulation_method in
                                   ("eigh", "jacobi") else "svd"),
             pose_embed_layers=dec.pose_embed_layer,
+            tri_grad_clip=cfg.TRAIN.TRI_GRAD_CLIP,
             dtype=self.dtype,
             generator=generator)
         self.register_buffer(
@@ -153,8 +162,16 @@ class MVGFormer(nn.Module):
                 cfg.MULTI_PERSON.SPACE_SIZE,
                 cfg.MULTI_PERSON.SPACE_CENTER)), persistent=False)
 
-    def forward(self, batch: Batch, threshold: float = 0.5,
-                window_plan: Optional[WindowPlan] = None):
+    def initial_reference_points_static(self, batch_size: int
+                                        ) -> torch.Tensor:
+        """(B, Q*J, 3) absolute-mm initial query poses: the config's
+        sample_space grid, no parameters involved."""
+        return self.init_reference[None].expand(batch_size, -1, -1)
+
+    def forward(self, batch: Batch, query_mask: Optional[torch.Tensor] = None,
+                threshold: float = 0.5, train: bool = False,
+                window_plan: Optional[WindowPlan] = None,
+                generator: Optional[torch.Generator] = None):
         """Per decoder layer, a dict of
             pred_logits:        (B, Q, 2) inverse-sigmoid of avg joint prob
             pred_poses:         (B, Q*J, 3) absolute mm
@@ -164,6 +181,10 @@ class MVGFormer(nn.Module):
         through the window kernels and its dict also holds
             escaped_mass:       float32 scalar, the attention mass of
                                 samples that escaped their window.
+        train: the training forward (dropout drawn from `generator`, the
+        corner-table sampler, the (B, Q) gt-match `query_mask`); the window
+        plan, top-K and point-top-m are off then. The backbone takes no
+        gradient unless TRAIN.TRAIN_BACKBONE.
         """
         dec = self.cfg.DECODER
         if window_plan is not None and dec.init_ref_method != "sample_space":
@@ -173,11 +194,14 @@ class MVGFormer(nn.Module):
                 % dec.init_ref_method)
         B, V = batch.views.shape[:2]
 
-        # backbone on the view-major fold, levels finest-first
+        # backbone on the view-major fold, levels finest-first; frozen
+        # unless TRAIN.TRAIN_BACKBONE (JAX's stop_gradient)
         imgs = batch.views.transpose(0, 1).reshape(
             (V * B,) + tuple(batch.views.shape[2:]))
-        feats = self.backbone(imgs, use_feat_level=tuple(
-            dec.use_feat_level))[::-1]
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and self.cfg.TRAIN.TRAIN_BACKBONE):
+            feats = self.backbone(imgs, use_feat_level=tuple(
+                dec.use_feat_level))[::-1]
         spatial_shapes = tuple((int(f.shape[1]), int(f.shape[2]))
                                for f in feats)
 
@@ -200,7 +224,8 @@ class MVGFormer(nn.Module):
             topk_queries=dec.inference_topk_queries,
             window_plan=window_plan,
             layer1_offset_clamp=dec.layer1_offset_clamp,
-            point_topm=dec.inference_point_topm)
+            point_topm=dec.inference_point_topm,
+            query_mask=query_mask, train=train, generator=generator)
         outs = []
         for lo in layer_outputs:
             outs.append({"pred_logits": inverse_sigmoid(lo["class_prob"]),

@@ -10,7 +10,10 @@ axes are scrambled in a trained-in way that converted checkpoints rely on.
 Deformable sampling goes through `ops.deform_attn.deform_sample`, which runs
 the Hopper kernel on CUDA tensors; with a window plan (layer 1 of the
 windowed serving path) it goes through `ops.window_sampling.window_sample`
-and the window kernels instead.
+and the window kernels instead. In training (`train=True`) it goes through
+the differentiable corner-table sampler `ops.sampling.deform_sample_corner`
+and its table-build and gather-reduce kernels, as JAX's ProjAttn samples
+through `deform_sample_corner` whenever it trains.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ from torch import nn
 
 from mvgformer_tpu_torch.models.mlp import Dense
 from mvgformer_tpu_torch.ops.deform_attn import deform_sample
-from mvgformer_tpu_torch.ops.sampling import bilinear_sample
+from mvgformer_tpu_torch.ops.sampling import (bilinear_sample,
+                                              deform_sample_corner)
 from mvgformer_tpu_torch.ops.window_sampling import WindowPlan, window_sample
 
 
@@ -76,7 +80,8 @@ class ProjAttn(nn.Module):
                 spatial_shapes: Sequence[Tuple[int, int]],
                 window_plan: Optional[WindowPlan] = None,
                 offset_clamp_px: Optional[float] = None,
-                point_topm: Optional[int] = None
+                point_topm: Optional[int] = None,
+                train: bool = False
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """
         Args:
@@ -91,6 +96,8 @@ class ProjAttn(nn.Module):
                               (DECODER.layer1_offset_clamp).
             point_topm:       keep only the top-m of P points per
                               (query, head, level) by attention weight.
+            train:            sample through the differentiable corner
+                              sampler (no window plan then).
         Returns:
             (N, Lq, C) attended features, and the escaped attention mass of
             the windowed sampler (a float32 scalar; None without a plan).
@@ -146,7 +153,13 @@ class ProjAttn(nn.Module):
                 locations, 4, idx[..., None].expand(idx.shape + (2,)))
 
         escaped = None
-        if window_plan is not None:
+        if train:
+            if window_plan is not None:
+                raise ValueError("the window plan is for serving only")
+            out = deform_sample_corner(value, spatial_shapes,
+                                       locations.float(),
+                                       weights.to(value.dtype))
+        elif window_plan is not None:
             # the windowed sampler takes float32 weights, the gather takes
             # them in the value dtype
             out, escaped = window_sample(value, spatial_shapes,

@@ -13,14 +13,23 @@ Port of the contract of `mvgformer_tpu/ops/sampling.py::deform_sample`
 `deform_sample` here is the plain version of the Hopper kernel in
 `ops/deform_attn.py`: the kernel's wrapper calls it for CPU tensors, and the
 tests and the chip smoke compare the kernel with it.
+
+`deform_sample_corner` is the training sampler, the same contract through
+padded 4-corner tables: one table per level (`ops/table_build.py`, kernel
+B2) and one gather-reduce per level (`ops/table_gather.py`, kernels B3),
+both differentiable.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from mvgformer_tpu_torch.ops.table_build import (build_corner_tables,
+                                                 padded_width)
+from mvgformer_tpu_torch.ops.table_gather import deform_gather_reduce
 
 
 def flatten_feature_levels(feats: Sequence[torch.Tensor]):
@@ -108,3 +117,75 @@ def deform_sample(value: torch.Tensor,
         out += (sampled * wgt).sum(dim=-1)
     out = out.reshape(N, H, D, Lq).permute(0, 3, 1, 2).reshape(N, Lq, H * D)
     return out.to(value.dtype)
+
+
+def deform_sample_corner(value: torch.Tensor,
+                         spatial_shapes: Sequence[Tuple[int, int]],
+                         sampling_locations: torch.Tensor,
+                         attention_weights: torch.Tensor,
+                         query_chunks: Optional[int] = None) -> torch.Tensor:
+    """`deform_sample`'s contract through padded 4-corner tables: port of
+    `mvgformer_tpu/ops/sampling.py::deform_sample_corner` with the padded
+    stride of its Pallas table build.
+
+    Per level: the sample's top-left pixel (y0, x0) = floor of its pixel
+    coordinates picks table row (y0 + 1) * padded_width(w) + x0 + 1,
+    clipped into the padded map; its four bilinear weights, zeroed unless
+    the stencil touches the map, times the attention weight give w4 in the
+    dtype of value. The weights are plain torch, so autograd reaches the
+    locations and the attention weights through them; the tables and the
+    gather-reduce carry the gradient to value. Differentiable; the result
+    (N, Lq, H*D) in the dtype of value, levels summed in float32.
+
+    JAX groups levels into tables under an 8/16 MB operand cap, a TPU
+    gather tuning that changes no result; here every level has its own
+    table. `query_chunks` (TRAIN.SAMPLE_CHUNKS) is not ported.
+    """
+    if query_chunks is not None and query_chunks > 1:
+        raise NotImplementedError(
+            "query-chunked corner sampling (TRAIN.SAMPLE_CHUNKS > 1) is not "
+            "ported yet")
+    N, Len_in, H, D = value.shape
+    _, Lq, _, L, P, _ = sampling_locations.shape
+    if L != len(spatial_shapes):
+        raise ValueError(f"{L} levels in the locations, "
+                         f"{len(spatial_shapes)} spatial shapes")
+    tables, _ = build_corner_tables(value.transpose(1, 2), spatial_shapes)
+    acc = None
+    for table, (idx, w4) in zip(tables, corner_samples(
+            spatial_shapes, sampling_locations, attention_weights,
+            value.dtype)):
+        red = deform_gather_reduce(table, idx, w4)
+        contrib = red.float().reshape(N, H, Lq, P, D).sum(dim=3)
+        acc = contrib if acc is None else acc + contrib
+    out = acc.transpose(1, 2).reshape(N, Lq, H * D)
+    return out.to(value.dtype)
+
+
+def corner_samples(spatial_shapes: Sequence[Tuple[int, int]],
+                   sampling_locations: torch.Tensor,
+                   attention_weights: torch.Tensor, dtype: torch.dtype):
+    """Per level, the gather-reduce operands of `deform_sample_corner`:
+    idx (N*H, Lq*P) int32 table rows and w4 (N*H, Lq*P, 4) corner weights
+    times the attention weight, in `dtype`, contiguous; differentiable in
+    the locations and weights."""
+    N, Lq, H, L, P, _ = sampling_locations.shape
+    samples = []
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        loc = sampling_locations[:, :, :, lvl].float()  # (N, Lq, H, P, 2)
+        x = (loc[..., 0] * w - 0.5).transpose(1, 2).reshape(N * H, Lq * P)
+        y = (loc[..., 1] * h - 0.5).transpose(1, 2).reshape(N * H, Lq * P)
+        x0, y0 = torch.floor(x), torch.floor(y)
+        lx, ly = x - x0, y - y0
+        touch = (x > -1.0) & (x < w) & (y > -1.0) & (y < h)
+        # clamp before the cast: NaN and inf must not become wild indices
+        xi = (torch.nan_to_num(x0, nan=0.0).clamp(-1.0, w - 1) + 1).long()
+        yi = (torch.nan_to_num(y0, nan=0.0).clamp(-1.0, h - 1) + 1).long()
+        idx = (yi * padded_width(w) + xi).int()
+        wts = torch.stack([(1 - lx) * (1 - ly), lx * (1 - ly),
+                           (1 - lx) * ly, lx * ly], dim=-1)
+        aw = attention_weights[:, :, :, lvl].transpose(1, 2).reshape(
+            N * H, Lq * P)
+        w4 = (wts * touch[..., None] * aw[..., None]).to(dtype)
+        samples.append((idx, w4.contiguous()))
+    return samples

@@ -6,7 +6,11 @@
   * the two window kernels (window_block, window_dma) at toy shapes, with
     window coordinates inside, at the edge of and outside the window, and at
     the flagship shapes: the level operands of the flagship rig's layer-1
-    plan.
+    plan;
+  * the corner-table build (B2), bit for bit, from strided level views;
+    the table gather-reduce (B3) forward and backward, border rows
+    included; and the whole corner sampler against the deformable-sampling
+    kernel (the same contract) at float32 atol 1e-5.
 
 This file imports neither jax nor the `rng` fixture of conftest.py, so it
 also runs on a machine without JAX:
@@ -14,8 +18,10 @@ also runs on a machine without JAX:
     python -m pytest tests/test_torch_kernel.py -m gpu --noconftest
 
 Without a CUDA card the tests skip. Tolerance: 1e-4 in float32 (sums in
-another order); 2e-2 in bfloat16 against the plain version in float32
-(bfloat16 inputs and output rounding).
+another order; for the gather-reduce backward 1e-4 of the largest
+gradient, since atomic adds sum in no fixed order); 2e-2 in bfloat16
+against the plain version in float32 (bfloat16 inputs and output
+rounding).
 """
 
 import os
@@ -24,7 +30,8 @@ import numpy as np
 import pytest
 import torch
 
-from mvgformer_tpu_torch.ops import deform_attn, sampling, window_block
+from mvgformer_tpu_torch.ops import deform_attn, sampling, table_build
+from mvgformer_tpu_torch.ops import table_gather, window_block
 from mvgformer_tpu_torch.ops import window_dma, window_sampling
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -218,3 +225,99 @@ def test_window_kernels_match_plain_at_flagship(cuda, impl, clamp):
                               **call.kwargs)
         torch.cuda.synchronize()
         assert torch.allclose(got.float(), want, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [8, 32, 5])
+def test_table_build_matches_plain(cuda, dtype, D):
+    """Every level of a (N, Len_in, H, D) value, read through the strided
+    level view of its transpose (D = 5 takes the 2-byte copy path)."""
+    shapes = SHAPES + ((1, 1),)
+    value = torch.randn(2, sum(h * w for h, w in shapes), 3, D,
+                        generator=torch.Generator().manual_seed(D))
+    value = value.to(cuda, dtype)
+    sizes = [h * w for h, w in shapes]
+    for v, (h, w) in zip(value.transpose(1, 2).split(sizes, dim=2), shapes):
+        v = v.unflatten(2, (h, w))
+        before = table_build.build_corner_table.launches
+        got = table_build.build_corner_table(v)
+        torch.cuda.synchronize()
+        assert table_build.build_corner_table.launches == before + 1
+        want = table_build.build_corner_table_plain(v)
+        assert got.dtype == dtype and got.shape == want.shape
+        assert torch.equal(got, want)
+
+
+def _gather_operands(seed, NH, R, S, D, dtype, device):
+    gen = torch.Generator().manual_seed(seed)
+    tables = torch.randn(NH, R, 4 * D, generator=gen)
+    idx = torch.randint(0, R, (NH, S), generator=gen, dtype=torch.int32)
+    idx[:, ::7] = 0
+    idx[:, 1::7] = R - 1
+    w4 = torch.randn(NH, S, 4, generator=gen)
+    w4[:, ::5, 1:] = 0.0  # corners outside the map carry weight 0
+    ct = torch.randn(NH, S, D, generator=gen)
+    return [t.to(device, dtype) if t.is_floating_point() else t.to(device)
+            for t in (tables, idx, w4, ct)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [8, 32, 40])
+def test_table_gather_matches_plain(cuda, dtype, D):
+    tables, idx, w4, ct = _gather_operands(D, 3, 300, 1000, D, dtype, cuda)
+    before = (table_gather.gather_reduce_forward.launches,
+              table_gather.gather_reduce_backward.launches)
+    out = table_gather.gather_reduce_forward(tables, idx, w4)
+    g_tables, g_w4 = table_gather.gather_reduce_backward(tables, idx, w4, ct)
+    torch.cuda.synchronize()
+    assert (table_gather.gather_reduce_forward.launches,
+            table_gather.gather_reduce_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert out.dtype == g_tables.dtype == g_w4.dtype == dtype
+    f32 = [t.float() if t.is_floating_point() else t
+           for t in (tables, idx, w4, ct)]
+    want = table_gather.deform_gather_reduce_plain(*f32[:3])
+    want_t, want_w = table_gather.gather_reduce_backward_plain(*f32)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert torch.allclose(out.float(), want, atol=tol, rtol=tol)
+    for got, ref in ((g_tables, want_t), (g_w4, want_w)):
+        scale = ref.abs().max().item()
+        if dtype == torch.float32:
+            assert (got - ref).abs().max().item() <= 1e-4 * scale
+        else:
+            assert torch.allclose(got.float(), ref, atol=2e-2 * scale,
+                                  rtol=2e-2)
+
+
+@pytest.mark.gpu
+def test_table_gather_autograd_uses_the_kernels(cuda):
+    tables, idx, w4, ct = _gather_operands(1, 2, 64, 256, 8, torch.float32,
+                                           cuda)
+    tables.requires_grad_(True)
+    w4.requires_grad_(True)
+    before = table_gather.gather_reduce_backward.launches
+    table_gather.deform_gather_reduce(tables, idx, w4).backward(ct)
+    torch.cuda.synchronize()
+    assert table_gather.gather_reduce_backward.launches == before + 1
+    want_t, want_w = table_gather.gather_reduce_backward_plain(
+        tables.detach(), idx, w4.detach(), ct)
+    assert torch.allclose(tables.grad, want_t, atol=1e-5)
+    assert torch.allclose(w4.grad, want_w, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P", [2, 8])
+def test_corner_sampler_matches_deform_kernel(cuda, P):
+    """deform_sample_corner (B2 + B3) against deform_sample (B1) on the
+    same finite inputs, border and far-outside locations included."""
+    value, locs, w = _inputs(P, 3, 50, 4, 8, P, SHAPES)
+    locs = np.where(np.isfinite(locs) & (np.abs(locs) < 1e3), locs, 5.0)
+    v = torch.from_numpy(value).to(cuda)
+    loc = torch.from_numpy(locs.astype(np.float32)).to(cuda)
+    aw = torch.from_numpy(w).to(cuda)
+    got = sampling.deform_sample_corner(v, SHAPES, loc, aw)
+    want = deform_attn.deform_sample(v, SHAPES, loc, aw)
+    torch.cuda.synchronize()
+    assert torch.allclose(got, want, atol=1e-5, rtol=0)

@@ -1,7 +1,8 @@
 """The port imports and runs with jax and flax blocked: in a fresh
 interpreter where importing either raises, import every module of
 mvgformer_tpu_torch and run a toy forward and eval step on the CPU, through
-the gather and through each windowed layer-1 impl."""
+the gather and through each windowed layer-1 impl, and one training step
+(matcher, criterion, corner sampler, optimizer)."""
 
 import os
 import subprocess
@@ -51,6 +52,12 @@ SCRIPT = textwrap.dedent("""
                                    with_escape_telemetry=True)(batch)
         assert pred.shape == (1, 16, 15, 5), pred.shape
         assert not torch.isnan(pred).any() and float(esc) < 1e-5
+    from mvgformer_tpu_torch.core.train import (create_train_state,
+                                                make_train_step)
+    state, tx = create_train_state(cfg, model)
+    state, metrics = make_train_step(cfg, model, tx)(
+        state, batch, torch.Generator().manual_seed(0))
+    assert state.step == 1 and metrics["total"].isfinite(), metrics
     jax_side = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "flax", "jaxlib",
                                              "mvgformer_tpu")
