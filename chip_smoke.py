@@ -8,9 +8,9 @@ into build/kernels/. Phases, each printed on its own line; any failure
 exits non-zero:
 
   1. find the card and print its name and power limit;
-  2. build the five sources at once (deformable sampling, the two window
-     kernels, the corner-table build and the table gather-reduce forward
-     and backward), one nvcc each;
+  2. build the six sources at once (deformable sampling, the two window
+     kernels, the corner-table build, the table gather-reduce forward and
+     backward, and the probe kernels' gather forms), one nvcc each;
   3. hold the deformable-sampling kernel against its plain PyTorch version
      on the card at the flagship shapes (float32 and bfloat16, edge and
      non-finite locations included) and time both with CUDA events;
@@ -48,13 +48,28 @@ exits non-zero:
      Jacobi DLT, remat, dropout 0.1), 2 warm-up and 5 timed steps through
      core.train.make_train_step on batches made before the clock starts;
      finite losses, the backbone unchanged, non-zero sampler gradients,
-     the launch counts the design predicts, steps/s and peak memory.
+     the launch counts the design predicts, steps/s and peak memory;
+ 14. the probe kernels (row gather, windowed gather, take-along, scale,
+     table slots) against their plain versions at the probes' shapes and
+     at B3's flagship level-0 row, float32 and bfloat16, bit for bit
+     (scale exact), one case each timed beside its plain version and its
+     library call;
+ 15. the ported probes (mvgformer_tpu_torch/tools/probes/), each main once
+     at 3 timed runs, with the probe kernels' counts set to 0 before and
+     read after; their results go to build/probes.jsonl.
 
-The last three lines are the kernel table, the card, and the device, as
-JSON.
+Phase 10 also holds F.embedding_bag, the library call of B3's function,
+against B3's plain versions and times it. The models, batches and window
+plans are made on the card by their entry points (device "cuda").
+
+The last three lines are the kernel table (each kernel's launches on its
+path, worst error, ms, plain ms, library ms or why there is none, and its
+bound from utils/bounds.py on the timed inputs), the card, and the device,
+as JSON.
 """
 
-import copy
+import contextlib
+import importlib
 import json
 import math
 import subprocess
@@ -65,10 +80,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from mvgformer_tpu_torch.ops import (_build, deform_attn, sampling,
-                                     table_build, table_gather,
+from mvgformer_tpu_torch.ops import (_build, deform_attn, gather_forms,
+                                     sampling, table_build, table_gather,
                                      window_block, window_dma,
                                      window_sampling)
+from mvgformer_tpu_torch.tools.probes.probe_pallas_gather import flat_rows
+from mvgformer_tpu_torch.utils import bounds, yardsticks
 
 REPO = Path(__file__).resolve().parent
 SPATIAL_SHAPES = ((128, 240), (64, 120), (32, 60))  # flagship levels
@@ -80,7 +97,7 @@ SERVE_FRAMES, SERVE_WARMUP = 6, 2
 WINDOW_FRAMES = 10  # distinct frames per windowed impl, 2 of them warm-up
 TRAIN_STEPS, TRAIN_WARMUP = 7, 2
 SOURCES = ("deform_sample.cu", "window_block.cu", "window_dma.cu",
-           "table_build.cu", "table_gather.cu")
+           "table_build.cu", "table_gather.cu", "gather_forms.cu")
 IMPL_KERNEL = {"pallas": window_block.window_block_matmul,
                "pallas_dma": window_dma.window_block_dma}
 TRAIN_KERNELS = (table_build.build_corner_table,
@@ -88,11 +105,88 @@ TRAIN_KERNELS = (table_build.build_corner_table,
                  table_gather.gather_reduce_backward)
 ALL_KERNELS = (deform_attn.deform_sample, *IMPL_KERNEL.values(),
                *TRAIN_KERNELS)
+WINDOW_WORK = {window_block.window_block_matmul: bounds.window_block,
+               window_dma.window_block_dma: bounds.window_dma}
 PLAIN = {window_block.window_block_matmul:
          window_block.window_block_matmul_plain,
          window_dma.window_block_dma: window_dma.window_block_dma_plain}
 # window plans of the rig: K = 28 (default halo 10) and K = 20 (clamp 4)
 WINDOW_CLAMPS = {28: None, 20: 4.0}
+PROBES = ("probe_pallas_gather", "probe_pallas_gather2",
+          "probe_mosaic_gather_forms", "probe_onehot_parts",
+          "probe_sorted_gather_parts", "probe_table_kernel_forms")
+PROBE_RUNS = ("--runs", "3", "--warmup", "1")
+NO_LIBRARY = {
+    "deform_sample": "none: F.grid_sample is the bilinear read of one "
+                     "level and head only; the sum over levels and points "
+                     "and the attention weights are further calls",
+    "window_block_matmul": "none: no single call reads tent-weighted "
+                           "windows by block index",
+    "window_block_dma": "none: no single call reads tent-weighted windows "
+                        "at block origins",
+    "build_corner_table": "none: a pad, four slices and a concatenation",
+    "table_slots": "none: a pad, four slices and a concatenation",
+    "gather_reduce_backward": "none in bfloat16: PyTorch's CUDA "
+                              "embedding_bag has no bfloat16 backward for "
+                              "per-sample weights; float32 beside it",
+}
+PROBE_ROWS = (
+    (gather_forms.row_gather, "tools/probes/probe_pallas_gather.py:40",
+     ["tools/probes/probe_pallas_gather.py:70 (make_onehot_kernel)",
+      "tools/probes/probe_pallas_gather2.py:84 (onehot_kernel)",
+      "tools/probes/probe_mosaic_gather_forms.py:17 (f2, f3, f6)"],
+     "torch.index_select"),
+    (gather_forms.window_gather, "tools/probes/probe_onehot_parts.py:41",
+     ["tools/probes/probe_sorted_gather_parts.py:116 (kernel)"],
+     "torch.index_select"),
+    (gather_forms.take_along, "tools/probes/probe_pallas_gather2.py:60",
+     ["tools/probes/probe_pallas_gather.py:40 (take_eq)",
+      "tools/probes/probe_mosaic_gather_forms.py:17 (f1, f4, f5)"],
+     "torch.gather"),
+    (gather_forms.scale, "tools/probes/probe_pallas_gather2.py:45", [],
+     "torch.mul"),
+    (gather_forms.table_slots, "tools/probes/probe_table_kernel_forms.py:151",
+     [], None),
+)
+
+
+def kernel_row(fn, source, replaces, launches, max_abs_err, ms, plain_ms,
+               library_ms, work, at, timed_launches=1, also=(), library=None,
+               **extra):
+    """One entry of the kernels line. `ms` is the time of `timed_launches`
+    launches (3 where it sums the levels); excess_ms prices every launch
+    of the path at that time less the bound."""
+    row = {"name": fn.__name__, "route": "cuda",
+           "source": f"mvgformer_tpu_torch/csrc/{source}",
+           "replaces": replaces, "launches": launches,
+           "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": work.bound_ms, "bound_by": work.bound_by,
+           "library_ms": library_ms, "at": at,
+           "timed_launches": timed_launches,
+           "excess_ms": launches * (ms - work.bound_ms) / timed_launches}
+    if library_ms is None:
+        row["library"] = NO_LIBRARY.get(fn.__name__, "none")
+    else:
+        row["library"] = library
+    if also:
+        row["also_replaces"] = list(also)
+    row.update(extra)
+    return row
+
+
+def ranking(kernels):
+    """The order in which later work takes the kernels: first those slower
+    than their library call, by factor; then the rest by excess_ms, the
+    time their path spends above their bounds in this run."""
+    slower = sorted((r for r in kernels if r["library_ms"] is not None
+                     and r["ms"] > r["library_ms"]),
+                    key=lambda r: r["library_ms"] / r["ms"])
+    rest = sorted((r for r in kernels if r not in slower),
+                  key=lambda r: -r["excess_ms"])
+    return ([{"name": r["name"], "slower_than_library_by":
+              r["ms"] / r["library_ms"]} for r in slower]
+            + [{"name": r["name"], "excess_ms": r["excess_ms"]}
+               for r in rest])
 
 
 def phase(name, **fields):
@@ -168,7 +262,9 @@ def cuda_ms(fn, runs=20, warmup=3):
 
 
 def check_kernel(card):
-    """Phase 3: kernel against the plain version on the card."""
+    """Phase 3: kernel against the plain version on the card. Returns the
+    worst float32 error and, at the serving shape (bfloat16, Lq 15360, P
+    4), ms, plain ms and the compulsory work."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     worst_f32, serving = 0.0, None
     for Lq, P in ((15360, 4), (15360, 8), (960, 4)):
@@ -196,12 +292,14 @@ def check_kernel(card):
                 fail(f"kernel disagrees with the plain version: Lq={Lq} "
                      f"P={P} {dtype} max abs err {err}")
             if (Lq, P, dtype) == (15360, 4, torch.bfloat16):
-                serving = (ms, plain_ms)
+                serving = (ms, plain_ms, bounds.deform_sample(
+                    value, SPATIAL_SHAPES, loc, aw))
     return worst_f32, serving
 
 
 def window_setup(clamp):
-    """The flagship rig's layer-1 plan and static centers, on the host."""
+    """The flagship rig's layer-1 plan (on the card) and static centers
+    (on the host)."""
     from mvgformer_tpu_torch.data.synthetic import make_batch
     from mvgformer_tpu_torch.models.mvgformer import (
         build_layer1_window_plan, layer1_centers_px)
@@ -245,15 +343,14 @@ def check_window_kernels(card):
     operands of the flagship plans, then window_sample with each kernel
     against the deformable-sampling kernel; one line per (K, P, dtype).
     Returns, per kernel, the worst float32 error and the summed ms / plain
-    ms over the three levels at bfloat16, K = 28, P = 4 (the serving
-    shape)."""
+    ms / compulsory work over the three levels at bfloat16, K = 28, P = 4
+    (the serving shape)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     stats = {fn: {"max_abs_err": 0.0} for fn in PLAIN}
     for K, clamp in WINDOW_CLAMPS.items():
         plan, centers_px = window_setup(clamp)
         if plan.levels[0].K != K:
             fail(f"the plan's window is {plan.levels[0].K}, expected {K}")
-        plan = plan.to("cuda")
         for P in (4, 8):
             for dtype in (torch.float32, torch.bfloat16):
                 value, loc, aw = window_inputs(centers_px, plan.halo, P,
@@ -272,7 +369,12 @@ def check_window_kernels(card):
                     if (K, P, dtype) == (28, 4, torch.bfloat16):
                         stats[kernel].update(
                             ms=sum(lv["ms"] for lv in levels),
-                            plain_ms=sum(lv["plain_ms"] for lv in levels))
+                            plain_ms=sum(lv["plain_ms"] for lv in levels),
+                            work=bounds.total([
+                                WINDOW_WORK[kernel](*call.args, **call.kwargs)
+                                for call in window_sampling.level_calls(
+                                    value, SPATIAL_SHAPES, loc, aw, plan,
+                                    impl=impl)]))
                 sample = check_window_sample(value, centers_px, plan, P,
                                              dtype, gen)
                 phase("window_kernels_vs_plain", K=K, P=P, dtype=str(dtype),
@@ -356,14 +458,18 @@ def check_slice(card):
     from mvgformer_tpu_torch.models.mvgformer import MVGFormer
 
     cfg = flagship_cfg("float32")
-    model_cpu = MVGFormer(cfg, generator=torch.Generator().manual_seed(SEED))
-    model_gpu = copy.deepcopy(model_cpu).cuda().eval()
-    model_cpu.eval()
-    batch = make_batch(cfg, batch_size=1, seed=SEED, num_people=3)
+    # the same seed gives the same weights and frame on either device
+    model_cpu = MVGFormer(cfg, generator=torch.Generator().manual_seed(SEED),
+                          device="cpu").eval()
+    model_gpu = MVGFormer(
+        cfg, generator=torch.Generator().manual_seed(SEED)).eval()
+    batch = make_batch(cfg, batch_size=1, seed=SEED, num_people=3,
+                       device="cpu")
+    gpu_batch = make_batch(cfg, batch_size=1, seed=SEED, num_people=3)
     before = deform_attn.deform_sample.launches
     with torch.inference_mode():
         t0 = time.perf_counter()
-        gpu = model_gpu(batch.to("cuda"), threshold=THRESHOLD)[0]
+        gpu = model_gpu(gpu_batch, threshold=THRESHOLD)[0]
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         cpu = model_cpu(batch, threshold=THRESHOLD)[0]
@@ -372,28 +478,31 @@ def check_slice(card):
         fail("the card's forward did not launch the kernel")
     compare_layer1("slice_kernel_vs_plain", gpu, cpu, card, gpu_s=t1 - t0,
                    cpu_s=t2 - t1)
-    return cfg, model_cpu, model_gpu, batch, gpu
+    return cfg, model_cpu, model_gpu, batch, gpu_batch, gpu
 
 
-def check_windowed_slice(card, cfg, model_cpu, model_gpu, batch, gather):
+def check_windowed_slice(card, cfg, model_cpu, model_gpu, batch, gpu_batch,
+                         gather):
     """Phase 6: the windowed layer-1 path, kernels on the card against the
     plain path on the CPU, for each impl; and on the card the windowed
     model against the gather model at init (exact while the offsets stay
     inside the halo)."""
     from mvgformer_tpu_torch.models.mvgformer import build_layer1_window_plan
 
-    gpu_batch = batch.to("cuda")
     for impl, kernel in IMPL_KERNEL.items():
         cfg.DECODER.layer1_window_impl = impl
-        plan = build_layer1_window_plan(cfg, batch.view_data)
+        plan = build_layer1_window_plan(cfg, gpu_batch.view_data)
+        cpu_plan = build_layer1_window_plan(cfg, batch.view_data,
+                                            device="cpu")
         before = kernel.launches
         with torch.inference_mode():
             t0 = time.perf_counter()
             gpu = model_gpu(gpu_batch, threshold=THRESHOLD,
-                            window_plan=plan.to("cuda"))[0]
+                            window_plan=plan)[0]
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            cpu = model_cpu(batch, threshold=THRESHOLD, window_plan=plan)[0]
+            cpu = model_cpu(batch, threshold=THRESHOLD,
+                            window_plan=cpu_plan)[0]
             t2 = time.perf_counter()
         if kernel.launches == before:
             fail(f"the card's windowed forward did not launch "
@@ -422,7 +531,7 @@ def serve(card, cfg, model, frames, impl=None):
     t_plan = time.perf_counter()
     if impl is not None:
         cfg.DECODER.layer1_window_impl = impl
-        plan = build_layer1_window_plan(cfg, frames[0].view_data).to("cuda")
+        plan = build_layer1_window_plan(cfg, frames[0].view_data)
     t_plan = time.perf_counter() - t_plan
     step = make_eval_step(cfg, model, THRESHOLD, window_plan=plan,
                           with_escape_telemetry=True)
@@ -442,7 +551,7 @@ def serve(card, cfg, model, frames, impl=None):
     times, escaped = [], []
     for i, frame in enumerate(frames):
         t0 = time.perf_counter()
-        pred, esc = step(frame.to("cuda"))
+        pred, esc = step(frame)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         escaped.append(esc.item())
@@ -478,8 +587,8 @@ def level_views(value):
 
 def check_table_build(card):
     """Phase 9: B2 against its plain version on the flagship value, bit for
-    bit; returns the float32 worst error (0 when equal) and the summed
-    bfloat16 ms and plain ms over the three levels."""
+    bit; returns the summed bfloat16 ms, plain ms and compulsory work over
+    the three levels."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     len_in = sum(h * w for h, w in SPATIAL_SHAPES)
     stats = {}
@@ -503,7 +612,10 @@ def check_table_build(card):
               plain_ms=plain_ms, card=card)
         if not equal:
             fail(f"table_build differs from its plain version ({dtype})")
-        stats[dtype] = (ms, plain_ms)
+        stats[dtype] = (ms, plain_ms, bounds.total([
+            bounds.table_build(N_VIEWS * HEADS, h, w, HEAD_DIM,
+                               value.element_size())
+            for h, w in SPATIAL_SHAPES]))
     return stats[torch.bfloat16]
 
 
@@ -536,8 +648,10 @@ def layer_peak_gib(fn, tables, samples, cts):
 
 def check_table_gather(card):
     """Phase 10: B3 forward and backward against the plain versions at one
-    training layer's shape. Returns, per kernel, the float32 worst error
-    and the bfloat16 ms and plain ms summed over the three levels."""
+    training layer's shape, and beside them F.embedding_bag, the library
+    call of B3's function, held against the plain versions once. Returns,
+    per kernel, the float32 worst error and ms, and the bfloat16 ms, plain
+    ms, library ms and compulsory work summed over the three levels."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     fwd, bwd = (table_gather.gather_reduce_forward,
                 table_gather.gather_reduce_backward)
@@ -589,6 +703,11 @@ def check_table_gather(card):
                 lambda a=a: table_gather.gather_reduce_backward_plain(*a),
                 runs=5, warmup=1) for a in zip(tables, *zip(*samples), cts)),
         }
+        library = library_times(tables, samples, cts)
+        work = {fwd: bounds.total([bounds.table_gather_forward(t, i)
+                                   for t, (i, _) in zip(tables, samples)]),
+                bwd: bounds.total([bounds.table_gather_backward(t, i)
+                                   for t, (i, _) in zip(tables, samples)])}
         peaks = {
             "peak_gib_kernel_autograd": layer_peak_gib(
                 table_gather.deform_gather_reduce, tables, samples, cts),
@@ -601,20 +720,67 @@ def check_table_gather(card):
               table_rows=[t.shape[1] for t in tables], dtype=str(dtype),
               fwd_max_abs_err=errs[fwd], bwd_max_abs_err=errs[bwd],
               bwd_max_err_per_max_grad=errs["bwd_rel"],
-              ok=bool(ok), **times, **peaks, card=card)
+              ok=bool(ok), **times, **library,
+              fwd_bound_ms=work[fwd].bound_ms,
+              bwd_bound_ms=work[bwd].bound_ms, **peaks, card=card)
         if not ok:
             fail(f"table_gather disagrees with its plain versions ({dtype})")
         if dtype == torch.float32:
-            stats[fwd]["max_abs_err"] = errs[fwd]
-            stats[bwd]["max_abs_err"] = errs[bwd]
+            stats[fwd].update(max_abs_err=errs[fwd], ms_f32=times["fwd_ms"],
+                              library_ms_f32=library["library_fwd_ms"])
+            stats[bwd].update(max_abs_err=errs[bwd], ms_f32=times["bwd_ms"],
+                              library_ms_f32=library["library_bwd_ms"])
         else:
             stats[fwd].update(ms=times["fwd_ms"],
-                              plain_ms=times["plain_fwd_ms"])
+                              plain_ms=times["plain_fwd_ms"],
+                              library_ms=library["library_fwd_ms"],
+                              work=work[fwd])
             stats[bwd].update(ms=times["bwd_ms"],
-                              plain_ms=times["plain_bwd_ms"], **peaks)
+                              plain_ms=times["plain_bwd_ms"],
+                              library_ms=library["library_bwd_ms"],
+                              work=work[bwd], **peaks)
         del tables, samples, cts, value, loc, aw
         torch.cuda.empty_cache()
     return stats
+
+
+def library_times(tables, samples, cts):
+    """F.embedding_bag over each level (utils/yardsticks.py): held once
+    against B3's plain versions (forward in either dtype, backward in
+    float32: the CUDA embedding_bag has no bfloat16 backward for
+    per-sample weights), then its forward and, in float32, its autograd
+    backward timed and summed over the levels."""
+    fwd_ms, bwd_ms = 0.0, None
+    dtype = tables[0].dtype
+    for tbl, (idx, w4), ct in zip(tables, samples, cts):
+        weight, rows, offsets, psw = yardsticks.embedding_bag_operands(
+            tbl, idx, w4)
+        NH = tbl.shape[0]
+        if dtype == torch.float32:
+            weight = weight.detach().requires_grad_(True)
+            psw = psw.detach().requires_grad_(True)
+        out = yardsticks.embedding_bag_reduce(weight, rows, offsets, psw, NH)
+        ref = table_gather.deform_gather_reduce_plain(tbl.float(), idx,
+                                                      w4.float())
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        if not torch.allclose(out.detach().float(), ref, atol=tol, rtol=tol):
+            fail(f"F.embedding_bag is not B3's forward ({dtype})")
+        with torch.no_grad():
+            fwd_ms += cuda_ms(lambda: yardsticks.embedding_bag_reduce(
+                weight, rows, offsets, psw, NH))
+        if dtype == torch.float32:
+            got_t, got_w = torch.autograd.grad(out, (weight, psw), ct,
+                                               retain_graph=True)
+            ref_t, ref_w = table_gather.gather_reduce_backward_plain(
+                tbl, idx, w4, ct)
+            for got, want in ((got_t.view(ref_t.shape), ref_t),
+                              (got_w.view(ref_w.shape), ref_w)):
+                if (got - want).abs().max() > 1e-4 * want.abs().max():
+                    fail("F.embedding_bag's backward is not B3's")
+            bwd_ms = (bwd_ms or 0.0) + cuda_ms(lambda: torch.autograd.grad(
+                out, (weight, psw), ct, retain_graph=True))
+        del out, ref, weight, rows, offsets, psw
+    return {"library_fwd_ms": fwd_ms, "library_bwd_ms": bwd_ms}
 
 
 def check_corner_sampler(card):
@@ -675,12 +841,15 @@ def check_train_step(card):
     from mvgformer_tpu_torch.models.mvgformer import MVGFormer
 
     cfg = toy_train_cfg()
-    model_cpu = MVGFormer(cfg, generator=torch.Generator().manual_seed(SEED))
-    model_gpu = copy.deepcopy(model_cpu).cuda()
-    batch = make_batch(cfg, batch_size=1, seed=SEED, num_people=2)
+    runs = []
+    for device in ("cuda", "cpu"):
+        runs.append((MVGFormer(cfg, device=device,
+                               generator=torch.Generator().manual_seed(SEED)),
+                     make_batch(cfg, batch_size=1, seed=SEED, num_people=2,
+                                device=device)))
     before = [fn.launches for fn in TRAIN_KERNELS]
     results = []
-    for model, b in ((model_gpu, batch.to("cuda")), (model_cpu, batch)):
+    for model, b in runs:
         state, tx = create_train_state(cfg, model)
         _, metrics = make_train_step(cfg, model, tx)(state, b)
         results.append((metrics, {k: p.grad for k, p in
@@ -724,9 +893,8 @@ def train(card):
     cfg.PARALLEL.COMPUTE_DTYPE = "bfloat16"
     layers = cfg.DECODER.num_decoder_layers
     model = MVGFormer(cfg, generator=torch.Generator().manual_seed(SEED))
-    model = model.cuda()
     batches = [make_batch(cfg, batch_size=1, seed=SEED + 100 + i,
-                          num_people=3, cam_seed=SEED).to("cuda")
+                          num_people=3, cam_seed=SEED)
                for i in range(TRAIN_STEPS)]
     state, tx = create_train_state(cfg, model)
     step = make_train_step(cfg, model, tx)
@@ -786,6 +954,198 @@ def train(card):
     return launches
 
 
+def probe_cases(dtype, rng):
+    """The probe kernels' cases at the probes' shapes (tools/probes/) and at
+    B3's flagship level-0 row, in one dtype: (kernel, label, args, kwargs,
+    timed); a timed case (bfloat16 only) is timed into its kernel's row of
+    the kernels line."""
+    def table(*shape):
+        a = rng.random(shape, dtype=np.float32) - np.float32(0.5)
+        return torch.from_numpy(a).to("cuda", dtype)
+
+    def ints(high, *shape):
+        return torch.from_numpy(rng.integers(0, high, shape,
+                                             dtype=np.int32)).to("cuda")
+
+    bf16 = dtype == torch.bfloat16
+    rg, wg, ta, sc, ts = (gather_forms.row_gather, gather_forms.window_gather,
+                          gather_forms.take_along, gather_forms.scale,
+                          gather_forms.table_slots)
+    small, big = table(2048, 128), table(31488, 128)
+    idx = ints(2048, 30720)
+    p7 = (table(40, 31460, 128), ints((31460 - 1024) // 8, 40, 120),
+          ints(1024, 40, 61440))
+    cases = [
+        (rg, "P1/P2/P5 2048 rows S 30720", (small, idx), {}, False),
+        (rg, "P1 31488 rows S 30720", (big, ints(31488, 30720)), {}, False),
+        (rg, "P6 f2/f3 and f6", (small, idx[:512].contiguous()), {}, False),
+        (rg, "P8 one pair R 41620 S 184320",
+         (table(41620, 128), ints(41620, 184320)), {}, False),
+        (rg, "B3 flagship level 0: 40 x 33280 rows, S 122880",
+         (table(40, 33280, 128), ints(33280, 40, 122880)), {}, bf16),
+        (wg, "P7 select: 40 x 31460 rows, 120 x 512, W 1024", p7,
+         dict(W=1024, unit=8), bf16),
+        (wg, "P7 copy", p7, dict(W=1024, unit=8, mode="copy"), False),
+        (wg, "P7 zero", (table(4, 3000, 128), ints(200, 4, 120),
+                         ints(1024, 4, 61440)),
+         dict(W=1024, unit=8, mode="zero"), False),
+        (wg, "P8 select, escapes clamped, unit 1",
+         (table(1, 41620, 128), ints(41620 - 512, 1, 180),
+          ints(512, 1, 184320)), dict(W=512, unit=1), False),
+        (ta, "P4 take_eq (2048, 128) x (30720, 128)",
+         (small, idx[:, None].expand(30720, 128).contiguous(), 0), {}, bf16),
+        (ta, "P6 f1", (small, ints(2048, 512, 128), 0), {}, False),
+        (ta, "P6 f4", (table(8, 128), ints(8, 8, 128), 0), {}, False),
+        (ta, "P6 f5 axis 1", (table(128, 128), ints(128, 128, 128), 1), {},
+         False),
+        (sc, "P3 (2048, 128), a = 2", (small, 2.0), {}, bf16),
+    ]
+    if not bf16:
+        cases.append((sc, "a = 0.3", (small, 0.3), {}, False))
+    v_small, v_big = table(40, 16, 30, 32), table(40, 128, 240, 32)
+    for name, slots in gather_forms.SLOT_MAPS.items():
+        cases.append((ts, f"P11 {name} at (16, 30)", (v_small, slots), {},
+                      bf16))
+        cases.append((ts, f"{name} at (128, 240)", (v_big, slots), {}, False))
+    return cases
+
+
+PROBE_PLAIN = {gather_forms.row_gather: gather_forms.row_gather_plain,
+               gather_forms.window_gather: gather_forms.window_gather_plain,
+               gather_forms.take_along: gather_forms.take_along_plain,
+               gather_forms.scale: gather_forms.scale_plain,
+               gather_forms.table_slots: gather_forms.table_slots_plain}
+
+
+def probe_library_call(kernel, args, kwargs):
+    """The one PyTorch call of each probe kernel's function, on operands
+    built here, before any clock (None for the table slots)."""
+    if kernel is gather_forms.row_gather:
+        tbl, idx = args
+        if tbl.dim() == 2:
+            return lambda: torch.index_select(tbl, 0, idx)
+        flat, rows = flat_rows(tbl, idx)
+        return lambda: torch.index_select(flat, 0, rows)
+    if kernel is gather_forms.window_gather:
+        tbl, base, local = args
+        if kwargs.get("mode", "select") != "select":
+            return None
+        flat, rows = flat_rows(tbl, gather_forms.window_rows(
+            base, local, **kwargs)[0])
+        return lambda: torch.index_select(flat, 0, rows)
+    if kernel is gather_forms.take_along:
+        tbl, idx, axis = args
+        idx64 = idx.long()
+        return lambda: torch.gather(tbl, axis, idx64)
+    if kernel is gather_forms.scale:
+        x, a = args
+        return lambda: torch.mul(x, a)
+    return None
+
+
+def probe_work(kernel, args, kwargs) -> bounds.Work:
+    if kernel is gather_forms.row_gather:
+        return bounds.row_gather(*args)
+    if kernel is gather_forms.window_gather:
+        return bounds.window_gather(*args, kwargs["W"], kwargs["unit"],
+                                    kwargs.get("mode", "select"))
+    if kernel is gather_forms.take_along:
+        return bounds.take_along(*args)
+    if kernel is gather_forms.scale:
+        return bounds.scale(args[0].numel(), args[0].element_size())
+    NH, h, w, D = args[0].shape
+    return bounds.table_build(NH, h, w, D, args[0].element_size())
+
+
+def check_probe_kernels(card):
+    """Phase 14: each probe kernel against its plain version on the card,
+    float32 and bfloat16, at the probes' shapes and B3's flagship level-0
+    row: bit for bit (scale: exact, and equal to x * 2 at a = 2); the
+    bfloat16 case of each kernel's table row timed beside its plain
+    version and its library call, with its bound from the same inputs.
+    Returns the table rows by kernel."""
+    rng = np.random.default_rng(SEED)
+    stats = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                 "library_ms": None, "work": bounds.Work(0), "at": []}
+             for k in gather_forms.KERNELS}
+    for dtype in (torch.float32, torch.bfloat16):
+        lines = []
+        for kernel, label, args, kwargs, timed in probe_cases(dtype, rng):
+            got = kernel(*args, **kwargs)
+            torch.cuda.synchronize()
+            want = PROBE_PLAIN[kernel](*args, **kwargs)
+            equal = torch.equal(got, want)
+            if kernel is gather_forms.scale and args[1] == 2.0:
+                equal &= torch.equal(got, args[0] * 2)
+            err = (got.float() - want.float()).abs().max().item()
+            del got, want
+            st = stats[kernel]
+            st["max_abs_err"] = max(st["max_abs_err"], err)
+            line = {"kernel": kernel.__name__, "case": label,
+                    "bitwise_equal": bool(equal)}
+            if timed:
+                library = probe_library_call(kernel, args, kwargs)
+                work = probe_work(kernel, args, kwargs)
+                line.update(
+                    ms=cuda_ms(lambda: kernel(*args, **kwargs)),
+                    plain_ms=cuda_ms(lambda: PROBE_PLAIN[kernel](
+                        *args, **kwargs), runs=5, warmup=1),
+                    library_ms=None if library is None else cuda_ms(library),
+                    bound_ms=work.bound_ms)
+                st["ms"] += line["ms"]
+                st["plain_ms"] += line["plain_ms"]
+                if library is not None:
+                    st["library_ms"] = (st["library_ms"] or 0.0) + line[
+                        "library_ms"]
+                st["work"] = st["work"] + work
+                st["at"].append(label)
+            lines.append(line)
+            if not equal:
+                fail(f"{kernel.__name__} differs from its plain version: "
+                     f"{label} {dtype} (max abs err {err})")
+        phase("probe_kernels_vs_plain", dtype=str(dtype), cases=len(lines),
+              bitwise_equal=all(c["bitwise_equal"] for c in lines),
+              timed=[c for c in lines if "ms" in c], card=card)
+        torch.cuda.empty_cache()
+    return stats
+
+
+def run_probes(card):
+    """Phase 15: each ported probe's main once on the card at reduced
+    repetitions, its printed results into build/probes.jsonl. The
+    probe kernels' counts are set to 0 first and read after: the probes
+    are the path that runs these kernels. Returns the counts."""
+    out_dir = REPO / "build"
+    out_dir.mkdir(exist_ok=True)
+    for fn in gather_forms.KERNELS:
+        fn.launches = 0
+    results, seconds = {}, {}
+    with open(out_dir / "probes.jsonl", "w") as log:
+        for name in PROBES:
+            main_fn = importlib.import_module(
+                f"mvgformer_tpu_torch.tools.probes.{name}").main
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(log):
+                results[name] = main_fn(list(PROBE_RUNS))
+            seconds[name] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+    launches = {fn.__name__: fn.launches for fn in gather_forms.KERNELS}
+    by_name = {r["variant"]: r for rs in results.values() for r in rs}
+    keep = ("ms", "library_ms", "plain_ms", "ns_per_row", "p50", "p95",
+            "max", "escaped_clamped")
+    phase("probes", runs=PROBE_RUNS, seconds=seconds,
+          results_per_probe={k: len(v) for k, v in results.items()},
+          kernel_launches=launches, selected={
+              v: {k: by_name[v][k] for k in keep if k in by_name[v]}
+              for v in ("flagship_bf16", "window_select", "composition",
+                        "sort_key_val", "sorted_block_span_BS512",
+                        "sorted_block_span_BS1024",
+                        "sorted_block_span_BS2048", "window_BS1024_W512_1pair",
+                        "gather_40pairs_sorted", "gather_40pairs_unsorted")},
+          card=card)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs one GPU")
@@ -803,13 +1163,12 @@ def main():
         {"source": src, "seconds": sec, "library": str(lib)}
         for src, (lib, sec) in zip(SOURCES, built)])
 
-    worst_f32, (ms, plain_ms) = check_kernel(card)
+    worst_f32, (ms, plain_ms, b1_work) = check_kernel(card)
     window_stats = check_window_kernels(card)
     check_windowed_slice(card, *check_slice(card))
 
     cfg = flagship_cfg("bfloat16")
     model = MVGFormer(cfg, generator=torch.Generator().manual_seed(SEED))
-    model = model.cuda()
     n = max(SERVE_FRAMES, WINDOW_FRAMES)
     frames = [make_batch(cfg, batch_size=1, seed=SEED + 1 + i,
                          num_people=3, cam_seed=SEED) for i in range(n)]
@@ -824,7 +1183,7 @@ def main():
     del model, frames
     torch.cuda.empty_cache()
 
-    build_ms, build_plain_ms = check_table_build(card)
+    build_ms, build_plain_ms, build_work = check_table_build(card)
     gather_stats = check_table_gather(card)
     check_corner_sampler(card)
     check_train_step(card)
@@ -832,66 +1191,58 @@ def main():
     for fn in TRAIN_KERNELS:
         if train_launches[fn.__name__] == 0:
             fail(f"the training path never launched {fn.__name__}")
+    probe_stats = check_probe_kernels(card)
+    probe_launches = run_probes(card)
+    for name, count in probe_launches.items():
+        if count == 0:
+            fail(f"the probes never launched {name}")
 
-    kernels = [{
-        "name": "deform_sample",
-        "route": "cuda",
-        "source": "mvgformer_tpu_torch/csrc/deform_sample.cu",
-        "replaces": "mvgformer_tpu/ops/pallas_deform.py:32",
-        "launches": launches["deform_sample"],
-        "max_abs_err": worst_f32,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "at": "bfloat16 N=5 Lq=15360 H=8 D=32 L=3 P=4 (dense layer 1)",
-    }]
+    flagship = "bfloat16 NH=40 S=122880 D=32 per level, the 3 flagship " \
+        "levels summed (one training layer)"
+    kernels = [
+        kernel_row(deform_attn.deform_sample, "deform_sample.cu",
+                   "mvgformer_tpu/ops/pallas_deform.py:32",
+                   launches["deform_sample"], worst_f32, ms, plain_ms,
+                   None, b1_work,
+                   "bfloat16 N=5 Lq=15360 H=8 D=32 L=3 P=4 (dense layer 1)")]
     for kernel, source, replaces in (
             (window_block.window_block_matmul, "window_block.cu",
              "mvgformer_tpu/ops/window_pallas.py:34"),
             (window_dma.window_block_dma, "window_dma.cu",
              "mvgformer_tpu/ops/window_dma.py:38")):
         st = window_stats[kernel]
-        kernels.append({
-            "name": kernel.__name__,
-            "route": "cuda",
-            "source": f"mvgformer_tpu_torch/csrc/{source}",
-            "replaces": replaces,
-            "launches": launches[kernel.__name__],
-            "max_abs_err": st["max_abs_err"],
-            "ms": st["ms"],
-            "plain_ms": st["plain_ms"],
-            "at": "bfloat16 layer-1 plan of the flagship rig, K=28 H=8 D=32 "
-                  "P=4, summed over the 3 levels",
-        })
-    kernels.append({
-        "name": "build_corner_table",
-        "route": "cuda",
-        "source": "mvgformer_tpu_torch/csrc/table_build.cu",
-        "replaces": "mvgformer_tpu/ops/table_pallas.py:60",
-        "launches": train_launches["build_corner_table"],
-        "max_abs_err": 0.0,
-        "ms": build_ms,
-        "plain_ms": build_plain_ms,
-        "at": "bfloat16 N=5 H=8 D=32, the 3 flagship levels summed "
-              "(bit for bit against the plain version)",
-    })
+        kernels.append(kernel_row(
+            kernel, source, replaces, launches[kernel.__name__],
+            st["max_abs_err"], st["ms"], st["plain_ms"], None, st["work"],
+            "bfloat16 layer-1 plan of the flagship rig, K=28 H=8 D=32 P=4, "
+            "summed over the 3 levels", timed_launches=3))
+    kernels.append(kernel_row(
+        table_build.build_corner_table, "table_build.cu",
+        "mvgformer_tpu/ops/table_pallas.py:60",
+        train_launches["build_corner_table"], 0.0, build_ms, build_plain_ms,
+        None, build_work, "bfloat16 N=5 H=8 D=32, the 3 flagship levels "
+        "summed (bit for bit against the plain version)", timed_launches=3,
+        also=["tools/probes/probe_table_kernel_forms.py:39 (form_b), :86 "
+              "(form_c), :151 (form_d d2), :226 (form_e)"]))
     for fn, replaces in (
             (table_gather.gather_reduce_forward,
              "mvgformer_tpu/ops/onehot_gather.py:59"),
             (table_gather.gather_reduce_backward,
              "mvgformer_tpu/ops/onehot_gather.py:216")):
         st = gather_stats[fn]
-        kernels.append({
-            "name": fn.__name__,
-            "route": "cuda",
-            "source": "mvgformer_tpu_torch/csrc/table_gather.cu",
-            "replaces": replaces,
-            "launches": train_launches[fn.__name__],
-            "max_abs_err": st["max_abs_err"],
-            "ms": st["ms"],
-            "plain_ms": st["plain_ms"],
-            "at": "bfloat16 NH=40 S=122880 D=32 per level, the 3 flagship "
-                  "levels summed (one training layer)",
-        })
+        kernels.append(kernel_row(
+            fn, "table_gather.cu", replaces, train_launches[fn.__name__],
+            st["max_abs_err"], st["ms"], st["plain_ms"], st["library_ms"],
+            st["work"], flagship, timed_launches=3, library="F.embedding_bag",
+            ms_f32=st["ms_f32"], library_ms_f32=st["library_ms_f32"]))
+    for fn, replaces, also, library in PROBE_ROWS:
+        st = probe_stats[fn]
+        kernels.append(kernel_row(
+            fn, "gather_forms.cu", replaces, probe_launches[fn.__name__],
+            st["max_abs_err"], st["ms"], st["plain_ms"], st["library_ms"],
+            st["work"], "bfloat16; " + " + ".join(st["at"]),
+            timed_launches=len(st["at"]), also=also, library=library))
+    phase("ranking", order=ranking(kernels), card=card)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -13,9 +13,14 @@ layout so each module's counterpart sits at the same path:
     core       -- the serving entry point (core.infer.make_eval_step)
     utils      -- flax variables -> this package's state_dict
 
-The package imports torch and never jax or flax. It shares the JAX package's
-framework-free config tree (`mvgformer_tpu.config`), so both read the same
-YAML files and key names.
+    tools      -- the probes of `tools/probes/` that hold Pallas kernels, on
+                  the card (tools.probes)
+
+The package imports torch and never jax, flax or anything of the JAX
+package. Its config tree (`config.py`) is its own copy of
+`mvgformer_tpu/config.py`, so both read the same YAML files and key names.
+Entry points (`MVGFormer`, `make_batch`, `build_layer1_window_plan`, the
+probes' `main`) run on the card unless the caller passes `device="cpu"`.
 """
 
 __version__ = "0.1.0"

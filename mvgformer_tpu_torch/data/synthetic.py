@@ -12,6 +12,7 @@ import torch
 
 from mvgformer_tpu_torch.data.meta import (Batch, Targets, ViewData,
                                            build_view_data, pad_targets)
+from mvgformer_tpu_torch.device import resolve_device
 from mvgformer_tpu_torch.geometry.cameras import CameraParams, project_points
 
 # A canonical standing pose in mm, root (mid-hip, index 2) at the origin,
@@ -114,12 +115,15 @@ def make_people(num_people: int, seed: int = 0,
 
 def make_batch(cfg, batch_size: int = 1, seed: int = 0,
                num_people: int = 3, image_size=(1920, 1080),
-               cam_seed=None) -> Batch:
-    """A synthetic CPU Batch at the configured shapes with random images.
+               cam_seed=None, device="cuda") -> Batch:
+    """A synthetic Batch at the configured shapes with random images, made
+    in numpy on the host and placed on `device`: the card unless the caller
+    asks for the CPU (raises without a card).
 
     cam_seed: seed of the camera ring alone (None reuses `seed`); pinning it
     gives every frame one rig, as a capture studio has.
     """
+    device = resolve_device(device)
     rng = np.random.RandomState(seed)
     V = cfg.DATASET.CAMERA_NUM
     W, H = cfg.NETWORK.IMAGE_SIZE
@@ -154,7 +158,7 @@ def make_batch(cfg, batch_size: int = 1, seed: int = 0,
                                 max_people=M, num_joints=J)
     views = rng.randn(batch_size, V, H, W, 3).astype(np.float32) * 0.1
     return Batch(views=torch.from_numpy(views), view_data=view_data,
-                 targets=targets)
+                 targets=targets).to(device)
 
 
 def batch_from_jax(batch) -> Batch:

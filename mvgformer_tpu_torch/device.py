@@ -1,5 +1,7 @@
 """Device and precision helpers.
 
+The port's entry points build on the card by default (`resolve_device`).
+
 Geometry is always float32. On the card, float32 matrix products and cuDNN
 convolutions may silently run in TF32 (about three decimal digits); the JAX
 reference pins its camera math to full precision
@@ -12,6 +14,18 @@ from __future__ import annotations
 import torch
 
 from mvgformer_tpu_torch.config import Config
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point builds on: the card unless the caller
+    asks for the CPU. A CUDA device with no card raises; nothing carries
+    on on the CPU in its place."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} asked for, but no CUDA card is "
+            f"available: pass device='cpu' to run on the CPU")
+    return device
 
 
 def strict_float32() -> None:

@@ -35,7 +35,7 @@ from torch import nn
 from mvgformer_tpu_torch.config import Config
 from mvgformer_tpu_torch.data.meta import Batch, ViewData, map_tensors
 from mvgformer_tpu_torch.data.synthetic import T_POSE
-from mvgformer_tpu_torch.device import compute_dtype
+from mvgformer_tpu_torch.device import compute_dtype, resolve_device
 from mvgformer_tpu_torch.models.decoder import (DQDecoder,
                                                 project_reference_points)
 from mvgformer_tpu_torch.models.pose_resnet import PoseResNet
@@ -114,12 +114,18 @@ def check_supported(cfg: Config) -> None:
 
 
 class MVGFormer(nn.Module):
-    """Full model. Call with a Batch; returns per-layer output dicts."""
+    """Full model. Call with a Batch; returns per-layer output dicts.
+
+    The weights are drawn on the CPU from `generator` (a CPU generator) and
+    then moved to `device`, so a seed gives the same weights on either
+    device. `device` defaults to the card and raises without one."""
 
     def __init__(self, cfg: Config,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 device="cuda"):
         super().__init__()
         check_supported(cfg)
+        device = resolve_device(device)
         self.cfg = cfg
         dec = cfg.DECODER
         self.dtype = compute_dtype(cfg)
@@ -161,6 +167,7 @@ class MVGFormer(nn.Module):
                 dec.num_instance, load_tpose(dec.t_pose_dir),
                 cfg.MULTI_PERSON.SPACE_SIZE,
                 cfg.MULTI_PERSON.SPACE_CENTER)), persistent=False)
+        self.to(device)
 
     def initial_reference_points_static(self, batch_size: int
                                         ) -> torch.Tensor:
@@ -270,15 +277,15 @@ def layer1_centers_px(cfg: Config, view_data: ViewData) -> np.ndarray:
     return centers_px
 
 
-def build_layer1_window_plan(cfg: Config, view_data: ViewData,
-                             tile: Optional[int] = None,
-                             halo: Optional[int] = None) -> WindowPlan:
+def layer1_window_plan_host(cfg: Config, view_data: ViewData,
+                            tile: Optional[int] = None,
+                            halo: Optional[int] = None) -> WindowPlan:
     """Host-side, once per rig: bucket the static layer-1 sampling centers
-    into feature-map tiles for the windowed sampler. Only the first batch
-    item of view_data is read (a rig is batch-constant). halo defaults to
-    dec_n_points + 2, which makes the windowed op exact at offset init
-    (radial bias <= n_points px), or to ceil(clamp) + 2 under
-    DECODER.layer1_offset_clamp. Call `.to(device)` on the result once."""
+    into feature-map tiles for the windowed sampler; the plan's arrays are
+    numpy, equal to JAX's. Only the first batch item of view_data is read
+    (a rig is batch-constant). halo defaults to dec_n_points + 2, which
+    makes the windowed op exact at offset init (radial bias <= n_points
+    px), or to ceil(clamp) + 2 under DECODER.layer1_offset_clamp."""
     dec = cfg.DECODER
     if tile is None:
         tile = dec.layer1_window_tile
@@ -300,3 +307,15 @@ def build_layer1_window_plan(cfg: Config, view_data: ViewData,
     return build_window_plan(layer1_centers_px(cfg, view_data),
                              feature_spatial_shapes(cfg), tile=tile,
                              halo=halo, impl=dec.layer1_window_impl)
+
+
+def build_layer1_window_plan(cfg: Config, view_data: ViewData,
+                             tile: Optional[int] = None,
+                             halo: Optional[int] = None,
+                             device="cuda") -> WindowPlan:
+    """The layer-1 window plan of the rig (`layer1_window_plan_host`) with
+    its arrays as tensors on `device`: the card unless the caller asks for
+    the CPU (raises without a card). Build it once per rig and pass it to
+    every frame."""
+    device = resolve_device(device)
+    return layer1_window_plan_host(cfg, view_data, tile, halo).to(device)

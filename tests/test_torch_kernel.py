@@ -10,7 +10,11 @@
   * the corner-table build (B2), bit for bit, from strided level views;
     the table gather-reduce (B3) forward and backward, border rows
     included; and the whole corner sampler against the deformable-sampling
-    kernel (the same contract) at float32 atol 1e-5.
+    kernel (the same contract) at float32 atol 1e-5;
+  * the probe kernels (row gather, windowed gather, take-along, table
+    slots) bit for bit, indices off the table included, and scale exact;
+    and the library call timed beside B3 (F.embedding_bag, forward and
+    autograd) against B3's plain versions.
 
 This file imports neither jax nor the `rng` fixture of conftest.py, so it
 also runs on a machine without JAX:
@@ -200,7 +204,7 @@ def test_window_kernels_match_plain_at_flagship(cuda, impl, clamp):
                                    "knn5-lr4-q1024.yaml"))
     cfg.DECODER.layer1_offset_clamp = clamp
     batch = make_batch(cfg, batch_size=1, seed=0, num_people=3)
-    plan = build_layer1_window_plan(cfg, batch.view_data).to(cuda)
+    plan = build_layer1_window_plan(cfg, batch.view_data)
     centers = torch.from_numpy(layer1_centers_px(cfg, batch.view_data))
     shapes = feature_spatial_shapes(cfg)
     gen = torch.Generator().manual_seed(0)
@@ -321,3 +325,150 @@ def test_corner_sampler_matches_deform_kernel(cuda, P):
     want = deform_attn.deform_sample(v, SHAPES, loc, aw)
     torch.cuda.synchronize()
     assert torch.allclose(got, want, atol=1e-5, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the probe kernels (csrc/gather_forms.cu): bit for bit against their plain
+# versions; scale exact in float32 and, at a = 2, in bfloat16
+# ---------------------------------------------------------------------------
+
+
+def _launched_once(kernel, fn):
+    before = kernel.launches
+    out = fn()
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P,R,S,C", [(1, 2048, 512, 128), (3, 300, 1000, 128),
+                                     (2, 50, 77, 4), (2, 40, 33, 1040)])
+def test_row_gather_matches_plain(cuda, dtype, P, R, S, C):
+    from mvgformer_tpu_torch.ops import gather_forms
+    gen = torch.Generator().manual_seed(P * R)
+    tbl = torch.randn(P, R, C, generator=gen).to(cuda, dtype)
+    idx = torch.randint(0, R, (P, S), generator=gen, dtype=torch.int32)
+    idx[:, ::11] = R  # off the table: a zero row
+    idx = idx.to(cuda)
+    got = _launched_once(gather_forms.row_gather,
+                         lambda: gather_forms.row_gather(tbl, idx))
+    assert torch.equal(got, gather_forms.row_gather_plain(tbl, idx))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["select", "copy", "zero"])
+@pytest.mark.parametrize("unit", [8, 1])
+def test_window_gather_matches_plain(cuda, dtype, mode, unit):
+    from mvgformer_tpu_torch.ops import gather_forms
+    P, R, C, nblk, BS, W = 3, 700, 128, 5, 64, 96
+    gen = torch.Generator().manual_seed(unit)
+    tbl = torch.randn(P, R, C, generator=gen).to(cuda, dtype)
+    base = torch.randint(0, (R - W) // unit + 2, (P, nblk), generator=gen,
+                         dtype=torch.int32).to(cuda)  # some windows overrun R
+    local = torch.randint(-3, W + 3, (P, nblk * BS), generator=gen,
+                          dtype=torch.int32).to(cuda)
+    got = _launched_once(gather_forms.window_gather,
+                         lambda: gather_forms.window_gather(
+                             tbl, base, local, W, unit, mode))
+    assert torch.equal(got, gather_forms.window_gather_plain(
+        tbl, base, local, W, unit, mode))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("axis,tbl_shape,idx_shape", [
+    (0, (2048, 128), (512, 128)), (0, (8, 128), (8, 128)),
+    (1, (128, 128), (128, 128)), (0, (31, 7), (300, 7)),
+    (1, (300, 9), (300, 5))])
+def test_take_along_matches_plain(cuda, dtype, axis, tbl_shape, idx_shape):
+    from mvgformer_tpu_torch.ops import gather_forms
+    gen = torch.Generator().manual_seed(7)
+    tbl = torch.randn(*tbl_shape, generator=gen).to(cuda, dtype)
+    n = tbl_shape[axis]
+    idx = torch.randint(-1, n + 1, idx_shape, generator=gen,
+                        dtype=torch.int32).to(cuda)
+    got = _launched_once(gather_forms.take_along,
+                         lambda: gather_forms.take_along(tbl, idx, axis))
+    assert torch.equal(got, gather_forms.take_along_plain(tbl, idx, axis))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2048 * 128, 1001, 7])
+def test_scale_matches_plain(cuda, dtype, n):
+    from mvgformer_tpu_torch.ops import gather_forms
+    x = torch.randn(n + 1, generator=torch.Generator().manual_seed(n))
+    x = x.to(cuda, dtype)[1:]  # unaligned for the odd sizes' tail path
+    for a in (2.0, 0.3):
+        got = _launched_once(gather_forms.scale,
+                             lambda: gather_forms.scale(x, a))
+        want = gather_forms.scale_plain(x, a)
+        assert torch.equal(got, want)
+        if a == 2.0:
+            assert torch.equal(got, x * 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w,D", [(16, 30, 32), (128, 240, 32), (5, 3, 5),
+                                   (1, 1, 8)])
+def test_table_slots_match_plain_and_b2(cuda, dtype, h, w, D):
+    from mvgformer_tpu_torch.ops import gather_forms
+    v = torch.randn(3, h, w, D, generator=torch.Generator().manual_seed(h))
+    v = v.to(cuda, dtype)
+    for name, slots in gather_forms.SLOT_MAPS.items():
+        got = _launched_once(gather_forms.table_slots,
+                             lambda: gather_forms.table_slots(v, slots))
+        assert torch.equal(got, gather_forms.table_slots_plain(v, slots)), \
+            name
+    b2 = table_build.build_corner_table(v[:, None])
+    assert torch.equal(gather_forms.table_slots(v, gather_forms.B2_SLOTS),
+                       b2)
+
+
+@pytest.mark.gpu
+def test_gather_forms_refuse_what_they_do_not_take(cuda):
+    from mvgformer_tpu_torch.ops import gather_forms
+    tbl = torch.zeros(2, 10, 8, device=cuda)
+    idx = torch.zeros(2, 4, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        gather_forms.row_gather(tbl.half(), idx)
+    with pytest.raises(TypeError):
+        gather_forms.row_gather(tbl, idx.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_forms.row_gather(tbl.transpose(1, 2).contiguous().transpose(
+            1, 2), idx)
+    with pytest.raises(ValueError, match="devices"):
+        gather_forms.row_gather(tbl, idx.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_yardstick_is_b3(cuda, dtype):
+    """The library call timed beside B3 computes B3's function: forward,
+    and in float32 through its autograd the backward, against the plain
+    versions. (PyTorch's CUDA embedding_bag has no bfloat16 backward for
+    per-sample weights.)"""
+    from mvgformer_tpu_torch.utils import yardsticks
+    tables, idx, w4, ct = _gather_operands(3, 3, 300, 1000, 32, dtype, cuda)
+    weight, rows, offsets, psw = yardsticks.embedding_bag_operands(
+        tables, idx, w4)
+    weight = weight.detach().requires_grad_(True)
+    psw = psw.detach().requires_grad_(True)
+    out = yardsticks.embedding_bag_reduce(weight, rows, offsets, psw, 3)
+    f32 = [t.float() if t.is_floating_point() else t
+           for t in (tables, idx, w4, ct)]
+    want = table_gather.deform_gather_reduce_plain(*f32[:3])
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert torch.allclose(out.float(), want, atol=tol, rtol=tol)
+    if dtype != torch.float32:
+        return
+    g_weight, g_psw = torch.autograd.grad(out, (weight, psw), ct)
+    want_t, want_w = table_gather.gather_reduce_backward_plain(*f32)
+    for got, ref in ((g_weight.reshape(want_t.shape), want_t),
+                     (g_psw.reshape(want_w.shape), want_w)):
+        scale = ref.abs().max().item()
+        assert (got - ref).abs().max().item() <= 1e-4 * scale

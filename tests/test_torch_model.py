@@ -58,7 +58,7 @@ def _run(name):
 
     variables, outs, pred, feats = jax.tree_util.tree_map(
         np.asarray, run(jax.random.PRNGKey(0), batch, imgs))
-    model = MVGFormer(cfg)
+    model = MVGFormer(cfg, device="cpu")
     model.load_state_dict(port_state_dict_from_jax(variables, cfg))
     model.eval()
     return dict(cfg=cfg, batch=batch, imgs=np.array(imgs),
@@ -135,7 +135,8 @@ def test_converter_round_trip(name):
 def test_make_batch_matches_jax():
     cfg = make_golden.toy_cfg(**make_golden.CONFIGS["topk_jacobi"])
     want = jax_make_batch(cfg, batch_size=2, seed=11, num_people=3)
-    got = make_batch(cfg, batch_size=2, seed=11, num_people=3)
+    got = make_batch(cfg, batch_size=2, seed=11, num_people=3,
+                     device="cpu")
     ref = batch_from_jax(want)
     np.testing.assert_array_equal(got.views.numpy(), ref.views.numpy())
     for f in ("R", "T", "f", "c", "k", "p"):

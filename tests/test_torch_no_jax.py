@@ -2,8 +2,10 @@
 interpreter where importing either raises, import every module of
 mvgformer_tpu_torch and run a toy forward and eval step on the CPU, through
 the gather and through each windowed layer-1 impl, and one training step
-(matcher, criterion, corner sampler, optimizer)."""
+(matcher, criterion, corner sampler, optimizer); and, statically, no file
+of the port imports jax, flax or the JAX package."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -39,15 +41,16 @@ SCRIPT = textwrap.dedent("""
     cfg.POSE_RESNET.NUM_DECONV_FILTERS = [32, 32, 32]
     cfg.DATASET.CAMERA_NUM = 3
     cfg.MULTI_PERSON.MAX_PEOPLE_NUM = 4
-    model = MVGFormer(cfg, generator=torch.Generator().manual_seed(0))
-    batch = make_batch(cfg, seed=1)
+    model = MVGFormer(cfg, generator=torch.Generator().manual_seed(0),
+                      device="cpu")
+    batch = make_batch(cfg, seed=1, device="cpu")
     pred = make_eval_step(cfg, model, 0.1)(batch)
     assert pred.shape == (1, 16, 15, 5), pred.shape
     assert not torch.isnan(pred).any()
     from mvgformer_tpu_torch.models.mvgformer import build_layer1_window_plan
     for impl in ("xla", "pallas", "pallas_dma"):
         cfg.DECODER.layer1_window_impl = impl
-        plan = build_layer1_window_plan(cfg, batch.view_data)
+        plan = build_layer1_window_plan(cfg, batch.view_data, device="cpu")
         pred, esc = make_eval_step(cfg, model, 0.1, window_plan=plan,
                                    with_escape_telemetry=True)(batch)
         assert pred.shape == (1, 16, 15, 5), pred.shape
@@ -71,6 +74,38 @@ def test_port_runs_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     loaded = proc.stdout.strip().splitlines()[-1]
-    # only the framework-free config tree of the JAX package is loaded
-    assert loaded == "LOADED ['mvgformer_tpu', 'mvgformer_tpu.config']", \
-        loaded
+    # nothing of jax, flax or the JAX package is loaded
+    assert loaded == "LOADED []", loaded
+
+
+FORBIDDEN = ("mvgformer_tpu", "jax", "jaxlib", "flax")
+
+
+def _imported_roots(path):
+    """The top-level package of every import statement in a file."""
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+
+
+def _port_files():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "mvgformer_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def test_no_port_file_imports_jax_or_the_jax_package():
+    """Static guard: no module of the port and not chip_smoke.py names
+    mvgformer_tpu (as opposed to mvgformer_tpu_torch), jax or flax in an
+    import, wherever the import sits (top level, function, branch)."""
+    files = _port_files()
+    assert len(files) > 30
+    bad = [f"{os.path.relpath(path, REPO)}:{line} imports {name}"
+           for path in files for line, name in _imported_roots(path)
+           if name.split(".")[0] in FORBIDDEN]
+    assert not bad, bad

@@ -262,11 +262,12 @@ def _toy_cfg(dropout=0.1):
 @pytest.fixture(scope="module")
 def toy():
     cfg = _toy_cfg()
-    model = MVGFormer(cfg, generator=torch.Generator().manual_seed(0))
+    model = MVGFormer(cfg, generator=torch.Generator().manual_seed(0),
+                      device="cpu")
     cfg0 = _toy_cfg(dropout=0.0)
-    model0 = MVGFormer(cfg0)
+    model0 = MVGFormer(cfg0, device="cpu")
     model0.load_state_dict(model.state_dict())
-    batch = make_batch(cfg, seed=2, num_people=2)
+    batch = make_batch(cfg, seed=2, num_people=2, device="cpu")
     mask = torch.zeros(1, cfg.DECODER.num_instance, dtype=torch.bool)
     mask[0, :5] = True
     return cfg, model, model0, batch, mask
@@ -322,11 +323,11 @@ def test_unported_training_options_raise(section, key, value):
     cfg = _toy_cfg()
     setattr(getattr(cfg, section), key, value)
     with pytest.raises(NotImplementedError, match=key):
-        MVGFormer(cfg)
+        MVGFormer(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("chunks", [None, 0, 1])
 def test_sample_chunks_off_is_accepted(chunks):
     cfg = _toy_cfg()
     cfg.TRAIN.SAMPLE_CHUNKS = chunks
-    MVGFormer(cfg)
+    MVGFormer(cfg, device="cpu")

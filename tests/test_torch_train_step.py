@@ -133,7 +133,7 @@ def run():
         return port_state_dict_from_jax(
             {"params": params, "batch_stats": variables["batch_stats"]}, cfg)
 
-    model = MVGFormer(cfg)
+    model = MVGFormer(cfg, device="cpu")
     model.load_state_dict(convert(variables["params"]))
     params0 = {k: p.detach().clone() for k, p in model.named_parameters()}
     backbone0 = {k: v.clone() for k, v in model.state_dict().items()

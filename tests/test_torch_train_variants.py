@@ -85,7 +85,7 @@ def run(request):
             variables["params"], variables["batch_stats"], jb))
     variables = jax.tree_util.tree_map(np.asarray, variables)
 
-    model = MVGFormer(cfg)
+    model = MVGFormer(cfg, device="cpu")
     model.load_state_dict(port_state_dict_from_jax(variables, cfg))
     state, tx = train.create_train_state(cfg, model)
     batch = batch_from_jax(jb)

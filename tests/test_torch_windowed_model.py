@@ -38,7 +38,7 @@ from mvgformer_tpu.utils.torch_convert import convert_mvgformer_state_dict  # no
 from mvgformer_tpu_torch.core.infer import make_eval_step  # noqa: E402
 from mvgformer_tpu_torch.data.synthetic import batch_from_jax  # noqa: E402
 from mvgformer_tpu_torch.models.mvgformer import (  # noqa: E402
-    MVGFormer, build_layer1_window_plan)
+    MVGFormer, build_layer1_window_plan, layer1_window_plan_host)
 from mvgformer_tpu_torch.utils.jax_convert import port_state_dict_from_jax  # noqa: E402
 
 THRESHOLD = 0.1
@@ -64,7 +64,8 @@ def _run(case):
     make_eval_step with telemetry or, where the case clamps, the clamped
     gather forward; the port loaded with the same weights."""
     cfg = _cfg(case)
-    seeded = MVGFormer(cfg, generator=torch.Generator().manual_seed(3))
+    seeded = MVGFormer(cfg, generator=torch.Generator().manual_seed(3),
+                       device="cpu")
     variables = jax.tree_util.tree_map(
         np.asarray, convert_mvgformer_state_dict(seeded.state_dict(), cfg))
     jm = JMVGFormer(cfg=cfg)
@@ -88,13 +89,15 @@ def _run(case):
 
     windowed, pred, gather = jax.tree_util.tree_map(
         np.asarray, run(variables, batch))
-    model = MVGFormer(cfg)
+    model = MVGFormer(cfg, device="cpu")
     model.load_state_dict(port_state_dict_from_jax(variables, cfg))
     model.eval()
     tbatch = batch_from_jax(batch)
     return dict(cfg=cfg, batch=batch, tbatch=tbatch, jplan=jplan,
                 windowed=windowed, pred=pred, gather=gather, model=model,
-                plan=build_layer1_window_plan(cfg, tbatch.view_data))
+                plan=build_layer1_window_plan(cfg, tbatch.view_data,
+                                              device="cpu"),
+                host_plan=layer1_window_plan_host(cfg, tbatch.view_data))
 
 
 def _assert_golden_classes(got, want):
@@ -130,19 +133,25 @@ def test_windowed_slice_matches_jax(case):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_layer1_plan_matches_jax(case):
+    """The host plan equals JAX's, dtypes included; the plan the entry
+    point places on a device holds the same values."""
     r = _run(case)
-    got, want = r["plan"], r["jplan"]
+    got, want, placed = r["host_plan"], r["jplan"], r["plan"]
     assert (got.halo, got.impl) == (want.halo, want.impl)
+    assert (placed.halo, placed.impl) == (want.halo, want.impl)
     if CASES[case][2] == 1.0:
         assert got.halo == 3  # ceil(1.0) + 2
-    for g, w in zip(got.levels, want.levels):
+    for g, w, p in zip(got.levels, want.levels, placed.levels):
         for field in w._fields:
             a, b = getattr(g, field), getattr(w, field)
             if isinstance(b, np.ndarray):
                 assert a.dtype == b.dtype, field
                 np.testing.assert_array_equal(a, b, err_msg=field)
+                t = getattr(p, field)
+                assert isinstance(t, torch.Tensor), field
+                np.testing.assert_array_equal(t.numpy(), b, err_msg=field)
             else:
-                assert a == b, field
+                assert a == b == getattr(p, field), field
 
 
 def test_clamp_halo_guard():
@@ -153,7 +162,7 @@ def test_clamp_halo_guard():
     cfg.DECODER.layer1_offset_clamp = 4.0
     cfg.DECODER.layer1_window_halo = 3
     with pytest.raises(ValueError, match="layer1_offset_clamp"):
-        build_layer1_window_plan(cfg, r["tbatch"].view_data)
+        build_layer1_window_plan(cfg, r["tbatch"].view_data, device="cpu")
     with pytest.raises(ValueError, match="layer1_offset_clamp"):
         jax_build_plan(cfg, r["batch"].view_data)
 
