@@ -37,8 +37,12 @@ exits non-zero:
  10. the table gather-reduce (B3) forward and backward against the plain
      versions at one training layer's shape (40 pairs, 122,880 samples per
      level, rows from random locations with border and missing samples),
-     float32 and bfloat16, both timed, and the peak memory of one layer's
-     forward and backward through the kernels and through plain autograd;
+     float32 and bfloat16, the backward launched twice and compared bit
+     for bit, untouched gradient rows exactly 0; both timed, the backward
+     also in its parts (the sort of its wrapper, the bare flattened and
+     per-pair sorts, the kernels alone on sorted samples), and the peak
+     memory of one layer's forward and backward through the kernels and
+     through plain autograd;
  11. the corner sampler (B2 + B3) against the deformable-sampling kernel
      (B1), the same contract, float32;
  12. one training step of a toy config in float32 (TF32 off), kernels on
@@ -48,12 +52,21 @@ exits non-zero:
      Jacobi DLT, remat, dropout 0.1), 2 warm-up and 5 timed steps through
      core.train.make_train_step on batches made before the clock starts;
      finite losses, the backbone unchanged, non-zero sampler gradients,
-     the launch counts the design predicts, steps/s and peak memory;
+     the launch counts the design predicts, steps/s and peak memory; then
+     torch.profiler over 2 more steps gives B3's device ms per launch, and
+     the first of them records the first decoder layer's B3 operands (a
+     wrapper around ops.sampling.deform_gather_reduce that calls through);
+ 13b. B3 on those captured operands of the training step: against the
+     plain versions as in phase 10, the samples per table row of each
+     level (max, p99, share in rows over the backward's tile), and timed;
  14. the probe kernels (row gather, windowed gather, take-along, scale,
      table slots) against their plain versions at the probes' shapes and
      at B3's flagship level-0 row, float32 and bfloat16, bit for bit
      (scale exact), one case each timed beside its plain version and its
-     library call;
+     library call: `ms` one call between two events (host path and device
+     together), `device_ms` 50 back-to-back calls with the stream held
+     until all are enqueued (tools/launch_cost.py), and the host's us per
+     call;
  15. the ported probes (mvgformer_tpu_torch/tools/probes/), each main once
      at 3 timed runs, with the probe kernels' counts set to 0 before and
      read after; their results go to build/probes.jsonl.
@@ -84,6 +97,7 @@ from mvgformer_tpu_torch.ops import (_build, deform_attn, gather_forms,
                                      sampling, table_build, table_gather,
                                      window_block, window_dma,
                                      window_sampling)
+from mvgformer_tpu_torch.tools.launch_cost import device_ms
 from mvgformer_tpu_torch.tools.probes.probe_pallas_gather import flat_rows
 from mvgformer_tpu_torch.utils import bounds, yardsticks
 
@@ -666,31 +680,13 @@ def check_table_gather(card):
                            generator=gen).to(dtype) for idx, _ in samples]
         errs = {fwd: 0.0, bwd: 0.0, "bwd_rel": 0.0}
         ok = True
+        bit_identical = True
         for tbl, (idx, w4), ct in zip(tables, samples, cts):
-            out = fwd(tbl, idx, w4)
-            g_tbl, g_w4 = bwd(tbl, idx, w4, ct)
-            torch.cuda.synchronize()
-            f32 = (tbl.float(), idx, w4.float())
-            ref = table_gather.deform_gather_reduce_plain(*f32)
-            ref_t, ref_w = table_gather.gather_reduce_backward_plain(
-                *f32, ct.float())
-            err = (out.float() - ref).abs().max().item()
-            errs[fwd] = max(errs[fwd], err)
-            if dtype == torch.float32:
-                ok &= err <= 1e-5
-            else:
-                ok &= torch.allclose(out.float(), ref, atol=2e-2, rtol=2e-2)
-            for got, want in ((g_tbl, ref_t), (g_w4, ref_w)):
-                err = (got.float() - want).abs().max().item()
-                scale = want.abs().max().item()
-                errs[bwd] = max(errs[bwd], err)
-                errs["bwd_rel"] = max(errs["bwd_rel"], err / scale)
-                if dtype == torch.float32:
-                    ok &= err <= 1e-4 * scale
-                else:
-                    ok &= torch.allclose(got.float(), want,
-                                         atol=2e-2 * scale, rtol=2e-2)
-            del out, g_tbl, g_w4, ref, ref_t, ref_w
+            level_ok, level_errs, same = check_gather_level(tbl, idx, w4, ct)
+            ok &= level_ok
+            bit_identical &= same
+            for k, v in level_errs.items():
+                errs[k] = max(errs[k], v)
         times = {
             "fwd_ms": sum(cuda_ms(lambda a=a: fwd(*a)) for a in zip(
                 tables, *zip(*samples))),
@@ -702,6 +698,7 @@ def check_table_gather(card):
             "plain_bwd_ms": sum(cuda_ms(
                 lambda a=a: table_gather.gather_reduce_backward_plain(*a),
                 runs=5, warmup=1) for a in zip(tables, *zip(*samples), cts)),
+            **backward_parts(tables, samples, cts),
         }
         library = library_times(tables, samples, cts)
         work = {fwd: bounds.total([bounds.table_gather_forward(t, i)
@@ -720,11 +717,13 @@ def check_table_gather(card):
               table_rows=[t.shape[1] for t in tables], dtype=str(dtype),
               fwd_max_abs_err=errs[fwd], bwd_max_abs_err=errs[bwd],
               bwd_max_err_per_max_grad=errs["bwd_rel"],
-              ok=bool(ok), **times, **library,
+              bwd_bit_identical=bit_identical, ok=bool(ok), **times,
+              **library,
               fwd_bound_ms=work[fwd].bound_ms,
               bwd_bound_ms=work[bwd].bound_ms, **peaks, card=card)
-        if not ok:
-            fail(f"table_gather disagrees with its plain versions ({dtype})")
+        if not (ok and bit_identical):
+            fail(f"table_gather disagrees with its plain versions or "
+                 f"between two launches ({dtype})")
         if dtype == torch.float32:
             stats[fwd].update(max_abs_err=errs[fwd], ms_f32=times["fwd_ms"],
                               library_ms_f32=library["library_fwd_ms"])
@@ -738,10 +737,76 @@ def check_table_gather(card):
             stats[bwd].update(ms=times["bwd_ms"],
                               plain_ms=times["plain_bwd_ms"],
                               library_ms=library["library_bwd_ms"],
-                              work=work[bwd], **peaks)
+                              work=work[bwd], sort_ms=times["sort_ms"],
+                              kernel_only_ms=times["bwd_kernel_only_ms"],
+                              bit_identical=bit_identical, **peaks)
         del tables, samples, cts, value, loc, aw
         torch.cuda.empty_cache()
     return stats
+
+
+def check_gather_level(tbl, idx, w4, ct):
+    """B3 forward and backward on one level's operands against the plain
+    versions in float32 (f32: forward 1e-5, backward 1e-4 of the largest
+    gradient; bf16: 2e-2 of the same scales), the backward launched twice
+    and compared bit for bit, and the rows no sample touches exactly 0.
+    Returns (ok, worst errors, bit-identical)."""
+    fwd, bwd = (table_gather.gather_reduce_forward,
+                table_gather.gather_reduce_backward)
+    out = fwd(tbl, idx, w4)
+    g_tbl, g_w4 = bwd(tbl, idx, w4, ct)
+    again = bwd(tbl, idx, w4, ct)
+    torch.cuda.synchronize()
+    same = torch.equal(g_tbl, again[0]) and torch.equal(g_w4, again[1])
+    del again
+    f32 = (tbl.float(), idx, w4.float())
+    ref = table_gather.deform_gather_reduce_plain(*f32)
+    ref_t, ref_w = table_gather.gather_reduce_backward_plain(*f32, ct.float())
+    exact = tbl.dtype == torch.float32
+    err = (out.float() - ref).abs().max().item()
+    errs = {fwd: err, bwd: 0.0, "bwd_rel": 0.0}
+    ok = err <= 1e-5 if exact else torch.allclose(out.float(), ref,
+                                                  atol=2e-2, rtol=2e-2)
+    for got, want in ((g_tbl, ref_t), (g_w4, ref_w)):
+        err = (got.float() - want).abs().max().item()
+        scale = want.abs().max().item()
+        errs[bwd] = max(errs[bwd], err)
+        errs["bwd_rel"] = max(errs["bwd_rel"], err / scale)
+        ok &= (err <= 1e-4 * scale if exact else torch.allclose(
+            got.float(), want, atol=2e-2 * scale, rtol=2e-2))
+    NH, R, _ = tbl.shape
+    touched = torch.zeros(NH * R, dtype=torch.bool, device=idx.device)
+    k = idx.long()
+    on = (k >= 0) & (k < R)
+    rows = (torch.arange(NH, device=idx.device)[:, None] * R + k)[on]
+    touched[rows] = True
+    ok &= bool((g_tbl.reshape(NH * R, -1)[~touched] == 0).all())
+    return bool(ok), errs, bool(same)
+
+
+def backward_parts(tables, samples, cts):
+    """B3 backward's parts summed over the levels: the sort of its wrapper
+    (row_segments: the keys, one flattened stable sort and a binary search
+    for the offsets); the bare flattened sort and the bare sort along each
+    pair's rows (the alternative), alike without keys or offsets; and the
+    kernels alone on sorted samples."""
+    segs = [table_gather.row_segments(idx, t.shape[1])
+            for t, (idx, _) in zip(tables, samples)]
+    rows = [torch.where((idx >= 0) & (idx < t.shape[1]), idx, t.shape[1])
+            for t, (idx, _) in zip(tables, samples)]
+    return {
+        "sort_ms": sum(cuda_ms(lambda a=(idx, t.shape[1]):
+                               table_gather.row_segments(*a))
+                       for t, (idx, _) in zip(tables, samples)),
+        "sort_flat_only_ms": sum(cuda_ms(lambda g=g: torch.sort(
+            g.keys, stable=True)) for g in segs),
+        "sort_per_pair_ms": sum(cuda_ms(lambda r=r: torch.sort(
+            r, dim=-1, stable=True)) for r in rows),
+        "bwd_kernel_only_ms": sum(cuda_ms(
+            lambda a=a, g=g: table_gather.gather_reduce_backward(
+                *a, segments=g))
+            for a, g in zip(zip(tables, *zip(*samples), cts), segs)),
+    }
 
 
 def library_times(tables, samples, cts):
@@ -930,6 +995,7 @@ def train(card):
                      f"{i + 1} steps, expected {want}")
     launches = {fn.__name__: fn.launches for fn in ALL_KERNELS}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    in_step, captured = profile_b3(step, state, batches[:2], gen, L)
     sd = model.state_dict()
     if not all(torch.equal(v, sd[k]) for k, v in backbone.items()):
         fail("the frozen backbone changed")
@@ -950,8 +1016,142 @@ def train(card):
           peak_mem_gib=peak, losses={k: v.item() for k, v in metrics.items()},
           sampler_grad_max_abs=grads, kernel_launches=launches,
           launches_per_step={fn.__name__: n for fn, n in
-                             want_per_step.items()}, card=card)
-    return launches
+                             want_per_step.items()},
+          b3_in_step=in_step, card=card)
+    return launches, captured, in_step
+
+
+@contextlib.contextmanager
+def capture_gather_operands(into, levels):
+    """While active, record the (tables, idx, w4) of the first `levels`
+    gather-reduce calls of the corner sampler (the first decoder layer's
+    levels) into `into` and call through, so no launch count changes.
+    `into` None records nothing."""
+    original = sampling.deform_gather_reduce
+
+    def recorder(tables, idx, w4):
+        if into is not None and len(into) < levels:
+            into.append((tables.detach(), idx, w4.detach()))
+        return original(tables, idx, w4)
+
+    sampling.deform_gather_reduce = recorder
+    try:
+        yield
+    finally:
+        sampling.deform_gather_reduce = original
+
+
+B3_KERNELS = {"gather_reduce_fwd_kernel": "fwd",
+              "segment_sum_kernel": "bwd", "rows_kernel": "bwd_rows"}
+
+
+def profile_b3(step, state, batches, gen, levels):
+    """torch.profiler over the given training steps, after the timed ones
+    (so their peak memory holds no captured operand): the device ms per
+    launch of B3's kernels (the backward's two kernels summed per launch)
+    and of the sort kernels, by name; and the first decoder layer's B3
+    operands of the first of these steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    captured = []
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i, batch in enumerate(batches):
+            with capture_gather_operands(captured if i == 0 else None,
+                                         levels):
+                state, _ = step(state, batch, gen)
+        torch.cuda.synchronize()
+    total = {"fwd": 0.0, "bwd": 0.0, "bwd_rows": 0.0, "sort": 0.0}
+    count = {"fwd": 0, "bwd": 0, "bwd_rows": 0, "sort": 0}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        kind = next((v for k, v in B3_KERNELS.items() if k in e.key), None)
+        if kind is None and "sort" in e.key.lower() and us > 0:
+            kind = "sort"
+        if kind is not None:
+            total[kind] += us / 1e3
+            count[kind] += e.count
+    if count["fwd"] == 0 or count["bwd"] == 0:
+        fail(f"the profiler saw no B3 kernel in the step: {count}")
+    return {"steps": len(batches),
+            "fwd_ms_per_launch": total["fwd"] / count["fwd"],
+            "bwd_ms_per_launch": (total["bwd"] + total["bwd_rows"])
+            / count["bwd"],
+            "fwd_launches": count["fwd"], "bwd_launches": count["bwd"],
+            "sort_kernels_ms_per_step": total["sort"] / len(batches)
+            }, captured
+
+
+def check_step_operands(card, captured):
+    """Phase 13b: B3 on the flagship training step's own operands (the
+    first decoder layer's three levels, captured in phase 13, a random
+    cotangent): forward and backward against the plain versions, the
+    backward twice bit for bit, untouched rows 0; the samples per row of
+    each level; and times as in phase 10."""
+    if len(captured) != len(SPATIAL_SHAPES):
+        fail(f"captured {len(captured)} gather-reduce calls in the step")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    tables = [t for t, _, _ in captured]
+    samples = [(i, w) for _, i, w in captured]
+    cts = [torch.randn(i.shape + (t.shape[-1] // 4,), device="cuda",
+                       generator=gen).to(t.dtype)
+           for t, (i, _) in zip(tables, samples)]
+    ok, same, levels = True, True, []
+    for tbl, (idx, w4), ct in zip(tables, samples, cts):
+        level_ok, errs, level_same = check_gather_level(tbl, idx, w4, ct)
+        ok &= level_ok
+        same &= level_same
+        levels.append({"rows": tbl.shape[1], **row_load(tbl, idx),
+                       "fwd_max_abs_err": errs[
+                           table_gather.gather_reduce_forward],
+                       "bwd_max_err_per_max_grad": errs["bwd_rel"]})
+    fwd, bwd = (table_gather.gather_reduce_forward,
+                table_gather.gather_reduce_backward)
+    times = {
+        "fwd_ms": sum(cuda_ms(lambda a=a: fwd(*a))
+                      for a in zip(tables, *zip(*samples))),
+        "bwd_ms": sum(cuda_ms(lambda a=a: bwd(*a))
+                      for a in zip(tables, *zip(*samples), cts)),
+        **backward_parts(tables, samples, cts)}
+    work = {
+        "fwd_bound_ms": bounds.total([bounds.table_gather_forward(t, i)
+                                      for t, (i, _) in zip(tables, samples)
+                                      ]).bound_ms,
+        "bwd_bound_ms": bounds.total([bounds.table_gather_backward(t, i)
+                                      for t, (i, _) in zip(tables, samples)
+                                      ]).bound_ms}
+    phase("table_gather_step_operands", dtype=str(tables[0].dtype),
+          NH=tables[0].shape[0], S=samples[0][0].shape[1], levels=levels,
+          chunk=table_gather.CHUNK, ok=ok, bwd_bit_identical=same, **times,
+          **work, card=card)
+    if not (ok and same):
+        fail("B3 disagrees with its plain versions, or between two "
+             "launches, on the training step's operands")
+    return {"ms": times["fwd_ms"], "bwd_ms": times["bwd_ms"],
+            "sort_ms": times["sort_ms"],
+            "kernel_only_ms": times["bwd_kernel_only_ms"]}
+
+
+def row_load(tbl, idx):
+    """Samples per table row of one level: the largest, the 99th percentile
+    over the rows that any sample touches, the share of touched rows, and
+    the share of samples in rows over the backward's tile of CHUNK."""
+    NH, R, _ = tbl.shape
+    k = idx.long()
+    on = (k >= 0) & (k < R)
+    rows = (torch.arange(NH, device=idx.device)[:, None] * R + k)[on]
+    per_row = torch.bincount(rows, minlength=NH * R)
+    hit = per_row[per_row > 0].float()
+    over = per_row > table_gather.CHUNK
+    return {"samples_per_row_max": int(per_row.max()),
+            "samples_per_row_p99": float(torch.quantile(
+                hit[:2 ** 24], 0.99)),
+            "rows_touched_share": hit.numel() / (NH * R),
+            "share_in_rows_over_chunk": float(per_row[over].sum()
+                                              / max(int(on.sum()), 1))}
 
 
 def probe_cases(dtype, rng):
@@ -1086,12 +1286,21 @@ def check_probe_kernels(card):
             if timed:
                 library = probe_library_call(kernel, args, kwargs)
                 work = probe_work(kernel, args, kwargs)
+                dev_ms, host_us = device_ms(lambda: kernel(*args, **kwargs))
                 line.update(
                     ms=cuda_ms(lambda: kernel(*args, **kwargs)),
+                    device_ms=dev_ms, host_us=host_us,
                     plain_ms=cuda_ms(lambda: PROBE_PLAIN[kernel](
                         *args, **kwargs), runs=5, warmup=1),
                     library_ms=None if library is None else cuda_ms(library),
                     bound_ms=work.bound_ms)
+                if library is not None:
+                    line["library_device_ms"], line["library_host_us"] = \
+                        device_ms(library)
+                for key in ("device_ms", "host_us", "library_device_ms",
+                            "library_host_us"):
+                    if key in line:
+                        st[key] = st.get(key, 0.0) + line[key]
                 st["ms"] += line["ms"]
                 st["plain_ms"] += line["plain_ms"]
                 if library is not None:
@@ -1187,10 +1396,13 @@ def main():
     gather_stats = check_table_gather(card)
     check_corner_sampler(card)
     check_train_step(card)
-    train_launches = train(card)
+    train_launches, captured, in_step = train(card)
     for fn in TRAIN_KERNELS:
         if train_launches[fn.__name__] == 0:
             fail(f"the training path never launched {fn.__name__}")
+    step_stats = check_step_operands(card, captured)
+    del captured
+    torch.cuda.empty_cache()
     probe_stats = check_probe_kernels(card)
     probe_launches = run_probes(card)
     for name, count in probe_launches.items():
@@ -1224,24 +1436,43 @@ def main():
         "summed (bit for bit against the plain version)", timed_launches=3,
         also=["tools/probes/probe_table_kernel_forms.py:39 (form_b), :86 "
               "(form_c), :151 (form_d d2), :226 (form_e)"]))
-    for fn, replaces in (
+    for fn, replaces, extra in (
             (table_gather.gather_reduce_forward,
-             "mvgformer_tpu/ops/onehot_gather.py:59"),
+             "mvgformer_tpu/ops/onehot_gather.py:59",
+             {"kernel_only_ms": gather_stats[
+                 table_gather.gather_reduce_forward]["ms"],
+              "in_step_ms_per_launch": in_step["fwd_ms_per_launch"],
+              "step_operands_ms": step_stats["ms"]}),
             (table_gather.gather_reduce_backward,
-             "mvgformer_tpu/ops/onehot_gather.py:216")):
+             "mvgformer_tpu/ops/onehot_gather.py:216",
+             {"sort_ms": gather_stats[
+                 table_gather.gather_reduce_backward]["sort_ms"],
+              "kernel_only_ms": gather_stats[
+                  table_gather.gather_reduce_backward]["kernel_only_ms"],
+              "in_step_ms_per_launch": in_step["bwd_ms_per_launch"],
+              "bit_identical": gather_stats[
+                  table_gather.gather_reduce_backward]["bit_identical"],
+              "step_operands_ms": step_stats["bwd_ms"],
+              "step_operands_sort_ms": step_stats["sort_ms"],
+              "step_operands_kernel_only_ms": step_stats[
+                  "kernel_only_ms"]})):
         st = gather_stats[fn]
         kernels.append(kernel_row(
             fn, "table_gather.cu", replaces, train_launches[fn.__name__],
             st["max_abs_err"], st["ms"], st["plain_ms"], st["library_ms"],
             st["work"], flagship, timed_launches=3, library="F.embedding_bag",
-            ms_f32=st["ms_f32"], library_ms_f32=st["library_ms_f32"]))
+            ms_f32=st["ms_f32"], library_ms_f32=st["library_ms_f32"],
+            **extra))
     for fn, replaces, also, library in PROBE_ROWS:
         st = probe_stats[fn]
         kernels.append(kernel_row(
             fn, "gather_forms.cu", replaces, probe_launches[fn.__name__],
             st["max_abs_err"], st["ms"], st["plain_ms"], st["library_ms"],
             st["work"], "bfloat16; " + " + ".join(st["at"]),
-            timed_launches=len(st["at"]), also=also, library=library))
+            timed_launches=len(st["at"]), also=also, library=library,
+            **{k: st[k] for k in ("device_ms", "host_us",
+                                  "library_device_ms", "library_host_us")
+               if k in st}))
     phase("ranking", order=ranking(kernels), card=card)
     print(json.dumps({"kernels": kernels}))
     print(card)

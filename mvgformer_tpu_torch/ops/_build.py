@@ -7,6 +7,10 @@ The library's name carries a hash of the source, the shared headers of
 `csrc/` and the flags, so an edit rebuilds and an unchanged source loads the
 library already built. The compiler's report (ptxas registers, shared memory
 and spills) is kept beside the library as `<name>.log`.
+
+Every wrapper launches through a `Launcher`: its host path per call is the
+ctypes call, a current-device check and the raw stream handle, with no
+`torch.cuda.device` context unless the tensor's device is not current.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import List, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -85,3 +91,41 @@ def build_all(sources: Sequence[Path]) -> List[Tuple[Path, float]]:
 def load(src: Path) -> ctypes.CDLL:
     """The library of `src`, built if needed, loaded once per process."""
     return ctypes.CDLL(str(build(src)))
+
+
+def raw_stream(index: int) -> int:
+    """The raw handle of the current stream of CUDA device `index`, read
+    without making a `torch.cuda.Stream`."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+class Launcher:
+    """One C launcher of a `csrc/` source: `launcher(t, *args)` calls
+    `name(*args, stream)` on the current stream of t's device and raises if
+    it returns a non-zero cudaError_t (or -1, arguments the C side refuses).
+
+    The library is built, loaded and the function's argtypes bound at the
+    first call, once; the current device is switched only when t's is not
+    current. The last argtype is the stream's."""
+
+    def __init__(self, src: Path, name: str, argtypes: Sequence):
+        self.src, self.name, self.argtypes = src, name, list(argtypes)
+        self._fn = None
+
+    def _bind(self):
+        fn = getattr(load(self.src), self.name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = self.argtypes
+        self._fn = fn
+        return fn
+
+    def __call__(self, t, *args) -> None:
+        fn = self._fn or self._bind()
+        index = t.get_device()
+        if index == torch._C._cuda_getDevice():
+            err = fn(*args, raw_stream(index))
+        else:
+            with torch.cuda.device(index):
+                err = fn(*args, raw_stream(index))
+        if err != 0:
+            raise RuntimeError(f"{self.name} failed: error {err}")

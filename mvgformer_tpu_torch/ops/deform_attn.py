@@ -14,7 +14,6 @@ root of the checkout (`ops/_build.py`) and bound with ctypes.
 from __future__ import annotations
 
 import ctypes
-import functools
 from pathlib import Path
 from typing import Sequence, Tuple
 
@@ -32,15 +31,10 @@ def build() -> Path:
     return _build.build(_SRC)
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = _build.load(_SRC)
-    fn = lib.mvg_deform_sample_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-                      ctypes.c_void_p])
-    return lib
+_FORWARD = _build.Launcher(
+    _SRC, "mvg_deform_sample_forward",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+    + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p])
 
 
 def _check(value, spatial_shapes, sampling_locations, attention_weights):
@@ -113,15 +107,10 @@ def deform_sample(value: torch.Tensor,
         levels += [int(h), int(w), start]
         start += int(h) * int(w)
     out = torch.empty((N, Lq, H * D), dtype=value.dtype, device=value.device)
-    fn = _library().mvg_deform_sample_forward
-    with torch.cuda.device(value.device):
-        stream = torch.cuda.current_stream(value.device).cuda_stream
-        err = fn(value.data_ptr(), sampling_locations.data_ptr(),
-                 attention_weights.data_ptr(), out.data_ptr(), N, Len_in, H,
-                 D, Lq, L, P, (ctypes.c_int * len(levels))(*levels),
-                 _DTYPE_CODE[value.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"deform_sample kernel launch failed: error {err}")
+    _FORWARD(value, value.data_ptr(), sampling_locations.data_ptr(),
+             attention_weights.data_ptr(), out.data_ptr(), N, Len_in, H, D,
+             Lq, L, P, (ctypes.c_int * len(levels))(*levels),
+             _DTYPE_CODE[value.dtype])
     deform_sample.launches += 1
     return out
 

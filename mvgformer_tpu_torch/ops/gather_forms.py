@@ -36,7 +36,6 @@ does, with the PyTorch call of the same function timed beside each kernel.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -62,31 +61,25 @@ SLOT_MAPS = {
 B2_SLOTS = SLOT_MAPS["d2"]
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = _build.load(_SRC)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    for name, args in (
-            ("mvg_row_gather", [p] * 4 + [i] * 8 + [p]),
-            ("mvg_take_along", [p] * 3 + [i] * 6 + [p]),
-            ("mvg_scale", [p, p, ctypes.c_longlong, ctypes.c_float, i, p]),
-            ("mvg_table_slots", [p, p] + [i] * 10 + [p])):
-        fn = getattr(lib, name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = args
-    return lib
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ROW_GATHER = _build.Launcher(_SRC, "mvg_row_gather", [_P] * 4 + [_I] * 8 + [_P])
+_TAKE_ALONG = _build.Launcher(_SRC, "mvg_take_along", [_P] * 3 + [_I] * 6 + [_P])
+_SCALE = _build.Launcher(_SRC, "mvg_scale",
+                         [_P, _P, ctypes.c_longlong, ctypes.c_float, _I, _P])
+_TABLE_SLOTS = _build.Launcher(_SRC, "mvg_table_slots",
+                               [_P, _P] + [_I] * 10 + [_P])
 
 
 def _check_device(*tensors) -> str:
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"inputs on several devices: {devices}")
+    index = tensors[0].get_device()  # -1 off the card
+    if any(t.get_device() != index for t in tensors[1:]) or (
+            index < 0 and any(t.is_cuda for t in tensors)):
+        raise ValueError(f"inputs on several devices: "
+                         f"{[str(t.device) for t in tensors]}")
+    if index >= 0:
+        return "cuda"
     kind = tensors[0].device.type
-    if kind not in ("cpu", "cuda"):
+    if kind != "cpu" or any(t.device.type != "cpu" for t in tensors[1:]):
         raise ValueError(f"unsupported device {tensors[0].device}")
     return kind
 
@@ -103,11 +96,6 @@ def _check_cuda(data: Sequence[Tuple[str, torch.Tensor]],
     for name, t in (*data, *index):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-
-
-def _launched(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: error {err}")
 
 
 def _masked_rows(tbl: torch.Tensor, rows: torch.Tensor,
@@ -152,11 +140,8 @@ def row_gather(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     P, R, C = tbl.shape
     S = idx.shape[1]
     out = torch.empty((P, S, C), dtype=tbl.dtype, device=tbl.device)
-    with torch.cuda.device(tbl.device):
-        err = _library().mvg_row_gather(
-            tbl.data_ptr(), idx.data_ptr(), None, out.data_ptr(), P, R, S,
-            0, 0, 0, 0, C * tbl.element_size(), _stream(tbl))
-    _launched(err, "row_gather")
+    _ROW_GATHER(tbl, tbl.data_ptr(), idx.data_ptr(), None, out.data_ptr(),
+                P, R, S, 0, 0, 0, 0, C * tbl.element_size())
     row_gather.launches += 1
     return out
 
@@ -216,12 +201,9 @@ def window_gather(tbl: torch.Tensor, base: torch.Tensor, local: torch.Tensor,
     _check_cuda([("tbl", tbl)], [("base", base), ("local", local)])
     R, C = tbl.shape[1:]
     out = torch.empty((P, S, C), dtype=tbl.dtype, device=tbl.device)
-    with torch.cuda.device(tbl.device):
-        err = _library().mvg_row_gather(
-            tbl.data_ptr(), local.data_ptr(), base.data_ptr(),
-            out.data_ptr(), P, R, S, base.shape[1], W, unit, _MODES[mode],
-            C * tbl.element_size(), _stream(tbl))
-    _launched(err, "window_gather")
+    _ROW_GATHER(tbl, tbl.data_ptr(), local.data_ptr(), base.data_ptr(),
+                out.data_ptr(), P, R, S, base.shape[1], W, unit,
+                _MODES[mode], C * tbl.element_size())
     window_gather.launches += 1
     return out
 
@@ -263,12 +245,9 @@ def take_along(tbl: torch.Tensor, idx: torch.Tensor,
         return take_along_plain(tbl, idx, axis)
     _check_cuda([("tbl", tbl)], [("idx", idx)])
     out = torch.empty(idx.shape, dtype=tbl.dtype, device=tbl.device)
-    with torch.cuda.device(tbl.device):
-        err = _library().mvg_take_along(
-            tbl.data_ptr(), idx.data_ptr(), out.data_ptr(), tbl.shape[0],
-            tbl.shape[1], idx.shape[0], idx.shape[1], axis,
-            tbl.element_size(), _stream(tbl))
-    _launched(err, "take_along")
+    _TAKE_ALONG(tbl, tbl.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                tbl.shape[0], tbl.shape[1], idx.shape[0], idx.shape[1], axis,
+                tbl.element_size())
     take_along.launches += 1
     return out
 
@@ -287,11 +266,8 @@ def scale(x: torch.Tensor, a: float) -> torch.Tensor:
         return scale_plain(x, a)
     _check_cuda([("x", x)], [])
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = _library().mvg_scale(x.data_ptr(), out.data_ptr(), x.numel(),
-                                   float(a), _DTYPES.index(x.dtype),
-                                   _stream(x))
-    _launched(err, "scale")
+    _SCALE(x, x.data_ptr(), out.data_ptr(), x.numel(), float(a),
+           _DTYPES.index(x.dtype))
     scale.launches += 1
     return out
 
@@ -349,11 +325,8 @@ def table_slots(v: torch.Tensor, slots: Sequence[Slot] = B2_SLOTS
     wpp = padded_width(w)
     out = torch.empty((NH, (h + 2) * wpp, 4 * D), dtype=v.dtype,
                       device=v.device)
-    with torch.cuda.device(v.device):
-        err = _library().mvg_table_slots(
-            v.data_ptr(), out.data_ptr(), NH, h, w, wpp, D, v.element_size(),
-            *codes, _stream(v))
-    _launched(err, "table_slots")
+    _TABLE_SLOTS(v, v.data_ptr(), out.data_ptr(), NH, h, w, wpp, D,
+                 v.element_size(), *codes)
     table_slots.launches += 1
     return out
 

@@ -22,7 +22,6 @@ sample whose top-left pixel is (y0, x0) reads the one row
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import List, Sequence, Tuple
 
 import torch
@@ -38,14 +37,10 @@ def padded_width(w: int) -> int:
     return ((w + 2 + 15) // 16) * 16
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = _build.load(_SRC)
-    fn = lib.mvg_table_build
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
-                   + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
-    return lib
+_BUILD = _build.Launcher(
+    _SRC, "mvg_table_build",
+    [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 4
+    + [ctypes.c_void_p])
 
 
 def build_corner_table_plain(v: torch.Tensor) -> torch.Tensor:
@@ -82,13 +77,8 @@ def build_corner_table(v: torch.Tensor) -> torch.Tensor:
     wpp = padded_width(w)
     out = torch.empty((N * H, (h + 2) * wpp, 4 * D), dtype=v.dtype,
                       device=v.device)
-    fn = _library().mvg_table_build
-    with torch.cuda.device(v.device):
-        stream = torch.cuda.current_stream(v.device).cuda_stream
-        err = fn(v.data_ptr(), out.data_ptr(), N, H, h, w, wpp, D,
-                 v.element_size(), *v.stride()[:4], stream)
-    if err != 0:
-        raise RuntimeError(f"table_build kernel launch failed: error {err}")
+    _BUILD(v, v.data_ptr(), out.data_ptr(), N, H, h, w, wpp, D,
+           v.element_size(), *v.stride()[:4])
     build_corner_table.launches += 1
     return out
 

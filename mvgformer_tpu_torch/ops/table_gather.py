@@ -10,7 +10,11 @@ Port of the contract of `mvgformer_tpu/ops/onehot_gather.py`:
 
 for every input. The TPU form sorts the samples and selects rows with a
 one-hot matmul, repairing the samples that escape a block's window; a
-Hopper warp gathers rows directly, so none of that is ported.
+Hopper thread gathers rows directly, so the forward has no sort, window or
+repair. The backward keeps the sort (`row_segments`, plain torch outside the
+kernel, as JAX's sort is outside its pallas_call): sorted by row, the
+scatter-add into grad_tables becomes a segmented sum that writes each row
+once, with no atomics.
 
     * `gather_reduce_forward` and `gather_reduce_backward` are the kernels'
       wrappers (`csrc/table_gather.cu`): a CPU tensor goes to the plain
@@ -25,8 +29,7 @@ Hopper warp gathers rows directly, so none of that is ported.
 from __future__ import annotations
 
 import ctypes
-import functools
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -34,20 +37,13 @@ from mvgformer_tpu_torch.ops import _build
 
 _SRC = _build.CSRC / "table_gather.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = _build.load(_SRC)
-    fwd = lib.mvg_table_gather_forward
-    fwd.restype = ctypes.c_int
-    fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    bwd = lib.mvg_table_gather_backward
-    bwd.restype = ctypes.c_int
-    bwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    return lib
+# sorted samples per tile of the backward's segment_sum kernel
+CHUNK = 64
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_FORWARD = _build.Launcher(_SRC, "mvg_table_gather_forward",
+                           [_P] * 4 + [_I] * 6 + [_P])
+_BACKWARD = _build.Launcher(_SRC, "mvg_table_gather_backward",
+                            [_P] * 9 + [_I] * 7 + [_P])
 
 
 def _check(tables, idx, w4, ct=None):
@@ -86,9 +82,15 @@ def _check_cuda(tables, idx, w4, ct=None):
 
 
 def _rows(tables: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """The gathered rows (NH, S, 4, D)."""
-    NH, _, C = tables.shape
-    rows = torch.gather(tables, 1, idx.long()[..., None].expand(-1, -1, C))
+    """The gathered rows (NH, S, 4, D); zero rows for indices off the
+    table."""
+    NH, R, C = tables.shape
+    k = idx.long()
+    rows = torch.gather(tables, 1, k.clamp(0, R - 1)[..., None].expand(
+        -1, -1, C))
+    ok = ((k >= 0) & (k < R))[..., None]
+    rows = torch.where(ok, rows, torch.zeros((), dtype=tables.dtype,
+                                             device=tables.device))
     return rows.reshape(NH, idx.shape[1], 4, C // 4)
 
 
@@ -104,16 +106,89 @@ def deform_gather_reduce_plain(tables: torch.Tensor, idx: torch.Tensor,
 def gather_reduce_backward_plain(tables, idx, w4, ct
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(grad_tables, grad_w4) of the contract for cotangent ct, in float32
-    sums, cast to the dtypes of tables and w4."""
+    sums, cast to the dtypes of tables and w4. An index off the table adds
+    to no row and has grad_w4 0."""
     NH, R, C = tables.shape
     g = ct.float()[:, :, None, :]  # (NH, S, 1, D)
     grad_w4 = (_rows(tables, idx).float() * g).sum(dim=-1)
+    k = idx.long()
+    ok = (k >= 0) & (k < R)
     contrib = (w4.float()[..., None] * g).reshape(NH, -1, C)
+    contrib = contrib * ok[..., None]
     grad_tables = torch.zeros((NH, R, C), dtype=torch.float32,
                               device=tables.device)
-    grad_tables.scatter_add_(1, idx.long()[..., None].expand(-1, -1, C),
-                             contrib)
+    grad_tables.scatter_add_(1, k.clamp(0, R - 1)[..., None].expand(
+        -1, -1, C), contrib)
     return grad_tables.to(tables.dtype), grad_w4.to(w4.dtype)
+
+
+class Segments(NamedTuple):
+    """The samples of (NH, S) indices sorted by (pair, row), for the
+    backward kernel: keys (NH*S,) int32, the sorted p * (R + 1) + row (row
+    R for an index off the table, so those sort last in their pair); perm
+    (NH*S,) int64, the flat sample p * S + s at each sorted position, stable;
+    offsets (NH, R + 1) int32, the sorted position where row r of pair p
+    starts (offsets[p, R] is where its rows end)."""
+    keys: torch.Tensor
+    perm: torch.Tensor
+    offsets: torch.Tensor
+
+
+def row_segments(idx: torch.Tensor, R: int) -> Segments:
+    """Sort the samples of idx (NH, S) by row: one stable 1-D sort of the
+    flattened keys, and the row offsets by a binary search of every
+    (pair, row) key. Plain torch on any device."""
+    NH, S = idx.shape
+    if NH * (R + 1) >= 2 ** 31 or NH * S >= 2 ** 31:
+        raise ValueError(f"NH * (R + 1) = {NH * (R + 1)} and NH * S = "
+                         f"{NH * S} must fit in int32")
+    row = torch.where((idx >= 0) & (idx < R), idx, R).int()
+    pair = torch.arange(NH, dtype=torch.int32, device=idx.device)[:, None]
+    keys, perm = torch.sort((pair * (R + 1) + row).reshape(-1), stable=True)
+    every = torch.arange(NH * (R + 1), dtype=torch.int32, device=idx.device)
+    offsets = torch.searchsorted(keys, every, out_int32=True)
+    return Segments(keys, perm, offsets.view(NH, R + 1))
+
+
+def _check_segments(segments: Segments, NH: int, R: int, S: int,
+                    device: torch.device) -> None:
+    """What the backward kernel reads through the segments of a caller."""
+    want = {"keys": ((NH * S,), torch.int32), "perm": ((NH * S,), torch.int64),
+            "offsets": ((NH, R + 1), torch.int32)}
+    for name, (shape, dtype) in want.items():
+        t = getattr(segments, name)
+        if (tuple(t.shape) != shape or t.dtype != dtype or t.device != device
+                or not t.is_contiguous()):
+            raise ValueError(f"segments.{name} must be a contiguous {dtype} "
+                             f"{shape} on {device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
+def _aligned(tensors, nbytes: int) -> bool:
+    return all(t.data_ptr() % nbytes == 0 for t in tensors)
+
+
+def vector_bytes(tables: torch.Tensor, other: torch.Tensor) -> int:
+    """The bytes a thread of the forward moves: 16 where a row's D elements
+    are whole 16-byte vectors and both pointers are 16-byte aligned, else
+    one element (the scalar instance)."""
+    esize = tables.element_size()
+    if (tables.shape[-1] // 4 * esize) % 16 == 0 and _aligned(
+            (tables, other), 16):
+        return 16
+    return esize
+
+
+def lane_elements(tables: torch.Tensor, ct: torch.Tensor) -> int:
+    """The backward kernel's instance: D / 8 channels of the 4D row per
+    lane, read as 16-byte vectors, for D in {8, 16, 32, 64} with tables and
+    ct 16-byte aligned (grad_tables is a fresh allocation, aligned); else
+    0, the generic instance."""
+    D = ct.shape[-1]
+    epl = D // 8
+    if D % 8 or epl not in (1, 2, 4, 8):
+        return 0
+    return epl if _aligned((tables, ct), 16) else 0
 
 
 def gather_reduce_forward(tables: torch.Tensor, idx: torch.Tensor,
@@ -129,17 +204,11 @@ def gather_reduce_forward(tables: torch.Tensor, idx: torch.Tensor,
     _check_cuda(tables, idx, w4)
     NH, R, C = tables.shape
     S = idx.shape[1]
-    out = torch.empty((NH, S, C // 4), dtype=tables.dtype,
-                      device=tables.device)
-    fn = _library().mvg_table_gather_forward
-    with torch.cuda.device(tables.device):
-        stream = torch.cuda.current_stream(tables.device).cuda_stream
-        err = fn(tables.data_ptr(), idx.data_ptr(), w4.data_ptr(),
-                 out.data_ptr(), NH, R, S, C // 4, _DTYPE_CODE[tables.dtype],
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"table_gather forward kernel launch failed: "
-                           f"error {err}")
+    D = C // 4
+    out = torch.empty((NH, S, D), dtype=tables.dtype, device=tables.device)
+    _FORWARD(tables, tables.data_ptr(), idx.data_ptr(), w4.data_ptr(),
+             out.data_ptr(), NH, R, S, D, _DTYPE_CODE[tables.dtype],
+             vector_bytes(tables, out))
     gather_reduce_forward.launches += 1
     return out
 
@@ -148,12 +217,16 @@ gather_reduce_forward.launches = 0
 
 
 def gather_reduce_backward(tables: torch.Tensor, idx: torch.Tensor,
-                           w4: torch.Tensor, ct: torch.Tensor
+                           w4: torch.Tensor, ct: torch.Tensor,
+                           segments: Optional[Segments] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(grad_tables (NH, R, 4D), grad_w4 (NH, S, 4)) for cotangent ct
-    (NH, S, D), in the dtypes of tables and w4. On CUDA one kernel writes
-    both: float32 atomic adds into a zeroed buffer, cast to the table dtype
-    at the end (no cast for float32 tables)."""
+    (NH, S, D), in the dtypes of tables and w4. On CUDA: the samples sorted
+    by row (`row_segments`, unless the caller passes them), then one kernel
+    stages each tile of sorted samples, writes their grad_w4 and sums
+    grad_tables by row, and a second writes the rows no tile wrote alone:
+    both in the table dtype, every row once, bit-identical from launch to
+    launch."""
     _check(tables, idx, w4, ct)
     if tables.device.type == "cpu":
         with torch.no_grad():
@@ -163,21 +236,24 @@ def gather_reduce_backward(tables: torch.Tensor, idx: torch.Tensor,
     _check_cuda(tables, idx, w4, ct)
     NH, R, C = tables.shape
     S = idx.shape[1]
-    grad_tables = torch.zeros((NH, R, C), dtype=torch.float32,
-                              device=tables.device)
+    if segments is None:
+        segments = row_segments(idx, R)
+    else:
+        _check_segments(segments, NH, R, S, idx.device)
+    keys, perm, offsets = segments
+    tiles = -(-NH * S // CHUNK)
+    partials = torch.empty((tiles, 2, C), dtype=torch.float32,
+                           device=tables.device)
+    grad_tables = torch.empty_like(tables)
     grad_w4 = torch.empty((NH, S, 4), dtype=tables.dtype,
                           device=tables.device)
-    fn = _library().mvg_table_gather_backward
-    with torch.cuda.device(tables.device):
-        stream = torch.cuda.current_stream(tables.device).cuda_stream
-        err = fn(tables.data_ptr(), idx.data_ptr(), w4.data_ptr(),
-                 ct.data_ptr(), grad_tables.data_ptr(), grad_w4.data_ptr(),
-                 NH, R, S, C // 4, _DTYPE_CODE[tables.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"table_gather backward kernel launch failed: "
-                           f"error {err}")
+    _BACKWARD(tables, tables.data_ptr(), w4.data_ptr(), ct.data_ptr(),
+              keys.data_ptr(), perm.data_ptr(), offsets.data_ptr(),
+              partials.data_ptr(), grad_tables.data_ptr(), grad_w4.data_ptr(),
+              NH, R, S, C // 4, CHUNK, _DTYPE_CODE[tables.dtype],
+              lane_elements(tables, ct))
     gather_reduce_backward.launches += 1
-    return grad_tables.to(tables.dtype), grad_w4
+    return grad_tables, grad_w4
 
 
 gather_reduce_backward.launches = 0

@@ -24,7 +24,6 @@ launches; nothing else changes it.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -34,14 +33,9 @@ _SRC = _build.CSRC / "window_block.cu"
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = _build.load(_SRC)
-    fn = lib.mvg_window_block_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p]
-    return lib
+_FORWARD = _build.Launcher(
+    _SRC, "mvg_window_block_forward",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
 
 
 def tent_rows(rel: torch.Tensor, H: int, P: int, K: int, Kw: int,
@@ -141,14 +135,9 @@ def window_block_matmul(tiles: torch.Tensor, rel: torch.Tensor,
     check_kernel_inputs(tiles, rel, block_tile, "block_tile")
     nrows = rel.shape[0]
     out = torch.empty((nrows, H * D), dtype=tiles.dtype, device=tiles.device)
-    fn = _library().mvg_window_block_forward
-    with torch.cuda.device(tiles.device):
-        stream = torch.cuda.current_stream(tiles.device).cuda_stream
-        err = fn(tiles.data_ptr(), rel.data_ptr(), block_tile.data_ptr(),
-                 out.data_ptr(), tiles.shape[0], nrows, K, H, P, D,
-                 block_rows, DTYPE_CODE[tiles.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"window_block kernel launch failed: error {err}")
+    _FORWARD(tiles, tiles.data_ptr(), rel.data_ptr(), block_tile.data_ptr(),
+             out.data_ptr(), tiles.shape[0], nrows, K, H, P, D, block_rows,
+             DTYPE_CODE[tiles.dtype])
     window_block_matmul.launches += 1
     return out
 

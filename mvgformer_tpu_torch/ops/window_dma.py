@@ -20,7 +20,6 @@ Rows come out in the dtype of the map, summed in float32.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional
 
 import torch
@@ -33,14 +32,9 @@ from mvgformer_tpu_torch.ops.window_block import (DTYPE_CODE, apply_rows,
 _SRC = _build.CSRC / "window_dma.cu"
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = _build.load(_SRC)
-    fn = lib.mvg_window_dma_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [
-        ctypes.c_void_p]
-    return lib
+_FORWARD = _build.Launcher(
+    _SRC, "mvg_window_dma_forward",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
 
 
 def window_block_dma_plain(padded_map: torch.Tensor, rel: torch.Tensor,
@@ -105,14 +99,9 @@ def window_block_dma(padded_map: torch.Tensor, rel: torch.Tensor,
     nrows = rel.shape[0]
     out = torch.empty((nrows, H * D), dtype=padded_map.dtype,
                       device=padded_map.device)
-    fn = _library().mvg_window_dma_forward
-    with torch.cuda.device(padded_map.device):
-        stream = torch.cuda.current_stream(padded_map.device).cuda_stream
-        err = fn(padded_map.data_ptr(), rel.data_ptr(), origins.data_ptr(),
-                 out.data_ptr(), V, hp, wp, nrows, K, Kx, H, P, D,
-                 block_rows, DTYPE_CODE[padded_map.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"window_dma kernel launch failed: error {err}")
+    _FORWARD(padded_map, padded_map.data_ptr(), rel.data_ptr(),
+             origins.data_ptr(), out.data_ptr(), V, hp, wp, nrows, K, Kx, H,
+             P, D, block_rows, DTYPE_CODE[padded_map.dtype])
     window_block_dma.launches += 1
     return out
 

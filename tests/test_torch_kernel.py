@@ -9,7 +9,8 @@
     plan;
   * the corner-table build (B2), bit for bit, from strided level views;
     the table gather-reduce (B3) forward and backward, border rows
-    included; and the whole corner sampler against the deformable-sampling
+    included, on rows as concentrated as the training step's and indices
+    off the table, the backward bit-identical over two launches; and the whole corner sampler against the deformable-sampling
     kernel (the same contract) at float32 atol 1e-5;
   * the probe kernels (row gather, windowed gather, take-along, table
     slots) bit for bit, indices off the table included, and scale exact;
@@ -23,7 +24,8 @@ also runs on a machine without JAX:
 
 Without a CUDA card the tests skip. Tolerance: 1e-4 in float32 (sums in
 another order; for the gather-reduce backward 1e-4 of the largest
-gradient, since atomic adds sum in no fixed order); 2e-2 in bfloat16
+gradient, its sums over up to hundreds of samples per row running in
+sorted order); 2e-2 in bfloat16
 against the plain version in float32 (bfloat16 inputs and output
 rounding).
 """
@@ -253,12 +255,28 @@ def test_table_build_matches_plain(cuda, dtype, D):
         assert torch.equal(got, want)
 
 
-def _gather_operands(seed, NH, R, S, D, dtype, device):
+def _gather_operands(seed, NH, R, S, D, dtype, device, case="uniform"):
+    """B3 operands: uniform rows with the border rows 0 and R - 1 mixed in,
+    or rows concentrated as in the training step: 'one_row' (every sample
+    on one row), 'three_rows' (90% of samples on 3 rows), 'hot' (one row
+    holding more samples than the backward's tile), 'off_table' (a fifth of
+    the indices outside [0, R))."""
     gen = torch.Generator().manual_seed(seed)
     tables = torch.randn(NH, R, 4 * D, generator=gen)
     idx = torch.randint(0, R, (NH, S), generator=gen, dtype=torch.int32)
     idx[:, ::7] = 0
     idx[:, 1::7] = R - 1
+    pick = torch.rand(NH, S, generator=gen)
+    if case == "one_row":
+        idx[:] = R // 2
+    elif case == "three_rows":
+        three = torch.tensor([3, R // 2, R - 2], dtype=torch.int32)
+        idx = torch.where(pick < 0.9, three[torch.randint(
+            0, 3, (NH, S), generator=gen)], idx)
+    elif case == "hot":
+        idx[:, :3 * table_gather.CHUNK + 5] = 5
+    elif case == "off_table":
+        idx = torch.where(pick < 0.1, -3, torch.where(pick < 0.2, R + 1, idx))
     w4 = torch.randn(NH, S, 4, generator=gen)
     w4[:, ::5, 1:] = 0.0  # corners outside the map carry weight 0
     ct = torch.randn(NH, S, D, generator=gen)
@@ -266,11 +284,12 @@ def _gather_operands(seed, NH, R, S, D, dtype, device):
             for t in (tables, idx, w4, ct)]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [8, 32, 40])
-def test_table_gather_matches_plain(cuda, dtype, D):
-    tables, idx, w4, ct = _gather_operands(D, 3, 300, 1000, D, dtype, cuda)
+def _check_table_gather(tables, idx, w4, ct):
+    """B3 forward and backward against the plain versions (float32: 1e-5,
+    backward 1e-4 of the largest gradient; bfloat16: 2e-2), one launch each
+    counted, the backward bit-identical over two launches and 0 on the rows
+    that no sample touches."""
+    dtype = tables.dtype
     before = (table_gather.gather_reduce_forward.launches,
               table_gather.gather_reduce_backward.launches)
     out = table_gather.gather_reduce_forward(tables, idx, w4)
@@ -280,6 +299,8 @@ def test_table_gather_matches_plain(cuda, dtype, D):
             table_gather.gather_reduce_backward.launches) == (
         before[0] + 1, before[1] + 1)
     assert out.dtype == g_tables.dtype == g_w4.dtype == dtype
+    again = table_gather.gather_reduce_backward(tables, idx, w4, ct)
+    assert torch.equal(again[0], g_tables) and torch.equal(again[1], g_w4)
     f32 = [t.float() if t.is_floating_point() else t
            for t in (tables, idx, w4, ct)]
     want = table_gather.deform_gather_reduce_plain(*f32[:3])
@@ -293,6 +314,60 @@ def test_table_gather_matches_plain(cuda, dtype, D):
         else:
             assert torch.allclose(got.float(), ref, atol=2e-2 * scale,
                                   rtol=2e-2)
+    NH, R, _ = tables.shape
+    k = idx.long()
+    on = (k >= 0) & (k < R)
+    touched = torch.zeros(NH * R, dtype=torch.bool, device=idx.device)
+    touched[(torch.arange(NH, device=idx.device)[:, None] * R + k)[on]] = True
+    assert (g_tables.reshape(NH * R, -1)[~touched] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [8, 32, 40])
+def test_table_gather_matches_plain(cuda, dtype, D):
+    _check_table_gather(*_gather_operands(D, 3, 300, 1000, D, dtype, cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 6])
+@pytest.mark.parametrize("case", ["one_row", "three_rows", "hot",
+                                  "off_table"])
+def test_table_gather_concentrated_rows(cuda, dtype, D, case):
+    """Rows as concentrated as the training step's, S no multiple of the
+    backward's tile; D = 6 takes the scalar forward and the generic
+    backward."""
+    S = 5 * table_gather.CHUNK + 37
+    _check_table_gather(*_gather_operands(D, 3, 300, S, D, dtype, cuda,
+                                          case))
+
+
+@pytest.mark.gpu
+def test_table_gather_backward_refuses_wrong_segments(cuda):
+    tables, idx, w4, ct = _gather_operands(0, 2, 50, 100, 8, torch.float32,
+                                           cuda)
+    good = table_gather.row_segments(idx, 50)
+    for bad in (good._replace(perm=good.perm.int()),
+                good._replace(keys=good.keys[:-1]),
+                good._replace(offsets=good.offsets.cpu())):
+        with pytest.raises(ValueError, match="segments"):
+            table_gather.gather_reduce_backward(tables, idx, w4, ct,
+                                                segments=bad)
+    got = table_gather.gather_reduce_backward(tables, idx, w4, ct,
+                                              segments=good)
+    want = table_gather.gather_reduce_backward(tables, idx, w4, ct)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.gpu
+def test_row_segments_on_the_card_match_the_cpu(cuda):
+    idx = _gather_operands(0, 4, 300, 2000, 8, torch.float32, "cpu",
+                           "off_table")[1]
+    got = table_gather.row_segments(idx.to(cuda), 300)
+    want = table_gather.row_segments(idx, 300)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
 
 
 @pytest.mark.gpu
