@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Runs from the root of a checkout, needs one CUDA card and nvcc (CUDA_HOME or
 /usr/local/cuda), and builds the port's kernels from the checkout's sources
@@ -10,15 +10,20 @@ exits non-zero:
   1. find the card and print its name and power limit;
   2. build the six sources at once (deformable sampling, the two window
      kernels, the corner-table build, the table gather-reduce forward and
-     backward, and the probe kernels' gather forms), one nvcc each;
+     backward, and the probe kernels' gather forms), one nvcc each, and
+     print ptxas's registers, stack and spill bytes per kernel instance;
   3. hold the deformable-sampling kernel against its plain PyTorch version
-     on the card at the flagship shapes (float32 and bfloat16, edge and
-     non-finite locations included) and time both with CUDA events;
+     on the card at the flagship shapes (dense layer 1, Lq 15360 at P 4 and
+     8, and the top-64 layers, Lq 960 at P 4; float32 and bfloat16, edge
+     and non-finite locations included), check that they take the vector
+     instances, and time both with CUDA events (`ms`) and the kernel on the
+     device alone (`device_ms`);
   4. hold the two window kernels against their plain versions on the card,
      on the level operands of the flagship rig's layer-1 plans (K = 28, and
      K = 20 under layer1_offset_clamp 4), P 4 and 8, float32 and bfloat16,
-     offsets inside and outside the halo; then the whole window_sample with
-     each kernel against the deformable-sampling kernel on in-halo offsets;
+     offsets inside and outside the halo, each timed as in phase 3; then
+     the whole window_sample with each kernel against the
+     deformable-sampling kernel on in-halo offsets;
   5. the flagship-width model (random weights from a fixed seed, float32,
      TF32 off): one frame through the kernel path on the card and through
      the plain path on the CPU, layer-1 logits and 3D compared at the
@@ -73,12 +78,16 @@ exits non-zero:
 
 Phase 10 also holds F.embedding_bag, the library call of B3's function,
 against B3's plain versions and times it. The models, batches and window
-plans are made on the card by their entry points (device "cuda").
+plans are made on the card by their entry points (device "cuda"). With
+--parent DIR (an unpacked parent checkout), B1 and B4 of DIR and of this
+checkout are also timed in turns by tools/launch_cost.py before the table.
 
 The last three lines are the kernel table (each kernel's launches on its
-path, worst error, ms, plain ms, library ms or why there is none, and its
-bound from utils/bounds.py on the timed inputs), the card, and the device,
-as JSON.
+path, worst error, ms, device_ms where measured, plain ms, library ms or
+why there is none, its bound from utils/bounds.py on the timed inputs, and
+for B1 and B4 ptxas's report and, with --parent, the parent's times), the
+card, and the device, as JSON. The `ranking` phase before them orders the
+kernels for later work (`ranking`).
 """
 
 import contextlib
@@ -97,12 +106,16 @@ from mvgformer_tpu_torch.ops import (_build, deform_attn, gather_forms,
                                      sampling, table_build, table_gather,
                                      window_block, window_dma,
                                      window_sampling)
-from mvgformer_tpu_torch.tools.launch_cost import device_ms
+from mvgformer_tpu_torch.tools.launch_cost import (B1_SHAPES,
+                                                   FLAGSHIP_LEVELS,
+                                                   device_ms,
+                                                   sampling_inputs,
+                                                   window_inputs)
 from mvgformer_tpu_torch.tools.probes.probe_pallas_gather import flat_rows
 from mvgformer_tpu_torch.utils import bounds, yardsticks
 
 REPO = Path(__file__).resolve().parent
-SPATIAL_SHAPES = ((128, 240), (64, 120), (32, 60))  # flagship levels
+SPATIAL_SHAPES = FLAGSHIP_LEVELS
 N_VIEWS, HEADS, HEAD_DIM = 5, 8, 32
 TRAIN_LQ, TRAIN_P = 1024 * 15, 8  # dense training layer: Q*J queries
 SEED = 0
@@ -164,41 +177,70 @@ PROBE_ROWS = (
 )
 
 
+def excess_ms(row):
+    """The time the path spent above the kernel's bound in this run: each
+    shape's launches (a row without `by_shape` is one shape) at that
+    shape's time per launch (device_ms where measured, else ms) less its
+    bound."""
+    return sum(p["launches"] * (p.get("device_ms", p["ms"]) - p["bound_ms"])
+               / p.get("timed_launches", 1)
+               for p in row.get("by_shape") or [row])
+
+
 def kernel_row(fn, source, replaces, launches, max_abs_err, ms, plain_ms,
                library_ms, work, at, timed_launches=1, also=(), library=None,
-               **extra):
-    """One entry of the kernels line. `ms` is the time of `timed_launches`
-    launches (3 where it sums the levels); excess_ms prices every launch
-    of the path at that time less the bound."""
+               by_shape=None, **extra):
+    """One entry of the kernels line. `ms` (and `device_ms`, where given)
+    is the time of `timed_launches` launches (3 where it sums the levels).
+    `by_shape` lists the shapes the path launches the kernel at, each with
+    its launches, times and bound; the row's own fields are its first.
+    excess_ms: see `excess_ms`."""
     row = {"name": fn.__name__, "route": "cuda",
            "source": f"mvgformer_tpu_torch/csrc/{source}",
            "replaces": replaces, "launches": launches,
            "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": work.bound_ms, "bound_by": work.bound_by,
            "library_ms": library_ms, "at": at,
-           "timed_launches": timed_launches,
-           "excess_ms": launches * (ms - work.bound_ms) / timed_launches}
+           "timed_launches": timed_launches}
     if library_ms is None:
         row["library"] = NO_LIBRARY.get(fn.__name__, "none")
     else:
         row["library"] = library
     if also:
         row["also_replaces"] = list(also)
+    if by_shape:
+        row["by_shape"] = list(by_shape)
     row.update(extra)
+    row["excess_ms"] = excess_ms(row)
     return row
+
+
+def vs_library(row):
+    """(kernel time / library time, the clock) of a row with a library
+    call: on the device clock (device_ms against library_device_ms) where
+    the row and its library both have one, else on the event clock (ms
+    against library_ms); None without a library call."""
+    if row["library_ms"] is None:
+        return None
+    if "device_ms" in row and "library_device_ms" in row:
+        return row["device_ms"] / row["library_device_ms"], "device_ms"
+    return row["ms"] / row["library_ms"], "ms"
 
 
 def ranking(kernels):
     """The order in which later work takes the kernels: first those slower
-    than their library call, by factor; then the rest by excess_ms, the
-    time their path spends above their bounds in this run."""
-    slower = sorted((r for r in kernels if r["library_ms"] is not None
-                     and r["ms"] > r["library_ms"]),
-                    key=lambda r: r["library_ms"] / r["ms"])
+    than their library call (`vs_library`), by factor; then the rest by
+    excess_ms, the time their path spends above their bounds in this
+    run."""
+    factor = {r["name"]: vs_library(r) for r in kernels}
+    slower = sorted((r for r in kernels if factor[r["name"]] is not None
+                     and factor[r["name"]][0] > 1.0),
+                    key=lambda r: -factor[r["name"]][0])
     rest = sorted((r for r in kernels if r not in slower),
                   key=lambda r: -r["excess_ms"])
     return ([{"name": r["name"], "slower_than_library_by":
-              r["ms"] / r["library_ms"]} for r in slower]
+              factor[r["name"]][0], "clock": factor[r["name"]][1]}
+             for r in slower]
             + [{"name": r["name"], "excess_ms": r["excess_ms"]}
                for r in rest])
 
@@ -233,32 +275,6 @@ def flagship_cfg(dtype: str):
     return cfg
 
 
-def sampling_inputs(Lq, P, dtype, gen):
-    """Kernel inputs on the card with border, far-outside and non-finite
-    locations mixed into the uniform ones."""
-    L = len(SPATIAL_SHAPES)
-    len_in = sum(h * w for h, w in SPATIAL_SHAPES)
-    dev = "cuda"
-    value = torch.randn(N_VIEWS, len_in, HEADS, HEAD_DIM, device=dev,
-                        generator=gen).to(dtype)
-    loc = torch.rand(N_VIEWS, Lq, HEADS, L, P, 2, device=dev,
-                     generator=gen) * 1.2 - 0.1
-    w = torch.tensor([s[1] for s in SPATIAL_SHAPES], device=dev)
-    h = torch.tensor([s[0] for s in SPATIAL_SHAPES], device=dev)
-    q = Lq // 8
-    u = torch.rand(N_VIEWS, q, HEADS, L, P, device=dev, generator=gen)
-    # x in (-1, 0) pixels, then y in [h-1, h) pixels
-    loc[:, :q, ..., 0] = (-u + 0.5) / w[:, None]
-    loc[:, q:2 * q, ..., 1] = (h[:, None] - 1 + u + 0.5) / h[:, None]
-    loc[:, 2 * q:2 * q + 8] = 50.0
-    loc[:, 2 * q + 8:2 * q + 16, ..., 0] = float("inf")
-    loc[:, 2 * q + 16:2 * q + 24, ..., 1] = -float("inf")
-    loc[:, 2 * q + 24:2 * q + 32, ..., 0] = float("nan")
-    aw = torch.rand(N_VIEWS, Lq, HEADS, L, P, device=dev,
-                    generator=gen).to(dtype)
-    return value, loc, aw
-
-
 def cuda_ms(fn, runs=20, warmup=3):
     """Median milliseconds of fn() over `runs` CUDA-event-timed calls."""
     for _ in range(warmup):
@@ -277,10 +293,10 @@ def cuda_ms(fn, runs=20, warmup=3):
 
 def check_kernel(card):
     """Phase 3: kernel against the plain version on the card. Returns the
-    worst float32 error and, at the serving shape (bfloat16, Lq 15360, P
-    4), ms, plain ms and the compulsory work."""
+    worst float32 error and, per shape of a served frame (B1_SHAPES,
+    bfloat16), ms, device_ms, plain ms and the compulsory work."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    worst_f32, serving = 0.0, None
+    worst_f32, serving = 0.0, {}
     for Lq, P in ((15360, 4), (15360, 8), (960, 4)):
         for dtype in (torch.float32, torch.bfloat16):
             value, loc, aw = sampling_inputs(Lq, P, dtype, gen)
@@ -294,20 +310,33 @@ def check_kernel(card):
                 worst_f32 = max(worst_f32, err)
             else:
                 ok = torch.allclose(out.float(), ref, atol=2e-2, rtol=2e-2)
-            ms = cuda_ms(lambda: deform_attn.deform_sample(
-                value, SPATIAL_SHAPES, loc, aw))
+
+            def kernel():
+                return deform_attn.deform_sample(value, SPATIAL_SHAPES, loc,
+                                                 aw)
+
+            ms = cuda_ms(kernel)
+            dev_ms, host_us = device_ms(kernel)
             plain_ms = cuda_ms(lambda: sampling.deform_sample(
                 value, SPATIAL_SHAPES, loc, aw))
+            vec = _build.vector_width(HEAD_DIM, value.element_size(), value,
+                                      loc, aw, out)
             phase("kernel_vs_plain", N=N_VIEWS, Lq=Lq, H=HEADS, D=HEAD_DIM,
                   L=len(SPATIAL_SHAPES), P=P, dtype=str(dtype),
-                  max_abs_err=err, ok=bool(ok), ms=ms, plain_ms=plain_ms,
-                  card=card)
+                  elements_per_thread=vec, max_abs_err=err, ok=bool(ok),
+                  ms=ms, device_ms=dev_ms, host_us=host_us,
+                  plain_ms=plain_ms, card=card)
             if not ok:
                 fail(f"kernel disagrees with the plain version: Lq={Lq} "
                      f"P={P} {dtype} max abs err {err}")
-            if (Lq, P, dtype) == (15360, 4, torch.bfloat16):
-                serving = (ms, plain_ms, bounds.deform_sample(
-                    value, SPATIAL_SHAPES, loc, aw))
+            if vec == 1:
+                fail(f"the flagship shape Lq={Lq} P={P} {dtype} took the "
+                     f"generic instance")
+            if (Lq, P) in B1_SHAPES and dtype == torch.bfloat16:
+                serving[Lq] = {
+                    "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                    "work": bounds.deform_sample(value, SPATIAL_SHAPES, loc,
+                                                 aw)}
     return worst_f32, serving
 
 
@@ -324,32 +353,6 @@ def window_setup(clamp):
                        cam_seed=SEED)
     return (build_layer1_window_plan(cfg, batch.view_data),
             layer1_centers_px(cfg, batch.view_data))
-
-
-def window_inputs(centers_px, halo, P, dtype, gen, escape):
-    """value, locations and weights on the card around the plan's static
-    centers. Offsets are uniform within +-(halo - 2) px; with `escape`, one
-    sample in eight reaches +-(halo + 6) px, out of the K window and in
-    part out of the wider Kx window. Weights sum to 1 per (query, head)."""
-    dev = "cuda"
-    L = len(SPATIAL_SHAPES)
-    len_in = sum(h * w for h, w in SPATIAL_SHAPES)
-    c = torch.from_numpy(centers_px).to(dev)  # (V, Lq, L, 2)
-    V, Lq = c.shape[:2]
-    value = torch.randn(V, len_in, HEADS, HEAD_DIM, device=dev,
-                        generator=gen).to(dtype)
-    off = (torch.rand(V, Lq, HEADS, L, P, 2, device=dev, generator=gen)
-           * 2.0 - 1.0) * (halo - 2)
-    if escape:
-        far = torch.rand(V, Lq, HEADS, L, P, 1, device=dev,
-                         generator=gen) < 0.125
-        off = torch.where(far, off * (halo + 6) / (halo - 2), off)
-    wh = torch.tensor([[w, h] for h, w in SPATIAL_SHAPES],
-                      dtype=torch.float32, device=dev)
-    loc = (c[:, :, None, :, None, :] + off + 0.5) / wh[:, None, :]
-    aw = torch.rand(V, Lq, HEADS, L, P, device=dev, generator=gen)
-    aw = aw / aw.sum(dim=(3, 4), keepdim=True)
-    return value, loc.contiguous(), aw
 
 
 def check_window_kernels(card):
@@ -383,6 +386,7 @@ def check_window_kernels(card):
                     if (K, P, dtype) == (28, 4, torch.bfloat16):
                         stats[kernel].update(
                             ms=sum(lv["ms"] for lv in levels),
+                            device_ms=sum(lv["device_ms"] for lv in levels),
                             plain_ms=sum(lv["plain_ms"] for lv in levels),
                             work=bounds.total([
                                 WINDOW_WORK[kernel](*call.args, **call.kwargs)
@@ -419,9 +423,18 @@ def check_window_level(kernel, call, dtype):
     else:
         ok = torch.allclose(out.float(), ref, atol=2e-2, rtol=2e-2)
     del out, ref
+    if kernel is window_block.window_block_matmul:
+        tiles, rel = call.args[:2]
+        vec = _build.vector_width(call.kwargs["D"], tiles.element_size(),
+                                  tiles, rel)
+        if vec == 1:
+            fail(f"window_block took the generic instance on the plan's "
+                 f"level operands ({dtype})")
+    dev_ms, host_us = device_ms(lambda: call.fn(*call.args, **call.kwargs))
     return {"rows": call.args[1].shape[0],
             "max_abs_err": err, "ok": bool(ok),
             "ms": cuda_ms(lambda: call.fn(*call.args, **call.kwargs)),
+            "device_ms": dev_ms, "host_us": host_us,
             "plain_ms": cuda_ms(lambda: PLAIN[kernel](
                 *call.args, **call.kwargs), runs=5, warmup=1)}
 
@@ -1355,7 +1368,42 @@ def run_probes(card):
     return launches
 
 
-def main():
+def parent_vs_change(card, parent):
+    """B1 at B1_SHAPES and B4 on the K = 28 plan, bfloat16, timed by
+    tools/launch_cost.py (--kernels deform,window_block) from the checkout
+    at `parent` and from this one in turns: parent, change, change,
+    parent, one process each, on the same inputs. Returns, per case,
+    {parent_ms, parent_device_ms, change_ms, change_device_ms}: each the
+    tree's two turns."""
+    tool = REPO / "mvgformer_tpu_torch" / "tools" / "launch_cost.py"
+    turns = {}
+    for label, root in (("parent", parent), ("change", REPO),
+                        ("change", REPO), ("parent", parent)):
+        proc = subprocess.run(
+            [sys.executable, str(tool), "--root", str(root), "--label",
+             label, "--kernels", "deform,window_block"],
+            capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            fail(f"launch_cost on the {label} tree failed:\n"
+                 f"{proc.stdout}{proc.stderr}")
+        for line in proc.stdout.splitlines():
+            r = json.loads(line)
+            t = turns.setdefault(r["case"], {})
+            for key in ("ms", "device_ms"):
+                t.setdefault(f"{label}_{key}", []).append(r[key])
+    phase("parent_vs_change", parent=str(parent), order=[
+        "parent", "change", "change", "parent"], cases=turns, card=card)
+    return turns
+
+
+def main(argv=None):
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--parent", default=None,
+                        help="an unpacked parent checkout: time its B1 and "
+                        "B4 beside this tree's (tools/launch_cost.py)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs one GPU")
     card = card_line()
@@ -1368,11 +1416,15 @@ def main():
     strict_float32()
     t0 = time.perf_counter()
     built = _build.build_all([_build.CSRC / src for src in SOURCES])
+    # ptxas's registers, stack and spill bytes per kernel instance
+    reports = {src: _build.kernel_report(_build.CSRC / src)
+               for src in SOURCES}
     phase("build", seconds=time.perf_counter() - t0, kernels=[
-        {"source": src, "seconds": sec, "library": str(lib)}
+        {"source": src, "seconds": sec, "library": str(lib),
+         "ptxas": reports[src]}
         for src, (lib, sec) in zip(SOURCES, built)])
 
-    worst_f32, (ms, plain_ms, b1_work) = check_kernel(card)
+    worst_f32, b1_shapes = check_kernel(card)
     window_stats = check_window_kernels(card)
     check_windowed_slice(card, *check_slice(card))
 
@@ -1409,25 +1461,48 @@ def main():
         if count == 0:
             fail(f"the probes never launched {name}")
 
+    turns = (parent_vs_change(card, Path(args.parent).resolve())
+             if args.parent else {})
     flagship = "bfloat16 NH=40 S=122880 D=32 per level, the 3 flagship " \
         "levels summed (one training layer)"
+    # a served frame launches B1 once at dense layer 1 and once per
+    # later layer at the top-64 shape
+    layers = cfg.DECODER.num_decoder_layers
+    b1_frames = launches["deform_sample"] // layers
+    b1_launches = {15360: b1_frames, 960: launches["deform_sample"]
+                   - b1_frames}
+    by_shape = [{"at": f"bfloat16 N=5 Lq={Lq} H=8 D=32 L=3 P={P}",
+                 "launches": b1_launches[Lq], "ms": b1_shapes[Lq]["ms"],
+                 "device_ms": b1_shapes[Lq]["device_ms"],
+                 "plain_ms": b1_shapes[Lq]["plain_ms"],
+                 "bound_ms": b1_shapes[Lq]["work"].bound_ms,
+                 **turns.get(f"deform_sample Lq {Lq} P {P}", {})}
+                for Lq, P in B1_SHAPES]
+    dense = b1_shapes[B1_SHAPES[0][0]]
     kernels = [
         kernel_row(deform_attn.deform_sample, "deform_sample.cu",
                    "mvgformer_tpu/ops/pallas_deform.py:32",
-                   launches["deform_sample"], worst_f32, ms, plain_ms,
-                   None, b1_work,
-                   "bfloat16 N=5 Lq=15360 H=8 D=32 L=3 P=4 (dense layer 1)")]
+                   launches["deform_sample"], worst_f32, dense["ms"],
+                   dense["plain_ms"], None, dense["work"],
+                   "bfloat16 N=5 Lq=15360 H=8 D=32 L=3 P=4 (dense layer 1)",
+                   by_shape=by_shape, device_ms=dense["device_ms"],
+                   ptxas=reports["deform_sample.cu"])]
     for kernel, source, replaces in (
             (window_block.window_block_matmul, "window_block.cu",
              "mvgformer_tpu/ops/window_pallas.py:34"),
             (window_dma.window_block_dma, "window_dma.cu",
              "mvgformer_tpu/ops/window_dma.py:38")):
         st = window_stats[kernel]
+        extra = {"ptxas": reports[source]}
+        if kernel is window_block.window_block_matmul:
+            extra.update(next((t for case, t in turns.items()
+                               if case.startswith(kernel.__name__)), {}))
         kernels.append(kernel_row(
             kernel, source, replaces, launches[kernel.__name__],
             st["max_abs_err"], st["ms"], st["plain_ms"], None, st["work"],
             "bfloat16 layer-1 plan of the flagship rig, K=28 H=8 D=32 P=4, "
-            "summed over the 3 levels", timed_launches=3))
+            "summed over the 3 levels", timed_launches=3,
+            device_ms=st["device_ms"], **extra))
     kernels.append(kernel_row(
         table_build.build_corner_table, "table_build.cu",
         "mvgformer_tpu/ops/table_pallas.py:60",

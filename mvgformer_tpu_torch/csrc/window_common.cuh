@@ -1,5 +1,6 @@
-// Shared device code of the two windowed layer-1 sampling kernels,
-// window_block.cu and window_dma.cu.
+// Device code of the windowed layer-1 sampling kernel window_dma.cu (B5).
+// window_block.cu (B4) computes the same sum with vector loads through
+// vec16.cuh::bilinear_batch.
 //
 // Both compute, for one row r and head h of a block of tile-sorted rows,
 //

@@ -19,6 +19,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -74,6 +75,63 @@ def build(src: Path) -> Path:
     return lib
 
 
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers")
+# the template arguments of a kernel of csrc/, mangled: I<T><ints>E
+_ARGS = re.compile(r"I(f|13__nv_bfloat16)((?:Li-?\d+E)*)E")
+
+
+def instance_label(mangled: str) -> str:
+    """'deform_sample_fwd_kernel<bf16, 8, 3, 4>' for a mangled kernel
+    template of csrc/ (a length-prefixed name ending in _kernel, then its
+    dtype and int arguments); else the name as given."""
+    for i in range(len(mangled)):
+        m = re.match(r"[1-9]\d*", mangled[i:])
+        if m is None:
+            continue
+        start = i + m.end()
+        name = mangled[start:start + int(m.group())]
+        args = _ARGS.match(mangled, start + len(name))
+        if name.endswith("_kernel") and args:
+            ints = re.findall(r"Li(-?\d+)E", args.group(2))
+            dtype = "float" if args.group(1) == "f" else "bf16"
+            return f"{name}<{', '.join([dtype, *ints])}>"
+    return mangled
+
+
+def ptxas_report(text: str) -> List[dict]:
+    """Per entry function in ptxas's -v report: its label
+    (`instance_label`), registers per thread, stack frame and spill bytes."""
+    out, cur = [], None
+    for line in text.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            cur = {"kernel": instance_label(m.group(1)), "registers": None,
+                   "stack_bytes": 0, "spill_store_bytes": 0,
+                   "spill_load_bytes": 0}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = _FRAME.search(line)
+        if m:
+            cur.update(stack_bytes=int(m.group(1)),
+                       spill_store_bytes=int(m.group(2)),
+                       spill_load_bytes=int(m.group(3)))
+        m = _USED.search(line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def kernel_report(src: Path) -> List[dict]:
+    """ptxas's report on the library of `src`, from the log kept beside it
+    when it was built."""
+    return ptxas_report(library_path(src).with_suffix(".log").read_text())
+
+
 def _timed_build(src: Path) -> Tuple[Path, float]:
     t0 = time.perf_counter()
     lib = build(src)
@@ -91,6 +149,17 @@ def build_all(sources: Sequence[Path]) -> List[Tuple[Path, float]]:
 def load(src: Path) -> ctypes.CDLL:
     """The library of `src`, built if needed, loaded once per process."""
     return ctypes.CDLL(str(build(src)))
+
+
+def vector_width(D: int, esize: int, *tensors: torch.Tensor) -> int:
+    """The elements a thread of the sampling kernels (B1, B4) moves per
+    load: 16 // esize where a row of D elements is whole 16-byte vectors and
+    every tensor's data is 16-byte aligned, else 1 (the kernel's generic
+    instance, element loads)."""
+    if (D * esize) % 16 == 0 and all(t.data_ptr() % 16 == 0
+                                     for t in tensors):
+        return 16 // esize
+    return 1
 
 
 def raw_stream(index: int) -> int:

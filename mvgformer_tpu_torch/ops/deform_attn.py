@@ -5,6 +5,9 @@
     * A CPU tensor goes to that plain PyTorch version.
     * A CUDA tensor launches the hand-written kernel
       `csrc/deform_sample.cu` (forward only) or raises. Nothing falls back.
+      Its vector instances (a thread per 16-byte vector) run where
+      `_build.vector_width` allows them, its generic instance (a thread per
+      element) everywhere else.
 
 The kernel is compiled with nvcc at first use into `build/kernels/` at the
 root of the checkout (`ops/_build.py`) and bound with ctypes.
@@ -34,7 +37,8 @@ def build() -> Path:
 _FORWARD = _build.Launcher(
     _SRC, "mvg_deform_sample_forward",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-    + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p])
+    + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+       ctypes.c_void_p])
 
 
 def _check(value, spatial_shapes, sampling_locations, attention_weights):
@@ -110,7 +114,9 @@ def deform_sample(value: torch.Tensor,
     _FORWARD(value, value.data_ptr(), sampling_locations.data_ptr(),
              attention_weights.data_ptr(), out.data_ptr(), N, Len_in, H, D,
              Lq, L, P, (ctypes.c_int * len(levels))(*levels),
-             _DTYPE_CODE[value.dtype])
+             _DTYPE_CODE[value.dtype],
+             _build.vector_width(D, value.element_size(), value,
+                                 sampling_locations, attention_weights, out))
     deform_sample.launches += 1
     return out
 

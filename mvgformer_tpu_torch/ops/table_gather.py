@@ -8,7 +8,14 @@ Port of the contract of `mvgformer_tpu/ops/onehot_gather.py`:
                          w4 (NH, S, 4)) -> (NH, S, D)
     out[p, s] = sum_c tables[p, idx[p, s], c*D:(c+1)*D] * w4[p, s, c]
 
-for every input. The TPU form sorts the samples and selects rows with a
+for every idx in [0, R). An index off the table reads no row here: its
+output is zero and it adds to no gradient, in the plain versions and the
+kernels alike. JAX's `_reference_reduce`
+(`mvgformer_tpu/ops/onehot_gather.py:113-121`) gathers it with
+`jnp.take_along_axis` instead, which gives NaN rows for idx >= R and wraps
+idx = -1 to row R - 1. The samplers never make such an index:
+`ops/sampling.py::corner_samples` clamps every index into the padded
+table, as JAX's does. The TPU form sorts the samples and selects rows with a
 one-hot matmul, repairing the samples that escape a block's window; a
 Hopper thread gathers rows directly, so the forward has no sort, window or
 repair. The backward keeps the sort (`row_segments`, plain torch outside the
@@ -97,7 +104,9 @@ def _rows(tables: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def deform_gather_reduce_plain(tables: torch.Tensor, idx: torch.Tensor,
                                w4: torch.Tensor) -> torch.Tensor:
     """The plain version: a gather and a sum, float32 sums, the result in
-    the dtype of tables. Its autograd is the plain backward."""
+    the dtype of tables. Its autograd is the plain backward. An index off
+    the table gives a zero row (JAX's `_reference_reduce` gives NaN or
+    wraps; see the module's docstring)."""
     rows = _rows(tables, idx).float()
     out = (rows * w4.float()[..., None]).sum(dim=2)
     return out.to(tables.dtype)
@@ -107,7 +116,8 @@ def gather_reduce_backward_plain(tables, idx, w4, ct
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(grad_tables, grad_w4) of the contract for cotangent ct, in float32
     sums, cast to the dtypes of tables and w4. An index off the table adds
-    to no row and has grad_w4 0."""
+    to no row and has grad_w4 0 (JAX's VJP of `_reference_reduce` differs
+    there; see the module's docstring)."""
     NH, R, C = tables.shape
     g = ct.float()[:, :, None, :]  # (NH, S, 1, D)
     grad_w4 = (_rows(tables, idx).float() * g).sum(dim=-1)
@@ -173,10 +183,8 @@ def vector_bytes(tables: torch.Tensor, other: torch.Tensor) -> int:
     are whole 16-byte vectors and both pointers are 16-byte aligned, else
     one element (the scalar instance)."""
     esize = tables.element_size()
-    if (tables.shape[-1] // 4 * esize) % 16 == 0 and _aligned(
-            (tables, other), 16):
-        return 16
-    return esize
+    return esize * _build.vector_width(tables.shape[-1] // 4, esize, tables,
+                                       other)
 
 
 def lane_elements(tables: torch.Tensor, ct: torch.Tensor) -> int:

@@ -14,7 +14,9 @@ with rel[r] packed per head as [ry(P) | rx(P) | aw(P)] in window pixels.
     * A CPU tensor goes to the plain version, `window_block_matmul_plain`,
       which builds the K*K weight rows and multiplies them into the windows.
     * A CUDA tensor launches the hand-written kernel `csrc/window_block.cu`
-      (forward only) or raises. Nothing falls back.
+      (forward only) or raises. Nothing falls back. Its vector instances (a
+      thread per 16-byte vector) run where `_build.vector_width` allows
+      them, its generic instance (a thread per element) everywhere else.
 
 Rows come out in the dtype of `tiles`, summed in float32 (the TPU kernel
 always emits bfloat16). `window_block_matmul.launches` counts kernel
@@ -35,7 +37,7 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _FORWARD = _build.Launcher(
     _SRC, "mvg_window_block_forward",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
 
 
 def tent_rows(rel: torch.Tensor, H: int, P: int, K: int, Kw: int,
@@ -137,7 +139,8 @@ def window_block_matmul(tiles: torch.Tensor, rel: torch.Tensor,
     out = torch.empty((nrows, H * D), dtype=tiles.dtype, device=tiles.device)
     _FORWARD(tiles, tiles.data_ptr(), rel.data_ptr(), block_tile.data_ptr(),
              out.data_ptr(), tiles.shape[0], nrows, K, H, P, D, block_rows,
-             DTYPE_CODE[tiles.dtype])
+             DTYPE_CODE[tiles.dtype],
+             _build.vector_width(D, tiles.element_size(), tiles, rel, out))
     window_block_matmul.launches += 1
     return out
 

@@ -1,26 +1,43 @@
-"""The cost of one launch of the probe kernels' wrappers at the probes' own
-(small) shapes, where the host's path per call decides the time:
+"""The cost of one launch of the port's kernel wrappers, and the same
+kernels of two checkouts side by side:
 
     python mvgformer_tpu_torch/tools/launch_cost.py [--root DIR] [--label L]
+        [--kernels probes,deform,window_block]
 
 imports `mvgformer_tpu_torch` from the checkout at DIR (default: this one),
-so two trees can be held side by side in one run on one card. For each case
-(bfloat16: P4's take-along, (2048, 128) by (30720, 128) on axis 0; P3's
-scale of (2048, 128) by 2; P1's row gather of 30,720 rows from 2048) it
-prints one JSON line with
+so two trees can be held side by side in one run on one card (run it once
+per tree, in turns). The cases, all bfloat16:
+
+    probes        P4's take-along, (2048, 128) by (30720, 128) on axis 0;
+                  P3's scale of (2048, 128) by 2; P1's row gather of 30,720
+                  rows from 2048: the probe kernels at their own small
+                  shapes, where the host's path per call decides the time,
+                  each beside the PyTorch call of the same function; then a
+                  line splitting the host's path of the take-along wrapper
+                  (microseconds per call, in a loop of 3000, of the whole
+                  wrapper, of its output's `torch.empty`, of its checks, and
+                  of the bare ctypes launch when the tree has a `Launcher`);
+    deform        B1 (`deform_sample`) at the two shapes of a served frame:
+                  dense layer 1 (5 views x 15,360 queries, P 4) and a layer
+                  after top-64 compaction (960 queries, P 4), 8 heads x 32,
+                  the flagship levels, border, far and non-finite locations
+                  mixed in (`sampling_inputs`);
+    window_block  B4 (`window_block_matmul`) on the three level calls of
+                  the flagship rig's layer-1 plan (K = 28), P 4, offsets
+                  out to the halo and past it (`window_inputs`).
+
+Each case prints one JSON line with
 
     ms         the median of 20 calls each between two CUDA events (the
                kernels line's yardstick: host path and device time together);
     device_ms  the device's mean per call over 50 back-to-back calls, the
                stream held by a sleep kernel until all are enqueued;
-    host_us    the host's microseconds per call of that enqueue;
+    host_us    the host's microseconds per call of that enqueue.
 
-and the same three for the PyTorch call of the same function. A last line
-splits the host's path of the take-along wrapper: microseconds per call,
-in a loop of 3000, of the whole wrapper, of its output's `torch.empty`, of
-its checks, and of the bare ctypes launch (when the tree has a
-`Launcher`). Needs one CUDA card; `device_ms` is also what chip_smoke.py
-reports beside `ms`.
+The inputs come from a fixed seed, so every tree gets the same ones. Needs
+one CUDA card; `device_ms` is also what chip_smoke.py reports beside `ms`,
+and chip_smoke.py --parent DIR runs the deform and window_block cases of
+DIR and of its own checkout in turns.
 """
 
 import argparse
@@ -125,12 +142,116 @@ def cases(gather_forms, torch, rng):
     ]
 
 
+FLAGSHIP_LEVELS = ((128, 240), (64, 120), (32, 60))
+# B1's shapes in a served frame: dense layer 1, then the top-64 layers
+B1_SHAPES = ((15360, 4), (960, 4))
+KERNEL_SETS = ("probes", "deform", "window_block")
+
+
+def sampling_inputs(Lq, P, dtype, gen, levels=FLAGSHIP_LEVELS, views=5,
+                    heads=8, head_dim=32, device="cuda"):
+    """B1's value, locations and weights on `device`, with border,
+    far-outside and non-finite locations mixed into the uniform ones
+    (Lq >= 48)."""
+    import torch
+
+    L = len(levels)
+    len_in = sum(h * w for h, w in levels)
+    value = torch.randn(views, len_in, heads, head_dim, device=device,
+                        generator=gen).to(dtype)
+    loc = torch.rand(views, Lq, heads, L, P, 2, device=device,
+                     generator=gen) * 1.2 - 0.1
+    w = torch.tensor([s[1] for s in levels], device=device)
+    h = torch.tensor([s[0] for s in levels], device=device)
+    q = Lq // 8
+    u = torch.rand(views, q, heads, L, P, device=device, generator=gen)
+    # x in (-1, 0) pixels, then y in [h-1, h) pixels
+    loc[:, :q, ..., 0] = (-u + 0.5) / w[:, None]
+    loc[:, q:2 * q, ..., 1] = (h[:, None] - 1 + u + 0.5) / h[:, None]
+    loc[:, 2 * q:2 * q + 8] = 50.0
+    loc[:, 2 * q + 8:2 * q + 16, ..., 0] = float("inf")
+    loc[:, 2 * q + 16:2 * q + 24, ..., 1] = -float("inf")
+    loc[:, 2 * q + 24:2 * q + 32, ..., 0] = float("nan")
+    aw = torch.rand(views, Lq, heads, L, P, device=device,
+                    generator=gen).to(dtype)
+    return value, loc, aw
+
+
+def window_inputs(centers_px, halo, P, dtype, gen, escape,
+                  levels=FLAGSHIP_LEVELS, heads=8, head_dim=32,
+                  device="cuda"):
+    """value, locations and weights on `device` around a plan's static
+    centers. Offsets are uniform within +-(halo - 2) px; with `escape`, one
+    sample in eight reaches +-(halo + 6) px, out of the K window and in
+    part out of the wider Kx window. Weights sum to 1 per (query, head)."""
+    import torch
+
+    L = len(levels)
+    len_in = sum(h * w for h, w in levels)
+    c = torch.from_numpy(centers_px).to(device)  # (V, Lq, L, 2)
+    V, Lq = c.shape[:2]
+    value = torch.randn(V, len_in, heads, head_dim, device=device,
+                        generator=gen).to(dtype)
+    off = (torch.rand(V, Lq, heads, L, P, 2, device=device, generator=gen)
+           * 2.0 - 1.0) * (halo - 2)
+    if escape:
+        far = torch.rand(V, Lq, heads, L, P, 1, device=device,
+                         generator=gen) < 0.125
+        off = torch.where(far, off * (halo + 6) / (halo - 2), off)
+    wh = torch.tensor([[w, h] for h, w in levels],
+                      dtype=torch.float32, device=device)
+    loc = (c[:, :, None, :, None, :] + off + 0.5) / wh[:, None, :]
+    aw = torch.rand(V, Lq, heads, L, P, device=device, generator=gen)
+    aw = aw / aw.sum(dim=(3, 4), keepdim=True)
+    return value, loc.contiguous(), aw
+
+
+def kernel_cases(root, torch, sets, device="cuda"):
+    """(name, fn) of B1 at B1_SHAPES ('deform' in sets) and of B4's three
+    level calls on the K = 28 plan of the flagship rig ('window_block'),
+    bfloat16, through the checkout at root."""
+    from mvgformer_tpu_torch.config import load_config
+    from mvgformer_tpu_torch.data.synthetic import make_batch
+    from mvgformer_tpu_torch.models.mvgformer import (
+        build_layer1_window_plan, layer1_centers_px)
+    from mvgformer_tpu_torch.ops import deform_attn, window_sampling
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    cases = []
+    for Lq, P in B1_SHAPES if "deform" in sets else ():
+        a = sampling_inputs(Lq, P, torch.bfloat16, gen, device=device)
+        cases.append((f"deform_sample Lq {Lq} P {P}",
+                      lambda a=a: deform_attn.deform_sample(
+                          a[0], FLAGSHIP_LEVELS, a[1], a[2])))
+    if "window_block" not in sets:
+        return cases
+    cfg = load_config(str(Path(root, "configs", "panoptic",
+                               "knn5-lr4-q1024.yaml")))
+    batch = make_batch(cfg, batch_size=1, seed=0, num_people=3, cam_seed=0,
+                       device=device)
+    plan = build_layer1_window_plan(cfg, batch.view_data, device=device)
+    value, loc, aw = window_inputs(layer1_centers_px(cfg, batch.view_data),
+                                   plan.halo, 4, torch.bfloat16, gen,
+                                   escape=True, device=device)
+    calls = window_sampling.level_calls(value, FLAGSHIP_LEVELS, loc, aw,
+                                        plan, impl="pallas")
+    cases.append((f"window_block_matmul K {plan.levels[0].K} P 4, "
+                  f"{len(calls)} levels",
+                  lambda: [c.fn(*c.args, **c.kwargs) for c in calls]))
+    return cases
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=str(Path(__file__).resolve()
                                               .parents[2]))
     parser.add_argument("--label", default=None)
+    parser.add_argument("--kernels", default="probes",
+                        help="comma-separated: " + ", ".join(KERNEL_SETS))
     args = parser.parse_args(argv)
+    sets = args.kernels.split(",")
+    if not set(sets) <= set(KERNEL_SETS):
+        parser.error(f"--kernels takes {KERNEL_SETS}, got {sets}")
     sys.path.insert(0, str(Path(args.root).resolve()))
     import numpy as np
     import torch
@@ -139,17 +260,24 @@ def main(argv=None):
         sys.exit("launch_cost needs a CUDA card")
     from mvgformer_tpu_torch.ops import gather_forms
 
-    rng = np.random.default_rng(0)
-    for name, kernel, library in cases(gather_forms, torch, rng):
-        row = {"case": name, "root": args.root, "label": args.label,
-               "device": torch.cuda.get_device_name(0)}
-        for key, fn in (("", kernel), ("library_", library)):
-            row[key + "ms"] = cuda_ms(fn)
-            row[key + "device_ms"], row[key + "host_us"] = device_ms(fn)
-        print(json.dumps(row), flush=True)
-    print(json.dumps({"case": "take_along host path", "root": args.root,
-                      "label": args.label,
-                      **host_breakdown(gather_forms, torch)}), flush=True)
+    head = {"root": args.root, "label": args.label,
+            "device": torch.cuda.get_device_name(0)}
+    if "probes" in sets:
+        rng = np.random.default_rng(0)
+        for name, kernel, library in cases(gather_forms, torch, rng):
+            row = {"case": name, **head}
+            for key, fn in (("", kernel), ("library_", library)):
+                row[key + "ms"] = cuda_ms(fn)
+                row[key + "device_ms"], row[key + "host_us"] = device_ms(fn)
+            print(json.dumps(row), flush=True)
+        print(json.dumps({"case": "take_along host path", **head,
+                          **host_breakdown(gather_forms, torch)}),
+              flush=True)
+    for name, fn in kernel_cases(args.root, torch, sets):
+        dev_ms, host_us = device_ms(fn)
+        print(json.dumps({"case": name, **head, "ms": cuda_ms(fn),
+                          "device_ms": dev_ms, "host_us": host_us}),
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -2,11 +2,14 @@
 
   * deformable sampling at toy shapes: every D, P in {2, 3, 4, 8}, L in
     {1, 2, 3}, float32 and bfloat16, border, far-outside and non-finite
-    locations;
+    locations; and each of its instances (L 1-4 x P 2, 4, 8 x D 32, 40 and
+    6, the last the generic instance; a tensor off 16-byte alignment, which
+    takes the generic instance), every case launched twice, bit-identical;
   * the two window kernels (window_block, window_dma) at toy shapes, with
     window coordinates inside, at the edge of and outside the window, and at
     the flagship shapes: the level operands of the flagship rig's layer-1
-    plan;
+    plan; window_block's instances as deformable sampling's (K 6, 20, 28,
+    tile ids out of range included);
   * the corner-table build (B2), bit for bit, from strided level views;
     the table gather-reduce (B3) forward and backward, border rows
     included, on rows as concentrated as the training step's and indices
@@ -36,9 +39,10 @@ import numpy as np
 import pytest
 import torch
 
-from mvgformer_tpu_torch.ops import deform_attn, sampling, table_build
-from mvgformer_tpu_torch.ops import table_gather, window_block
+from mvgformer_tpu_torch.ops import _build, deform_attn, sampling
+from mvgformer_tpu_torch.ops import table_build, table_gather, window_block
 from mvgformer_tpu_torch.ops import window_dma, window_sampling
+from mvgformer_tpu_torch.tools.launch_cost import sampling_inputs
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -111,6 +115,71 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         deform_attn.deform_sample(v, SHAPES, strided, aw)
 
 
+def _twice(fn):
+    """fn() launched twice: the two results must be the same bits."""
+    got, again = fn(), fn()
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    return got
+
+
+def _vector_width(D, *tensors):
+    return _build.vector_width(D, tensors[0].element_size(), *tensors)
+
+
+def _off_16_bytes(t):
+    """A contiguous copy of t whose data starts one element past a 16-byte
+    boundary (a view into a larger buffer)."""
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    shifted = buf[1:1 + t.numel()].view(t.shape)
+    shifted.copy_(t)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    return shifted
+
+
+def _check_deform_sample(value, shapes, loc, aw):
+    before = deform_attn.deform_sample.launches
+    got = _twice(lambda: deform_attn.deform_sample(value, shapes, loc, aw))
+    assert deform_attn.deform_sample.launches == before + 2
+    want = sampling.deform_sample(value.float(), shapes, loc, aw.float())
+    tol = 1e-4 if value.dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 40, 6])
+@pytest.mark.parametrize("P", [2, 4, 8])
+@pytest.mark.parametrize("L", [1, 2, 3, 4])
+def test_deform_sample_instances(cuda, dtype, L, P, D):
+    """Each instance of the kernel: L 3 with P 2, 4, 8 (compile time), the
+    run-time instance elsewhere, the generic instance at D 6; on the border,
+    far-outside and non-finite locations of launch_cost.sampling_inputs."""
+    shapes = (SHAPES + ((2, 3),))[:L]
+    gen = torch.Generator(device=cuda).manual_seed(L * 100 + P * 10 + D)
+    value, loc, aw = sampling_inputs(64, P, dtype, gen, levels=shapes,
+                                     views=2, heads=4, head_dim=D,
+                                     device=cuda)
+    vector = 16 // value.element_size()
+    assert _vector_width(D, value, loc, aw) == (1 if D == 6 else vector)
+    _check_deform_sample(value, shapes, loc, aw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shifted", ["value", "loc", "aw"])
+def test_deform_sample_off_16_bytes_takes_the_generic_instance(
+        cuda, dtype, shifted):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    args = dict(zip(("value", "loc", "aw"), sampling_inputs(
+        64, 4, dtype, gen, levels=SHAPES, views=2, heads=4, head_dim=32,
+        device=cuda)))
+    args[shifted] = _off_16_bytes(args[shifted])
+    assert _vector_width(32, *args.values()) == 1
+    _check_deform_sample(args["value"], SHAPES, args["loc"], args["aw"])
+
+
 def _window_operands(seed, K, Kw, nrows, block_rows, n_win, H, P, D):
     """rel with window coordinates inside, at the edge of and outside the
     (K, Kw) window (non-finite ones too), and block indices."""
@@ -156,6 +225,60 @@ def test_window_block_matches_plain(cuda, dtype, K, H, P, D):
     np.testing.assert_allclose(got.float().cpu().numpy()[rows],
                                want.cpu().numpy()[rows], rtol=tol, atol=tol)
     assert torch.isfinite(got.float()).all()
+
+
+def _check_window_block(tiles, rel, bt, K, H, P, D, block_rows):
+    """window_block against its plain version on the finite rows of the
+    blocks whose tile id is in range; the other blocks' rows exactly 0."""
+    n_tiles = tiles.shape[0]
+    args = (tiles, torch.from_numpy(rel).to(tiles.device),
+            torch.from_numpy(bt).to(tiles.device))
+    sizes = dict(K=K, H=H, P=P, D=D, block_rows=block_rows)
+    before = window_block.window_block_matmul.launches
+    got = _twice(lambda: window_block.window_block_matmul(*args, **sizes))
+    assert window_block.window_block_matmul.launches == before + 2
+    assert got.dtype == tiles.dtype and torch.isfinite(got.float()).all()
+    in_range = np.repeat((bt >= 0) & (bt < n_tiles), block_rows)
+    want = window_block.window_block_matmul_plain(
+        tiles.float(), args[1], args[2].clamp(0, n_tiles - 1), **sizes)
+    rows = _finite_rows(rel) & in_range
+    tol = 1e-4 if tiles.dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(got.float().cpu().numpy()[rows],
+                               want.cpu().numpy()[rows], rtol=tol, atol=tol)
+    assert (got.float().cpu().numpy()[~in_range] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 40, 6])
+@pytest.mark.parametrize("P", [2, 4, 8])
+@pytest.mark.parametrize("K", [6, 20, 28])
+def test_window_block_instances(cuda, dtype, K, P, D):
+    """Each instance of the kernel: P 4 and 8 (compile time), the run-time
+    instance at P 2, the generic instance at D 6; tile ids -1 and n_tiles
+    in two of the four blocks."""
+    nrows, block_rows, n_tiles, H = 128, 32, 5, 4
+    rng, rel, bt = _window_operands(K * 10 + P + D, K, K, nrows, block_rows,
+                                    n_tiles, H, P, D)
+    bt[1], bt[3] = n_tiles, -1
+    tiles = torch.from_numpy(rng.randn(n_tiles, K * K, H * D).astype(
+        np.float32)).to(cuda, dtype)
+    vector = 16 // tiles.element_size()
+    assert _vector_width(D, tiles, torch.from_numpy(rel)) == (
+        1 if D == 6 else vector)
+    _check_window_block(tiles, rel, bt, K, H, P, D, block_rows)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_block_off_16_bytes_takes_the_generic_instance(cuda, dtype):
+    K, H, P, D, nrows, block_rows, n_tiles = 20, 4, 4, 32, 96, 32, 5
+    rng, rel, bt = _window_operands(3, K, K, nrows, block_rows, n_tiles, H,
+                                    P, D)
+    tiles = _off_16_bytes(torch.from_numpy(rng.randn(
+        n_tiles, K * K, H * D).astype(np.float32)).to(cuda, dtype))
+    assert _vector_width(D, tiles) == 1
+    _check_window_block(tiles, rel, bt, K, H, P, D, block_rows)
 
 
 @pytest.mark.gpu

@@ -1,8 +1,9 @@
 """The kernel wrappers' shared launch path (`ops/_build.py::Launcher`) and
 the launch-cost tool, on the CPU: every wrapper module launches through a
 Launcher whose last argument is the stream, built and bound only at its
-first call; the probe wrappers' device check; and the tool refuses to run
-without a card.
+first call; the choice between the sampling kernels' vector and generic
+instances (`vector_width`); the probe wrappers' device check; and the tool
+refuses to run without a card.
 """
 
 import ctypes
@@ -53,8 +54,58 @@ def test_probe_device_check():
         gather_forms._check_device(cpu, torch.zeros(3, device="meta"))
 
 
+@pytest.mark.parametrize("dtype,esize", [(torch.float32, 4),
+                                         (torch.bfloat16, 2)])
+@pytest.mark.parametrize("D", [32, 40, 8, 6, 4, 1])
+@pytest.mark.parametrize("offset", [0, 1, 8])
+def test_vector_width(dtype, esize, D, offset):
+    """16-byte vectors (16 / esize elements per thread) where a row of D
+    elements is whole vectors and every pointer is 16-byte aligned, else
+    the generic instance's one element."""
+    buf = torch.zeros(4096 + 16, dtype=dtype)
+    view = buf[offset:offset + 4096]
+    aligned = torch.zeros(64, dtype=dtype)
+    whole = (D * esize) % 16 == 0
+    on_16 = (offset * esize) % 16 == 0
+    want = 16 // esize if whole and on_16 else 1
+    assert _build.vector_width(D, esize, view, aligned) == want
+    assert _build.vector_width(D, esize, aligned) == (16 // esize if whole
+                                                      else 1)
+
+
 def test_launch_cost_needs_a_card():
     from mvgformer_tpu_torch.tools import launch_cost
 
     with pytest.raises(SystemExit, match="CUDA"):
         launch_cost.main([])
+    with pytest.raises(SystemExit):
+        launch_cost.main(["--kernels", "deform,nothing"])
+
+
+def test_launch_cost_window_case_on_the_cpu():
+    """The B4 case's operands: the flagship rig's K 28 plan, three level
+    calls into window_block; built (not run) on the CPU."""
+    from mvgformer_tpu_torch.tools import launch_cost
+
+    repo = Path(__file__).resolve().parents[1]
+    cases = launch_cost.kernel_cases(repo, torch, {"window_block"},
+                                     device="cpu")
+    assert [name for name, _ in cases] == [
+        "window_block_matmul K 28 P 4, 3 levels"]
+    assert launch_cost.kernel_cases(repo, torch, {"probes"},
+                                    device="cpu") == []
+
+
+def test_sampling_inputs_mix_edge_and_nonfinite_locations():
+    from mvgformer_tpu_torch.tools import launch_cost
+
+    shapes = ((16, 30), (8, 15))
+    value, loc, aw = launch_cost.sampling_inputs(
+        64, 4, torch.bfloat16, torch.Generator().manual_seed(0),
+        levels=shapes, views=2, heads=3, head_dim=8, device="cpu")
+    assert value.shape == (2, 16 * 30 + 8 * 15, 3, 8)
+    assert loc.shape == (2, 64, 3, 2, 4, 2) and aw.shape == (2, 64, 3, 2, 4)
+    assert value.dtype == aw.dtype == torch.bfloat16
+    assert loc.dtype == torch.float32
+    assert torch.isnan(loc).any() and torch.isinf(loc).any()
+    assert (loc[:, 16:24] == 50.0).all()
