@@ -21,9 +21,9 @@ exits non-zero:
   4. hold the two window kernels against their plain versions on the card,
      on the level operands of the flagship rig's layer-1 plans (K = 28, and
      K = 20 under layer1_offset_clamp 4), P 4 and 8, float32 and bfloat16,
-     offsets inside and outside the halo, each timed as in phase 3; then
-     the whole window_sample with each kernel against the
-     deformable-sampling kernel on in-halo offsets;
+     offsets inside and outside the halo, each launched twice for the same
+     bits and timed as in phase 3; then the whole window_sample with each
+     kernel against the deformable-sampling kernel on in-halo offsets;
   5. the flagship-width model (random weights from a fixed seed, float32,
      TF32 off): one frame through the kernel path on the card and through
      the plain path on the CPU, layer-1 logits and 3D compared at the
@@ -38,7 +38,9 @@ exits non-zero:
      built once, and the escaped mass read per frame. Serving launches no
      training kernel;
   9. the corner-table build (B2) against its plain version on the flagship
-     value, every level, float32 and bfloat16: bit for bit; both timed;
+     value, every level, float32 and bfloat16: bit for bit, and two
+     launches the same bits; both timed, the kernel also on the device
+     alone;
  10. the table gather-reduce (B3) forward and backward against the plain
      versions at one training layer's shape (40 pairs, 122,880 samples per
      level, rows from random locations with border and missing samples),
@@ -79,15 +81,16 @@ exits non-zero:
 Phase 10 also holds F.embedding_bag, the library call of B3's function,
 against B3's plain versions and times it. The models, batches and window
 plans are made on the card by their entry points (device "cuda"). With
---parent DIR (an unpacked parent checkout), B1 and B4 of DIR and of this
-checkout are also timed in turns by tools/launch_cost.py before the table.
+--parent DIR (an unpacked parent checkout), B1, B2, B4 and B5 of DIR and of
+this checkout are also timed in turns by tools/launch_cost.py before the
+table.
 
 The last three lines are the kernel table (each kernel's launches on its
 path, worst error, ms, device_ms where measured, plain ms, library ms or
 why there is none, its bound from utils/bounds.py on the timed inputs, and
-for B1 and B4 ptxas's report and, with --parent, the parent's times), the
-card, and the device, as JSON. The `ranking` phase before them orders the
-kernels for later work (`ranking`).
+for B1, B2, B4 and B5 ptxas's report and, with --parent, the parent's
+times), the card, and the device, as JSON. The `ranking` phase before them
+orders the kernels for later work (`ranking`).
 """
 
 import contextlib
@@ -108,7 +111,7 @@ from mvgformer_tpu_torch.ops import (_build, deform_attn, gather_forms,
                                      window_sampling)
 from mvgformer_tpu_torch.tools.launch_cost import (B1_SHAPES,
                                                    FLAGSHIP_LEVELS,
-                                                   device_ms,
+                                                   device_ms, level_views,
                                                    sampling_inputs,
                                                    window_inputs)
 from mvgformer_tpu_torch.tools.probes.probe_pallas_gather import flat_rows
@@ -143,6 +146,8 @@ PROBES = ("probe_pallas_gather", "probe_pallas_gather2",
           "probe_mosaic_gather_forms", "probe_onehot_parts",
           "probe_sorted_gather_parts", "probe_table_kernel_forms")
 PROBE_RUNS = ("--runs", "3", "--warmup", "1")
+# launch_cost's kernel sets timed against the parent (--parent)
+PARENT_KERNELS = "deform,window_block,window_dma,table_build"
 NO_LIBRARY = {
     "deform_sample": "none: F.grid_sample is the bilinear read of one "
                      "level and head only; the sum over levels and points "
@@ -415,6 +420,7 @@ def check_window_level(kernel, call, dtype):
     if call.fn is not kernel:
         fail(f"level call goes to {call.fn}, expected {kernel.__name__}")
     out = call.fn(*call.args, **call.kwargs)
+    same_bits = torch.equal(out, call.fn(*call.args, **call.kwargs))
     torch.cuda.synchronize()
     ref = PLAIN[kernel](call.args[0].float(), *call.args[1:], **call.kwargs)
     err = (out.float() - ref).abs().max().item()
@@ -423,16 +429,15 @@ def check_window_level(kernel, call, dtype):
     else:
         ok = torch.allclose(out.float(), ref, atol=2e-2, rtol=2e-2)
     del out, ref
-    if kernel is window_block.window_block_matmul:
-        tiles, rel = call.args[:2]
-        vec = _build.vector_width(call.kwargs["D"], tiles.element_size(),
-                                  tiles, rel)
-        if vec == 1:
-            fail(f"window_block took the generic instance on the plan's "
-                 f"level operands ({dtype})")
+    data, rel = call.args[:2]
+    if _build.vector_width(call.kwargs["D"], data.element_size(), data,
+                           rel) == 1:
+        fail(f"{kernel.__name__} took the generic instance on the plan's "
+             f"level operands ({dtype})")
     dev_ms, host_us = device_ms(lambda: call.fn(*call.args, **call.kwargs))
     return {"rows": call.args[1].shape[0],
-            "max_abs_err": err, "ok": bool(ok),
+            "max_abs_err": err, "ok": bool(ok) and same_bits,
+            "bit_identical": same_bits,
             "ms": cuda_ms(lambda: call.fn(*call.args, **call.kwargs)),
             "device_ms": dev_ms, "host_us": host_us,
             "plain_ms": cuda_ms(lambda: PLAIN[kernel](
@@ -604,42 +609,42 @@ def serve(card, cfg, model, frames, impl=None):
     return launches
 
 
-def level_views(value):
-    """The (N, H, h, w, D) level views of a (N, Len_in, H, D) value, strided
-    as the corner sampler hands them to the table build."""
-    sizes = [h * w for h, w in SPATIAL_SHAPES]
-    return [v.unflatten(2, (h, w)) for v, (h, w) in zip(
-        value.transpose(1, 2).split(sizes, dim=2), SPATIAL_SHAPES)]
-
-
 def check_table_build(card):
     """Phase 9: B2 against its plain version on the flagship value, bit for
-    bit; returns the summed bfloat16 ms, plain ms and compulsory work over
-    the three levels."""
+    bit, and two launches the same bits; returns, for bfloat16 and summed
+    over the three levels, ms, device_ms, plain ms and the compulsory
+    work."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     len_in = sum(h * w for h, w in SPATIAL_SHAPES)
     stats = {}
     for dtype in (torch.float32, torch.bfloat16):
         value = torch.randn(N_VIEWS, len_in, HEADS, HEAD_DIM, device="cuda",
                             generator=gen).to(dtype)
-        views = level_views(value)
+        views = level_views(value, SPATIAL_SHAPES)
         equal = all(torch.equal(table_build.build_corner_table(v),
                                 table_build.build_corner_table_plain(v))
                     for v in views)
+        same_bits = all(torch.equal(table_build.build_corner_table(v),
+                                    table_build.build_corner_table(v))
+                        for v in views)
         torch.cuda.synchronize()
         ms = sum(cuda_ms(lambda v=v: table_build.build_corner_table(v))
                  for v in views)
+        dev_ms = sum(device_ms(lambda v=v: table_build.build_corner_table(
+            v))[0] for v in views)
         plain_ms = sum(cuda_ms(lambda v=v: table_build.build_corner_table_plain(
             v), runs=5, warmup=1) for v in views)
         phase("table_build_vs_plain", N=N_VIEWS, H=HEADS, D=HEAD_DIM,
               levels=SPATIAL_SHAPES, rows=[
                   (h + 2) * table_build.padded_width(w)
                   for h, w in SPATIAL_SHAPES],
-              dtype=str(dtype), bitwise_equal=equal, ms=ms,
+              dtype=str(dtype), bitwise_equal=equal,
+              bit_identical=same_bits, ms=ms, device_ms=dev_ms,
               plain_ms=plain_ms, card=card)
-        if not equal:
-            fail(f"table_build differs from its plain version ({dtype})")
-        stats[dtype] = (ms, plain_ms, bounds.total([
+        if not (equal and same_bits):
+            fail(f"table_build differs from its plain version or between "
+                 f"two launches ({dtype})")
+        stats[dtype] = (ms, dev_ms, plain_ms, bounds.total([
             bounds.table_build(N_VIEWS * HEADS, h, w, HEAD_DIM,
                                value.element_size())
             for h, w in SPATIAL_SHAPES]))
@@ -1369,9 +1374,10 @@ def run_probes(card):
 
 
 def parent_vs_change(card, parent):
-    """B1 at B1_SHAPES and B4 on the K = 28 plan, bfloat16, timed by
-    tools/launch_cost.py (--kernels deform,window_block) from the checkout
-    at `parent` and from this one in turns: parent, change, change,
+    """B1 at B1_SHAPES, B4 and B5 on the K = 28 plan and B2 on the flagship
+    value's level views, bfloat16, timed by this checkout's
+    tools/launch_cost.py (--kernels PARENT_KERNELS) on the package of the
+    checkout at `parent` and on this one in turns: parent, change, change,
     parent, one process each, on the same inputs. Returns, per case,
     {parent_ms, parent_device_ms, change_ms, change_device_ms}: each the
     tree's two turns."""
@@ -1381,7 +1387,7 @@ def parent_vs_change(card, parent):
                         ("change", REPO), ("parent", parent)):
         proc = subprocess.run(
             [sys.executable, str(tool), "--root", str(root), "--label",
-             label, "--kernels", "deform,window_block"],
+             label, "--kernels", PARENT_KERNELS],
             capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             fail(f"launch_cost on the {label} tree failed:\n"
@@ -1396,13 +1402,21 @@ def parent_vs_change(card, parent):
     return turns
 
 
+def parent_turns(turns, kernel):
+    """The parent_vs_change times of the one case that times `kernel`, or
+    nothing without --parent."""
+    return next((t for case, t in turns.items()
+                 if case.startswith(kernel.__name__)), {})
+
+
 def main(argv=None):
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", default=None,
-                        help="an unpacked parent checkout: time its B1 and "
-                        "B4 beside this tree's (tools/launch_cost.py)")
+                        help="an unpacked parent checkout: time its B1, B2, "
+                        "B4 and B5 beside this tree's "
+                        "(tools/launch_cost.py)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs one GPU")
@@ -1444,7 +1458,8 @@ def main(argv=None):
     del model, frames
     torch.cuda.empty_cache()
 
-    build_ms, build_plain_ms, build_work = check_table_build(card)
+    build_ms, build_device_ms, build_plain_ms, build_work = \
+        check_table_build(card)
     gather_stats = check_table_gather(card)
     check_corner_sampler(card)
     check_train_step(card)
@@ -1493,16 +1508,13 @@ def main(argv=None):
             (window_dma.window_block_dma, "window_dma.cu",
              "mvgformer_tpu/ops/window_dma.py:38")):
         st = window_stats[kernel]
-        extra = {"ptxas": reports[source]}
-        if kernel is window_block.window_block_matmul:
-            extra.update(next((t for case, t in turns.items()
-                               if case.startswith(kernel.__name__)), {}))
         kernels.append(kernel_row(
             kernel, source, replaces, launches[kernel.__name__],
             st["max_abs_err"], st["ms"], st["plain_ms"], None, st["work"],
             "bfloat16 layer-1 plan of the flagship rig, K=28 H=8 D=32 P=4, "
             "summed over the 3 levels", timed_launches=3,
-            device_ms=st["device_ms"], **extra))
+            device_ms=st["device_ms"], ptxas=reports[source],
+            **parent_turns(turns, kernel)))
     kernels.append(kernel_row(
         table_build.build_corner_table, "table_build.cu",
         "mvgformer_tpu/ops/table_pallas.py:60",
@@ -1510,7 +1522,9 @@ def main(argv=None):
         None, build_work, "bfloat16 N=5 H=8 D=32, the 3 flagship levels "
         "summed (bit for bit against the plain version)", timed_launches=3,
         also=["tools/probes/probe_table_kernel_forms.py:39 (form_b), :86 "
-              "(form_c), :151 (form_d d2), :226 (form_e)"]))
+              "(form_c), :151 (form_d d2), :226 (form_e)"],
+        device_ms=build_device_ms, ptxas=reports["table_build.cu"],
+        **parent_turns(turns, table_build.build_corner_table)))
     for fn, replaces, extra in (
             (table_gather.gather_reduce_forward,
              "mvgformer_tpu/ops/onehot_gather.py:59",

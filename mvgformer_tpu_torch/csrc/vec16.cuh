@@ -1,9 +1,9 @@
 // Vector loads and stores of the sampling kernels (deform_sample.cu,
-// window_block.cu): a thread moves N consecutive elements of a row at once,
-// N * sizeof(T) bytes in one load of at most 16 bytes (8 bfloat16 or 4
-// float32 values; N = 1 is the generic instance's element load), widens
-// them to float32 registers only where it multiplies, and narrows its float32
-// sums back to T in one store.
+// window_block.cu, window_dma.cu): a thread moves N consecutive elements of
+// a row at once, N * sizeof(T) bytes in one load of at most 16 bytes (8
+// bfloat16 or 4 float32 values; N = 1 is the generic instance's element
+// load), widens them to float32 registers only where it multiplies, and
+// narrows its float32 sums back to T in one store.
 //
 //   Pack<T, N>       the raw bits of N elements, as one register-sized value
 //   load<T, N>       one read-only (__ldg) load of a Pack; the pointer is

@@ -152,7 +152,7 @@ def load(src: Path) -> ctypes.CDLL:
 
 
 def vector_width(D: int, esize: int, *tensors: torch.Tensor) -> int:
-    """The elements a thread of the sampling kernels (B1, B4) moves per
+    """The elements a thread of the sampling kernels (B1, B4, B5) moves per
     load: 16 // esize where a row of D elements is whole 16-byte vectors and
     every tensor's data is 16-byte aligned, else 1 (the kernel's generic
     instance, element loads)."""

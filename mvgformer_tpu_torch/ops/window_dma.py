@@ -11,7 +11,9 @@ of 8 and widens the window to Kx; rx is relative to the aligned origin.
 
     * A CPU tensor goes to the plain version, `window_block_dma_plain`.
     * A CUDA tensor launches the hand-written kernel `csrc/window_dma.cu`
-      (forward only) or raises. Nothing falls back.
+      (forward only) or raises. Nothing falls back. Its vector instances (a
+      thread per 16-byte vector) run where `_build.vector_width` allows
+      them, its generic instance (a thread per element) everywhere else.
 
 Rows come out in the dtype of the map, summed in float32.
 `window_block_dma.launches` counts kernel launches; nothing else changes it.
@@ -34,7 +36,7 @@ _SRC = _build.CSRC / "window_dma.cu"
 
 _FORWARD = _build.Launcher(
     _SRC, "mvg_window_dma_forward",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
 
 
 def window_block_dma_plain(padded_map: torch.Tensor, rel: torch.Tensor,
@@ -101,7 +103,9 @@ def window_block_dma(padded_map: torch.Tensor, rel: torch.Tensor,
                       device=padded_map.device)
     _FORWARD(padded_map, padded_map.data_ptr(), rel.data_ptr(),
              origins.data_ptr(), out.data_ptr(), V, hp, wp, nrows, K, Kx, H,
-             P, D, block_rows, DTYPE_CODE[padded_map.dtype])
+             P, D, block_rows, DTYPE_CODE[padded_map.dtype],
+             _build.vector_width(D, padded_map.element_size(), padded_map,
+                                 rel, out))
     window_block_dma.launches += 1
     return out
 

@@ -2,7 +2,7 @@
 kernels of two checkouts side by side:
 
     python mvgformer_tpu_torch/tools/launch_cost.py [--root DIR] [--label L]
-        [--kernels probes,deform,window_block]
+        [--kernels probes,deform,window_block,window_dma,table_build]
 
 imports `mvgformer_tpu_torch` from the checkout at DIR (default: this one),
 so two trees can be held side by side in one run on one card (run it once
@@ -24,7 +24,12 @@ per tree, in turns). The cases, all bfloat16:
                   mixed in (`sampling_inputs`);
     window_block  B4 (`window_block_matmul`) on the three level calls of
                   the flagship rig's layer-1 plan (K = 28), P 4, offsets
-                  out to the halo and past it (`window_inputs`).
+                  out to the halo and past it (`window_inputs`);
+    window_dma    B5 (`window_block_dma`) on the same plan's three level
+                  calls under impl 'pallas_dma' (K 28, Kx 32);
+    table_build   B2 (`build_corner_table`) on the three level views of a
+                  flagship value (5 views, 8 heads x 32), strided as the
+                  corner sampler hands them over (`level_views`).
 
 Each case prints one JSON line with
 
@@ -32,12 +37,15 @@ Each case prints one JSON line with
                kernels line's yardstick: host path and device time together);
     device_ms  the device's mean per call over 50 back-to-back calls, the
                stream held by a sleep kernel until all are enqueued;
-    host_us    the host's microseconds per call of that enqueue.
+    host_us    the host's microseconds per call of that enqueue;
+    max_abs_err  (the B1, window and table cases) the largest difference
+               from the kernels' plain versions on the same inputs.
 
 The inputs come from a fixed seed, so every tree gets the same ones. Needs
 one CUDA card; `device_ms` is also what chip_smoke.py reports beside `ms`,
-and chip_smoke.py --parent DIR runs the deform and window_block cases of
-DIR and of its own checkout in turns.
+and chip_smoke.py --parent DIR runs the deform, window_block, window_dma and
+table_build cases of DIR and of its own checkout in turns. The tool is this
+checkout's; only the package it times comes from DIR.
 """
 
 import argparse
@@ -145,7 +153,8 @@ def cases(gather_forms, torch, rng):
 FLAGSHIP_LEVELS = ((128, 240), (64, 120), (32, 60))
 # B1's shapes in a served frame: dense layer 1, then the top-64 layers
 B1_SHAPES = ((15360, 4), (960, 4))
-KERNEL_SETS = ("probes", "deform", "window_block")
+KERNEL_SETS = ("probes", "deform", "window_block", "window_dma",
+               "table_build")
 
 
 def sampling_inputs(Lq, P, dtype, gen, levels=FLAGSHIP_LEVELS, views=5,
@@ -206,15 +215,29 @@ def window_inputs(centers_px, halo, P, dtype, gen, escape,
     return value, loc.contiguous(), aw
 
 
-def kernel_cases(root, torch, sets, device="cuda"):
-    """(name, fn) of B1 at B1_SHAPES ('deform' in sets) and of B4's three
-    level calls on the K = 28 plan of the flagship rig ('window_block'),
-    bfloat16, through the checkout at root."""
+def level_views(value, levels):
+    """The (N, H, h, w, D) level views of a (N, Len_in, H, D) value, strided
+    as the corner sampler hands them to the table build (no copy)."""
+    sizes = [h * w for h, w in levels]
+    return [v.unflatten(2, (h, w)) for v, (h, w) in zip(
+        value.transpose(1, 2).split(sizes, dim=2), levels)]
+
+
+def kernel_cases(root, torch, sets, device="cuda", cfg=None):
+    """(name, fn, plain) of B1 at B1_SHAPES ('deform' in sets), of the three
+    level calls of the layer-1 plan through B4 ('window_block') or B5
+    ('window_dma'), and of B2 on the three level views of a value
+    ('table_build'), bfloat16, through the checkout at root. `plain`
+    computes the same through the kernels' plain versions. The window and
+    table cases take their levels, views, heads and plan from `cfg`
+    (default: the flagship config of root, whose plan has K = 28)."""
     from mvgformer_tpu_torch.config import load_config
     from mvgformer_tpu_torch.data.synthetic import make_batch
     from mvgformer_tpu_torch.models.mvgformer import (
-        build_layer1_window_plan, layer1_centers_px)
-    from mvgformer_tpu_torch.ops import deform_attn, window_sampling
+        build_layer1_window_plan, feature_spatial_shapes, layer1_centers_px)
+    from mvgformer_tpu_torch.ops import (deform_attn, sampling, table_build,
+                                         window_block, window_dma,
+                                         window_sampling)
 
     gen = torch.Generator(device=device).manual_seed(0)
     cases = []
@@ -222,23 +245,57 @@ def kernel_cases(root, torch, sets, device="cuda"):
         a = sampling_inputs(Lq, P, torch.bfloat16, gen, device=device)
         cases.append((f"deform_sample Lq {Lq} P {P}",
                       lambda a=a: deform_attn.deform_sample(
+                          a[0], FLAGSHIP_LEVELS, a[1], a[2]),
+                      lambda a=a: sampling.deform_sample(
                           a[0], FLAGSHIP_LEVELS, a[1], a[2])))
-    if "window_block" not in sets:
-        return cases
-    cfg = load_config(str(Path(root, "configs", "panoptic",
-                               "knn5-lr4-q1024.yaml")))
-    batch = make_batch(cfg, batch_size=1, seed=0, num_people=3, cam_seed=0,
-                       device=device)
-    plan = build_layer1_window_plan(cfg, batch.view_data, device=device)
-    value, loc, aw = window_inputs(layer1_centers_px(cfg, batch.view_data),
-                                   plan.halo, 4, torch.bfloat16, gen,
-                                   escape=True, device=device)
-    calls = window_sampling.level_calls(value, FLAGSHIP_LEVELS, loc, aw,
-                                        plan, impl="pallas")
-    cases.append((f"window_block_matmul K {plan.levels[0].K} P 4, "
-                  f"{len(calls)} levels",
-                  lambda: [c.fn(*c.args, **c.kwargs) for c in calls]))
+    if cfg is None:
+        cfg = load_config(str(Path(root, "configs", "panoptic",
+                                   "knn5-lr4-q1024.yaml")))
+    levels = feature_spatial_shapes(cfg)
+    heads = cfg.DECODER.nhead
+    head_dim = cfg.DECODER.d_model // heads
+    plain = {window_block.window_block_matmul:
+             window_block.window_block_matmul_plain,
+             window_dma.window_block_dma: window_dma.window_block_dma_plain}
+    for kernels, impl in (("window_block", "pallas"),
+                          ("window_dma", "pallas_dma")):
+        if kernels not in sets:
+            continue
+        batch = make_batch(cfg, batch_size=1, seed=0, num_people=3,
+                           cam_seed=0, device=device)
+        plan = build_layer1_window_plan(cfg, batch.view_data, device=device)
+        value, loc, aw = window_inputs(
+            layer1_centers_px(cfg, batch.view_data), plan.halo, 4,
+            torch.bfloat16, gen, escape=True, levels=levels, heads=heads,
+            head_dim=head_dim, device=device)
+        calls = window_sampling.level_calls(value, levels, loc, aw, plan,
+                                            impl=impl)
+        cases.append((f"{calls[0].fn.__name__} K {plan.levels[0].K} P 4, "
+                      f"{len(calls)} levels",
+                      lambda calls=calls: [c.fn(*c.args, **c.kwargs)
+                                           for c in calls],
+                      lambda calls=calls: [plain[c.fn](*c.args, **c.kwargs)
+                                           for c in calls]))
+    if "table_build" in sets:
+        value = torch.randn(cfg.DATASET.CAMERA_NUM,
+                            sum(h * w for h, w in levels), heads, head_dim,
+                            device=device, generator=gen).to(torch.bfloat16)
+        views = level_views(value, levels)
+        cases.append((f"build_corner_table {len(views)} levels",
+                      lambda: [table_build.build_corner_table(v)
+                               for v in views],
+                      lambda: [table_build.build_corner_table_plain(v)
+                               for v in views]))
     return cases
+
+
+def max_abs_err(got, want):
+    """The largest |got - want| over a tensor or a list of them, in
+    float32."""
+    if not isinstance(got, list):
+        got, want = [got], [want]
+    return max(float((g.float() - w.float()).abs().max())
+               for g, w in zip(got, want))
 
 
 def main(argv=None):
@@ -273,11 +330,12 @@ def main(argv=None):
         print(json.dumps({"case": "take_along host path", **head,
                           **host_breakdown(gather_forms, torch)}),
               flush=True)
-    for name, fn in kernel_cases(args.root, torch, sets):
+    for name, fn, plain in kernel_cases(args.root, torch, sets):
+        err = max_abs_err(fn(), plain())
         dev_ms, host_us = device_ms(fn)
         print(json.dumps({"case": name, **head, "ms": cuda_ms(fn),
-                          "device_ms": dev_ms, "host_us": host_us}),
-              flush=True)
+                          "device_ms": dev_ms, "host_us": host_us,
+                          "max_abs_err": err}), flush=True)
 
 
 if __name__ == "__main__":

@@ -95,6 +95,27 @@ def test_excess_of_a_summed_row_is_per_launch():
     assert without["excess_ms"] == pytest.approx(30 * (1.8 - 0.2) / 3)
 
 
+def test_device_ms_prices_a_row_without_a_library_call():
+    """B2's row: no library call, timed on both clocks; the excess reads
+    the device clock, and the event clock's host path is not priced."""
+    row = _row("build_corner_table", 0.341, None, bound_ms=0.165,
+               launches=168, timed_launches=3, device_ms=0.270)
+    assert chip_smoke.vs_library(row) is None
+    assert row["excess_ms"] == pytest.approx(168 * (0.270 - 0.165) / 3)
+    assert chip_smoke.ranking([row]) == [
+        {"name": "build_corner_table", "excess_ms": row["excess_ms"]}]
+
+
+def test_parent_turns_pick_the_kernels_own_case():
+    turns = {"window_block_matmul K 28 P 4, 3 levels": {"parent_ms": [1]},
+             "window_block_dma K 28 P 4, 3 levels": {"parent_ms": [2]},
+             "build_corner_table 3 levels": {"parent_ms": [3]}}
+    for name, want in (("window_block_matmul", 1), ("window_block_dma", 2),
+                       ("build_corner_table", 3), ("deform_sample", None)):
+        got = chip_smoke.parent_turns(turns, _fn(name))
+        assert got == ({"parent_ms": [want]} if want else {})
+
+
 def test_rest_ordered_by_excess():
     rows = [_row("a", 0.5, bound_ms=0.1, launches=2),
             _row("b", 0.5, bound_ms=0.1, launches=20),

@@ -8,8 +8,8 @@
   * the two window kernels (window_block, window_dma) at toy shapes, with
     window coordinates inside, at the edge of and outside the window, and at
     the flagship shapes: the level operands of the flagship rig's layer-1
-    plan; window_block's instances as deformable sampling's (K 6, 20, 28,
-    tile ids out of range included);
+    plan; the instances of both as deformable sampling's (K 6, 20, 28;
+    tile ids out of range and windows off the map included);
   * the corner-table build (B2), bit for bit, from strided level views;
     the table gather-reduce (B3) forward and backward, border rows
     included, on rows as concentrated as the training step's and indices
@@ -311,6 +311,80 @@ def test_window_dma_matches_plain(cuda, dtype, K, Kx, H, P, D):
     np.testing.assert_allclose(got.float().cpu().numpy()[rows],
                                want.cpu().numpy()[rows], rtol=tol, atol=tol)
     assert torch.isfinite(got.float()).all()
+
+
+def _check_window_dma(pmap, rel, origins, K, Kx, H, P, D, block_rows):
+    """window_dma against its plain version on the finite rows of the
+    blocks whose window lies inside the map; the other blocks' rows exactly
+    0."""
+    V, hp, wp, _ = pmap.shape
+    v, y0, x0 = origins.T
+    in_map = ((v >= 0) & (v < V) & (y0 >= 0) & (y0 <= hp - K) & (x0 >= 0)
+              & (x0 <= wp - Kx))
+    args = (pmap, torch.from_numpy(rel).to(pmap.device),
+            torch.from_numpy(origins).to(pmap.device))
+    sizes = dict(K=K, H=H, P=P, D=D, block_rows=block_rows, Kx=Kx)
+    before = window_dma.window_block_dma.launches
+    got = _twice(lambda: window_dma.window_block_dma(*args, **sizes))
+    assert window_dma.window_block_dma.launches == before + 2
+    assert got.dtype == pmap.dtype and torch.isfinite(got.float()).all()
+    inside = np.where(in_map[:, None], origins, 0).astype(np.int32)
+    want = window_dma.window_block_dma_plain(
+        pmap.float(), args[1], torch.from_numpy(inside).to(pmap.device),
+        **sizes)
+    in_map = np.repeat(in_map, block_rows)
+    rows = _finite_rows(rel) & in_map
+    tol = 1e-4 if pmap.dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(got.float().cpu().numpy()[rows],
+                               want.cpu().numpy()[rows], rtol=tol, atol=tol)
+    assert (got.float().cpu().numpy()[~in_map] == 0).all()
+
+
+def _window_dma_operands(seed, K, Kx, H, P, D, nrows=192, block_rows=32,
+                         views=3):
+    """A (views, K + 9, Kx + 24, H*D) map, rel and in-map origins (x0 a
+    multiple of 8), as float32 numpy."""
+    hp, wp = K + 9, Kx + 24
+    rng, rel, vix = _window_operands(seed, K, Kx, nrows, block_rows, views,
+                                     H, P, D)
+    y0 = rng.randint(0, hp - K + 1, vix.shape)
+    x0 = 8 * rng.randint(0, (wp - Kx) // 8 + 1, vix.shape)
+    origins = np.stack([vix, y0, x0], -1).astype(np.int32)
+    pmap = rng.randn(views, hp, wp, H * D).astype(np.float32)
+    return pmap, rel, origins
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 40, 6])
+@pytest.mark.parametrize("P", [2, 4, 8])
+@pytest.mark.parametrize("K", [6, 20, 28])
+def test_window_dma_instances(cuda, dtype, K, P, D):
+    """Each instance of the kernel: P 4 and 8 (compile time), the run-time
+    instance at P 2, the generic instance at D 6; windows off the map (past
+    the bottom, view -1, past the right edge) in three of the six
+    blocks."""
+    Kx, H = -(-K // 8) * 8, 4
+    pmap, rel, origins = _window_dma_operands(K * 10 + P + D, K, Kx, H, P, D)
+    V, hp, wp, _ = pmap.shape
+    origins[1, 1] = hp - K + 1
+    origins[3, 0] = -1
+    origins[5, 2] = wp - Kx + 8
+    pmap = torch.from_numpy(pmap).to(cuda, dtype)
+    vector = 16 // pmap.element_size()
+    assert _vector_width(D, pmap, torch.from_numpy(rel)) == (
+        1 if D == 6 else vector)
+    _check_window_dma(pmap, rel, origins, K, Kx, H, P, D, 32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_dma_off_16_bytes_takes_the_generic_instance(cuda, dtype):
+    K, Kx, H, P, D = 20, 24, 4, 4, 32
+    pmap, rel, origins = _window_dma_operands(5, K, Kx, H, P, D)
+    pmap = _off_16_bytes(torch.from_numpy(pmap).to(cuda, dtype))
+    assert _vector_width(D, pmap) == 1
+    _check_window_dma(pmap, rel, origins, K, Kx, H, P, D, 32)
 
 
 @pytest.mark.gpu

@@ -82,16 +82,43 @@ def test_launch_cost_needs_a_card():
         launch_cost.main(["--kernels", "deform,nothing"])
 
 
-def test_launch_cost_window_case_on_the_cpu():
-    """The B4 case's operands: the flagship rig's K 28 plan, three level
-    calls into window_block; built (not run) on the CPU."""
+def _toy_cfg():
+    from mvgformer_tpu_torch.config import load_config
+
+    cfg = load_config()
+    cfg.NETWORK.IMAGE_SIZE = [96, 64]
+    cfg.DECODER.d_model = 32
+    cfg.DECODER.nhead = 4
+    cfg.DECODER.num_instance = 16
+    cfg.DATASET.CAMERA_NUM = 3
+    return cfg
+
+
+@pytest.mark.parametrize("kernels,name", [
+    ("window_block", "window_block_matmul K 28 P 4, 3 levels"),
+    ("window_dma", "window_block_dma K 28 P 4, 3 levels"),
+    ("table_build", "build_corner_table 3 levels")])
+def test_launch_cost_window_case_on_the_cpu(kernels, name):
+    """launch_cost's B4, B5 and B2 cases on a toy rig (3 views at 96x64, 4
+    heads x 8): on the CPU each goes through its wrapper to the plain
+    version, launches nothing and matches its `plain` bit for bit. The
+    window plan keeps the flagship's K 28 (halo from the point count)."""
     from mvgformer_tpu_torch.tools import launch_cost
 
     repo = Path(__file__).resolve().parents[1]
-    cases = launch_cost.kernel_cases(repo, torch, {"window_block"},
-                                     device="cpu")
-    assert [name for name, _ in cases] == [
-        "window_block_matmul K 28 P 4, 3 levels"]
+    cases = launch_cost.kernel_cases(repo, torch, {kernels}, device="cpu",
+                                     cfg=_toy_cfg())
+    assert [c[0] for c in cases] == [name]
+    wrappers = (window_block.window_block_matmul,
+                window_dma.window_block_dma, table_build.build_corner_table)
+    launches = [k.launches for k in wrappers]
+    _, fn, plain = cases[0]
+    got, want = fn(), plain()
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and torch.equal(g, w)
+    assert launch_cost.max_abs_err(got, want) == 0.0
+    assert [k.launches for k in wrappers] == launches
     assert launch_cost.kernel_cases(repo, torch, {"probes"},
                                     device="cpu") == []
 

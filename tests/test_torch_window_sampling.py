@@ -13,7 +13,8 @@ same inputs (made with numpy from a seed):
     for a sample inside the widened 'pallas_dma' window (Kx) but outside K;
   * the plain versions of the two window kernels against JAX's Pallas
     kernels (interpret mode off the TPU) on identical operands, at the
-    bfloat16 class;
+    bfloat16 class, and against each other: B5's on a padded map equals
+    B4's on the tiles cut from it at the same origins;
   * CPU calls launch no kernel.
 """
 
@@ -267,6 +268,37 @@ def test_window_dma_plain_matches_jax_kernel():
     assert got.dtype == torch.bfloat16 and got.shape == (nrows, H * D)
     assert np.abs(got.float().numpy() - want).max() < (
         BF16_CLASS * np.abs(want).max())
+
+
+@pytest.mark.parametrize("K,Kx", [(8, 8), (16, 16), (6, 8)])
+def test_window_dma_plain_equals_block_plain_on_cut_tiles(K, Kx):
+    """B5's plain version on a padded map equals B4's on the (K, K) tiles
+    cut from the map at the same origins, where every point's stencil keeps
+    to the K columns both windows share (float32, 1e-6)."""
+    nrows, block_rows, views, hp, wp = 48, 16, 3, 20, 40
+    rng = np.random.RandomState(K + Kx)
+    rel = np.concatenate([
+        rng.uniform(-2.0, K + 1.0, (nrows, H, P)),
+        rng.uniform(-2.0, K - 1.0, (nrows, H, P)),
+        rng.rand(nrows, H, P)], axis=-1).astype(np.float32)
+    rel = torch.from_numpy(rel.reshape(nrows, H * 3 * P))
+    nblocks = nrows // block_rows
+    pmap = torch.from_numpy(rng.randn(views, hp, wp, H * D).astype(
+        np.float32))
+    origins = np.stack([rng.randint(0, views, nblocks),
+                        rng.randint(0, hp - K + 1, nblocks),
+                        8 * rng.randint(0, (wp - Kx) // 8 + 1, nblocks)],
+                       -1).astype(np.int32)
+    tiles = torch.stack([pmap[v, y0:y0 + K, x0:x0 + K].reshape(K * K, H * D)
+                         for v, y0, x0 in origins])
+    sizes = dict(K=K, H=H, P=P, D=D, block_rows=block_rows)
+    got = window_dma.window_block_dma_plain(
+        pmap, rel, torch.from_numpy(origins), Kx=Kx, **sizes)
+    want = window_block.window_block_matmul_plain(
+        tiles, rel, torch.arange(nblocks, dtype=torch.int32), **sizes)
+    assert got.shape == want.shape == (nrows, H * D)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6)
 
 
 def test_cpu_calls_launch_no_kernel():
