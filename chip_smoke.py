@@ -76,7 +76,23 @@ exits non-zero:
      call;
  15. the ported probes (mvgformer_tpu_torch/tools/probes/), each main once
      at 3 timed runs, with the probe kernels' counts set to 0 before and
-     read after; their results go to build/probes.jsonl.
+     read after; their results go to build/probes.jsonl;
+ 16. cli_train: the port's train CLI (mvgformer_tpu_torch.run.train.main)
+     on configs/synthetic_ap_ablation.yaml at its full width, 3 steps on 8
+     frames in a temporary OUTPUT_DIR under build/: finite losses, 24 / 24
+     / 12 training-kernel launches per step, B1 once per layer per eval
+     batch, the logged eval of epoch 0, the checkpoint read back with
+     weights_only=True; steps/s, the Prefetcher's wait share, peak memory;
+ 17. cli_validate: the port's validate CLI (mvgformer_tpu_torch.run.
+     validate.main) on that checkpoint, its first frame bit for bit
+     against make_eval_step on the checkpoint's weights; then on
+     configs/panoptic/knn5-lr4-q1024.yaml at full width with synthetic
+     frames, through the gather and through 'pallas_dma': frames/s of the
+     CLI's loop, the Prefetcher's wait share, B1 / B5 launches per frame,
+     the escaped mass; and the Prefetcher's placed batches against
+     synchronous copies, bit for bit. Each CLI run sets the kernel counts
+     to 0 before it and reads them after; the kernel rows carry them as
+     `cli_launches`.
 
 Phase 10 also holds F.embedding_bag, the library call of B3's function,
 against B3's plain versions and times it. The models, batches and window
@@ -97,8 +113,10 @@ import contextlib
 import importlib
 import json
 import math
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -146,6 +164,19 @@ PROBES = ("probe_pallas_gather", "probe_pallas_gather2",
           "probe_mosaic_gather_forms", "probe_onehot_parts",
           "probe_sorted_gather_parts", "probe_table_kernel_forms")
 PROBE_RUNS = ("--runs", "3", "--warmup", "1")
+# the CLI phases: the train CLI on the from-scratch ablation config, the
+# validate CLI on it and at the flagship width with synthetic frames
+ABLATION_CFG = REPO / "configs" / "synthetic_ap_ablation.yaml"
+FLAGSHIP_CFG = REPO / "configs" / "panoptic" / "knn5-lr4-q1024.yaml"
+CLI_TRAIN_ARGS = ("--max_steps", "3", "DATASET.MAX_DATA_NUM=8")
+FLAGSHIP_VALIDATE = ("DATASET.TEST_DATASET=synthetic",
+                     "DATASET.MAX_DATA_NUM=8",
+                     "DECODER.inference_topk_queries=64",
+                     "DECODER.inference_point_topm=4",
+                     "DECODER.triangulation_method=jacobi",
+                     "PARALLEL.COMPUTE_DTYPE=bfloat16")
+WINDOWED_VALIDATE = ("DECODER.layer1_windowed_sampling=true",
+                     "DECODER.layer1_window_impl=pallas_dma")
 # launch_cost's kernel sets timed against the parent (--parent)
 PARENT_KERNELS = "deform,window_block,window_dma,table_build"
 NO_LIBRARY = {
@@ -1373,6 +1404,248 @@ def run_probes(card):
     return launches
 
 
+@contextlib.contextmanager
+def kept_signal_handlers():
+    """The train CLI's PreemptionGuard installs SIGTERM and SIGINT
+    handlers; put this process's back afterwards."""
+    saved = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        yield
+    finally:
+        for sig, handler in saved.items():
+            signal.signal(sig, handler)
+
+
+def cli_log(out_dir, cfg_path, phase_name):
+    """The text of the CLI's log files for `cfg_path` under `out_dir`."""
+    stem = Path(cfg_path).stem
+    logs = sorted(Path(out_dir).glob(f"*/{stem}/*_{phase_name}.log"))
+    if not logs:
+        fail(f"no {phase_name} log of {stem} under {out_dir}")
+    return "".join(p.read_text() for p in logs)
+
+
+def count_kernels():
+    """Every kernel count of the serving and training paths set to 0."""
+    for fn in ALL_KERNELS:
+        fn.launches = 0
+
+
+def cli_train(card, out_dir):
+    """Phase 16 (cli_train): the port's train CLI,
+    `mvgformer_tpu_torch.run.train.main`, on
+    configs/synthetic_ap_ablation.yaml at its full width (q 1024, 4
+    layers, 5 views at 480x256, d_model 128, 8 heads x 8 points x 3
+    levels, bf16, TRAIN_BACKBONE, TRI_GRAD_CLIP, SKIP_NONFINITE, Jacobi,
+    clamp_refs_to_space; dropout 0.1 and remat by default) with
+    CLI_TRAIN_ARGS (3 steps; 8 frames, cut for time) in a temporary
+    OUTPUT_DIR. Every kernel count is set to 0 first. Checks each step's
+    losses finite, B2 / B3 forward / B3 backward at 24 / 24 / 12 launches
+    per step, B1 once per layer per eval batch and nothing else, `eval
+    epoch 0` and its metrics in the log, and the checkpoint read back
+    with weights_only=True. Returns the CLI's result, the counts and the
+    config."""
+    from mvgformer_tpu_torch.config import load_config
+    from mvgformer_tpu_torch.run import train as train_cli
+
+    args = ["--cfg", str(ABLATION_CFG), *CLI_TRAIN_ARGS,
+            f"OUTPUT_DIR={out_dir}"]
+    cfg = load_config(str(ABLATION_CFG), [a for a in args if "=" in a])
+    layers, L = cfg.DECODER.num_decoder_layers, len(SPATIAL_SHAPES)
+    remat = 2 if cfg.PARALLEL.REMAT_DECODER else 1
+    eval_batches = math.ceil(cfg.DATASET.MAX_DATA_NUM / cfg.TEST.BATCH_SIZE)
+    per_step = {table_build.build_corner_table: remat * L * layers,
+                table_gather.gather_reduce_forward: remat * L * layers,
+                table_gather.gather_reduce_backward: L * layers}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    count_kernels()
+    t0 = time.perf_counter()
+    with kept_signal_handlers():
+        result = train_cli.main(args)
+    seconds = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in ALL_KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = result["steps"]
+    if steps != 3:
+        fail(f"the train CLI took {steps} steps, expected 3")
+    bad = [(i, k) for i, losses in enumerate(result["step_losses"])
+           for k, v in losses.items() if not math.isfinite(v)]
+    if bad:
+        fail(f"non-finite losses in the train CLI's steps: {bad}")
+    want = {fn: n * steps for fn, n in per_step.items()}
+    want[deform_attn.deform_sample] = layers * eval_batches
+    for fn in ALL_KERNELS:
+        if fn.launches != want.get(fn, 0):
+            fail(f"{fn.launches} launches of {fn.__name__} in the train "
+                 f"CLI, expected {want.get(fn, 0)}")
+    log = cli_log(out_dir, ABLATION_CFG, "train")
+    if "eval epoch 0 thr" not in log or "mpjpe" not in log:
+        fail("the train CLI logged no eval of epoch 0 with its metrics")
+    ckpt = Path(result["ckpt_dir"]) / "0.pt"
+    payload = torch.load(ckpt, weights_only=True)
+    if payload["step"] != steps or set(payload) != {
+            "model", "opt_state", "step", "meta"}:
+        fail(f"the checkpoint {ckpt} does not hold the trained state")
+    step_s = result["step_s"]
+    ev = result["evals"][0]
+    phase("cli_train", cli="mvgformer_tpu_torch.run.train",
+          cfg=str(ABLATION_CFG.relative_to(REPO)), args=list(CLI_TRAIN_ARGS),
+          steps=steps, step_s=step_s,
+          steps_per_s=(steps - 1) / sum(step_s[1:]),
+          steps_per_s_with_first=steps / sum(step_s),
+          train_loop_s=result["train_loop_s"],
+          prefetch_wait_s=result["train_wait_s"],
+          prefetch_wait_share=result["train_wait_s"]
+          / result["train_loop_s"],
+          peak_mem_gib=peak, last_losses=result["step_losses"][-1],
+          eval_frames=ev["frames"], eval_loop_s=ev["loop_s"],
+          eval_metrics=ev["metrics"], kernel_launches=launches,
+          launches_per_step={fn.__name__: n for fn, n in per_step.items()},
+          checkpoint=str(ckpt.relative_to(out_dir)), seconds=seconds,
+          card=card)
+    return result, launches, cfg
+
+
+def check_placed_batches(card, dataset):
+    """Phase 17c: the Prefetcher's placed batches (DevicePlacer: pinned
+    memory, non_blocking copies on its own stream) against synchronous
+    .to("cuda") copies of the same CPU batches, bit for bit, with the
+    consumer's stream kept busy while the copies run."""
+    from mvgformer_tpu_torch.data.meta import map_tensors
+    from mvgformer_tpu_torch.data.prefetch import DevicePlacer
+
+    t0 = time.perf_counter()
+    host = list(dataset.batches(2, shuffle=False, drop_last=False))
+    compared = 0
+    for idx, placed in DevicePlacer("cuda").prefetch(iter(host)):
+        busy = torch.randn(4096, 4096, device="cuda")
+        for _ in range(10):
+            busy = busy @ busy / 4096.0
+        want = host[[i for i, _ in host].index(idx)][1].to("cuda")
+        got_t, want_t = [], []
+        map_tensors(placed, got_t.append)
+        map_tensors(want, want_t.append)
+        if len(got_t) != len(want_t) or not all(
+                g.device == w.device and torch.equal(g, w)
+                for g, w in zip(got_t, want_t)):
+            fail(f"the Prefetcher's batch {idx} differs from a synchronous "
+                 f"copy")
+        compared += len(got_t)
+    phase("cli_prefetch_vs_sync_copy", batches=len(host), tensors=compared,
+          bytes=sum(t.numel() * t.element_size() for _, b in host
+                    for t in [b.views]),
+          seconds=time.perf_counter() - t0, card=card)
+
+
+def cli_validate(card, ckpt_dir, out_dir):
+    """Phase 17 (cli_validate): the port's validate CLI,
+    `mvgformer_tpu_torch.run.validate.main`, (a) on
+    configs/synthetic_ap_ablation.yaml with the cli_train checkpoint and
+    --save_preds, whose first frame's preds must equal, bit for bit,
+    core.infer.make_eval_step run here on the weights load_params_checkpoint
+    returns, on the CLI's first batch; (b) on
+    configs/panoptic/knn5-lr4-q1024.yaml at its full width with random
+    weights (TRAIN.SEED) and FLAGSHIP_VALIDATE (synthetic frames, 8 of
+    them, top-64, point-top-4, Jacobi, bf16), once through the gather and
+    once with the windowed layer 1 through 'pallas_dma' (layer1_offset_clamp
+    unset, as the serve_windowed phase): frames/s of the CLI's loop, the
+    Prefetcher's wait share, B1 / B5 launches per frame and the escaped
+    mass; (c) `check_placed_batches`. Each run sets every kernel count to
+    0 first. Returns the counts of each run."""
+    from mvgformer_tpu_torch.config import load_config
+    from mvgformer_tpu_torch.core.infer import make_eval_step
+    from mvgformer_tpu_torch.data.datasets import get_dataset
+    from mvgformer_tpu_torch.models.mvgformer import MVGFormer
+    from mvgformer_tpu_torch.run import validate as validate_cli
+    from mvgformer_tpu_torch.utils.checkpoint import load_params_checkpoint
+
+    runs = {}
+    # (a) the checkpoint through the CLI and through make_eval_step
+    preds_file = Path(out_dir) / "preds.npy"
+    overrides = ["DATASET.MAX_DATA_NUM=8", f"OUTPUT_DIR={out_dir}"]
+    count_kernels()
+    t0 = time.perf_counter()
+    res = validate_cli.main(["--cfg", str(ABLATION_CFG), "--model_path",
+                             str(ckpt_dir), "--save_preds", str(preds_file),
+                             *overrides])
+    seconds = time.perf_counter() - t0
+    runs["checkpoint"] = {fn.__name__: fn.launches for fn in ALL_KERNELS}
+    cfg = load_config(str(ABLATION_CFG), overrides)
+    thr = cfg.DECODER.inference_conf_thr[0]
+    saved = np.load(Path(out_dir) / f"preds-{thr}.npy")
+    model = MVGFormer(cfg, generator=torch.Generator().manual_seed(
+        cfg.TRAIN.SEED))
+    model.load_state_dict(load_params_checkpoint(str(ckpt_dir))[0])
+    dataset = get_dataset(cfg, cfg.DATASET.TEST_SUBSET, is_train=False)
+    first = dataset.load_batch(list(range(cfg.TEST.BATCH_SIZE))).to("cuda")
+    pred = make_eval_step(cfg, model, thr)(first)[0].float().cpu().numpy()
+    equal = bool(np.array_equal(pred, saved[0]))
+    phase("cli_validate", run="checkpoint",
+          cli="mvgformer_tpu_torch.run.validate",
+          cfg=str(ABLATION_CFG.relative_to(REPO)), frames=len(saved),
+          first_frame_bit_equal_to_make_eval_step=equal,
+          max_abs_diff=float(np.abs(pred - saved[0]).max()),
+          metrics=res[thr]["metrics"], kernel_launches=runs["checkpoint"],
+          seconds=seconds, card=card)
+    if not equal:
+        fail("the validate CLI's first frame differs from make_eval_step "
+             "on the checkpoint's weights")
+    del model, first
+    torch.cuda.empty_cache()
+
+    # (b) the flagship width, through the gather and windowed
+    fcfg = load_config(str(FLAGSHIP_CFG), list(FLAGSHIP_VALIDATE))
+    layers, L = fcfg.DECODER.num_decoder_layers, len(SPATIAL_SHAPES)
+    batches = math.ceil(fcfg.DATASET.MAX_DATA_NUM / fcfg.TEST.BATCH_SIZE)
+    for impl, extra in ((None, ()), ("pallas_dma", WINDOWED_VALIDATE)):
+        name = impl or "gather"
+        count_kernels()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = validate_cli.main(["--cfg", str(FLAGSHIP_CFG),
+                                 *FLAGSHIP_VALIDATE, *extra,
+                                 f"OUTPUT_DIR={out_dir}"])
+        seconds = time.perf_counter() - t0
+        runs[name] = {fn.__name__: fn.launches for fn in ALL_KERNELS}
+        loop = res[thr]["loop"]
+        want = {deform_attn.deform_sample: (layers - (impl is not None))
+                * batches}
+        if impl is not None:
+            want[IMPL_KERNEL[impl]] = L * batches
+        for fn in ALL_KERNELS:
+            if fn.launches != want.get(fn, 0):
+                fail(f"{fn.launches} launches of {fn.__name__} in the "
+                     f"validate CLI ({name}), expected {want.get(fn, 0)}")
+        frames = loop["frames"]
+        escaped = loop["escaped_mass"]
+        phase("cli_validate", run=name, cli="mvgformer_tpu_torch.run.validate",
+              cfg=str(FLAGSHIP_CFG.relative_to(REPO)),
+              args=list(FLAGSHIP_VALIDATE) + list(extra), frames=frames,
+              batch=fcfg.TEST.BATCH_SIZE, loop_s=loop["loop_s"],
+              frames_per_s=frames / loop["loop_s"],
+              prefetch_wait_s=loop["wait_s"],
+              prefetch_wait_share=loop["wait_s"] / loop["loop_s"],
+              launches_per_frame={fn.__name__: fn.launches / frames
+                                  for fn in want},
+              escaped_mass=escaped,
+              escaped_mass_per_frame=(None if escaped is None
+                                      else escaped / frames),
+              metrics=res[thr]["metrics"],
+              peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+              kernel_launches=runs[name], seconds=seconds, card=card)
+        if escaped is not None and not escaped / frames < 1e-5:
+            fail(f"escaped mass {escaped / frames} per frame at init with "
+                 f"the unclamped plan")
+        torch.cuda.empty_cache()
+
+    # (c) the Prefetcher's copies
+    check_placed_batches(card, get_dataset(fcfg, fcfg.DATASET.TEST_SUBSET,
+                                           is_train=False))
+    return runs
+
+
 def parent_vs_change(card, parent):
     """B1 at B1_SHAPES, B4 and B5 on the K = 28 plan and B2 on the flagship
     value's level views, bfloat16, timed by this checkout's
@@ -1476,6 +1749,21 @@ def main(argv=None):
         if count == 0:
             fail(f"the probes never launched {name}")
 
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="cli-", dir=REPO / "build") \
+            as out_dir:
+        t_cli = time.perf_counter()
+        train_result, cli_train_launches, _ = cli_train(card, out_dir)
+        cli_runs = cli_validate(card, train_result["ckpt_dir"], out_dir)
+        cli_runs["train"] = cli_train_launches
+        phase("cli", seconds=time.perf_counter() - t_cli, card=card)
+    for name in ("deform_sample", "build_corner_table",
+                 "gather_reduce_forward", "gather_reduce_backward",
+                 "window_block_dma"):
+        if not any(run[name] for run in cli_runs.values()):
+            fail(f"the CLIs never launched {name}")
+    torch.cuda.empty_cache()
+
     turns = (parent_vs_change(card, Path(args.parent).resolve())
              if args.parent else {})
     flagship = "bfloat16 NH=40 S=122880 D=32 per level, the 3 flagship " \
@@ -1562,6 +1850,11 @@ def main(argv=None):
             **{k: st[k] for k in ("device_ms", "host_us",
                                   "library_device_ms", "library_host_us")
                if k in st}))
+    serving_training = {fn.__name__ for fn in ALL_KERNELS}
+    for row in kernels:
+        if row["name"] in serving_training:
+            row["cli_launches"] = {run: counts[row["name"]]
+                                   for run, counts in cli_runs.items()}
     phase("ranking", order=ranking(kernels), card=card)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -19,9 +19,14 @@ from mvgformer_tpu_torch.geometry.transforms import (
     get_scale,
 )
 
+# ImageNet normalization of the input images
+IMAGE_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
+IMAGE_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
+
 
 def map_tensors(obj, fn):
-    """Apply `fn` to every tensor field of a dataclass (recursively)."""
+    """Apply `fn` to every tensor field of a dataclass (recursively); a
+    field of None stays None."""
     if obj is None:
         return None
     if isinstance(obj, torch.Tensor):
@@ -63,6 +68,9 @@ class Targets:
     joints_3d_vis: torch.Tensor   # (B, M, J) visibility in {0, 1}
     roots_3d: torch.Tensor        # (B, M, 3)
     num_person: torch.Tensor      # (B,) int32
+    # optional VoxelPose predictions (B, M, J, 5) = xyz + vis + score, as
+    # the JAX package's load_batch fills them (DATASET.ADD_VOXEL_PRED)
+    voxelpose_pred: Optional[torch.Tensor] = None
 
     def to(self, device) -> "Targets":
         return _to(self, device)

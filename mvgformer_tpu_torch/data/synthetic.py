@@ -1,4 +1,5 @@
-"""Synthetic multi-view scenes: a camera ring, posed people, random images.
+"""Synthetic multi-view scenes: a camera ring, posed people, and random
+images or gaussian blobs drawn at the projected joints.
 
 Port of `mvgformer_tpu/data/synthetic.py`, made in numpy from `seed` with
 the same random streams, so the same seed gives the same batch as the JAX
@@ -14,6 +15,12 @@ from mvgformer_tpu_torch.data.meta import (Batch, Targets, ViewData,
                                            build_view_data, pad_targets)
 from mvgformer_tpu_torch.device import resolve_device
 from mvgformer_tpu_torch.geometry.cameras import CameraParams, project_points
+from mvgformer_tpu_torch.geometry.transforms import apply_affine
+
+# a blob's float32 term exp(-d^2 / 18) is 0 beyond 43 px (d^2 / 18 > 103.3),
+# so each blob is evaluated inside a box of this half-width only
+BLOB_SIGMA, BLOB_BOX = 3.0, 48
+CHANNEL_SCALE = np.array([2.0, 1.0, -1.0], dtype=np.float32)
 
 # A canonical standing pose in mm, root (mid-hip, index 2) at the origin,
 # in the Panoptic 15-joint order.
@@ -113,12 +120,50 @@ def make_people(num_people: int, seed: int = 0,
     return np.stack(poses) if poses else np.zeros((0, 15, 3), np.float32)
 
 
+def render_blobs(net_pix: np.ndarray, vis2d: np.ndarray, num_people: int,
+                 H: int, W: int) -> np.ndarray:
+    """(B, V, H, W, 3) float32 views with a gaussian blob (sigma 3 px) at
+    every joint of the first `num_people` slots seen in a view (vis2d > 0),
+    the channels scaled by (2, 1, -1). net_pix (B, V, M, J, 2) network-image
+    pixels. The arithmetic is the JAX package's full-image loop's (float64
+    terms added one by one into a float32 image); each term is evaluated in
+    its blob's box only, beyond which it rounds to 0 in float32."""
+    B, V, M, J = vis2d.shape
+    views = np.zeros((B, V, H, W, 3), dtype=np.float32)
+    for b in range(B):
+        for v in range(V):
+            img = np.zeros((H, W), dtype=np.float32)
+            for m in range(min(num_people, M)):
+                for j in range(J):
+                    if vis2d[b, v, m, j] <= 0:
+                        continue
+                    px, py = net_pix[b, v, m, j]
+                    x0 = max(int(np.floor(px)) - BLOB_BOX, 0)
+                    x1 = min(int(np.floor(px)) + BLOB_BOX + 1, W)
+                    y0 = max(int(np.floor(py)) - BLOB_BOX, 0)
+                    y1 = min(int(np.floor(py)) + BLOB_BOX + 1, H)
+                    if x0 >= x1 or y0 >= y1:
+                        continue
+                    # the full grid's squares, broadcast from a row and a
+                    # column: the same float64 values
+                    dx2 = (np.arange(x0, x1) - px) ** 2
+                    dy2 = (np.arange(y0, y1) - py) ** 2
+                    d2 = dx2[None, :] + dy2[:, None]
+                    img[y0:y1, x0:x1] += np.exp(-d2 / (2 * BLOB_SIGMA ** 2))
+            # x 2, 1, -1 is exact in float32
+            views[b, v] = img[..., None] * CHANNEL_SCALE
+    return views
+
+
 def make_batch(cfg, batch_size: int = 1, seed: int = 0,
                num_people: int = 3, image_size=(1920, 1080),
-               cam_seed=None, device="cuda") -> Batch:
-    """A synthetic Batch at the configured shapes with random images, made
-    in numpy on the host and placed on `device`: the card unless the caller
-    asks for the CPU (raises without a card).
+               render: bool = False, cam_seed=None,
+               device="cuda") -> Batch:
+    """A synthetic Batch at the configured shapes, made in numpy on the
+    host and placed on `device`: the card unless the caller asks for the
+    CPU (raises without a card). The images are random, or with `render`
+    gaussian blobs at the projected joints (`render_blobs`), which a model
+    can learn from.
 
     cam_seed: seed of the camera ring alone (None reuses `seed`); pinning it
     gives every frame one rig, as a capture studio has.
@@ -156,7 +201,13 @@ def make_batch(cfg, batch_size: int = 1, seed: int = 0,
 
     view_data = build_view_data(cams, image_wh, (W, H), joints_vis_2d=vis2d,
                                 max_people=M, num_joints=J)
-    views = rng.randn(batch_size, V, H, W, 3).astype(np.float32) * 0.1
+    if render:
+        net_pix = apply_affine(
+            torch.from_numpy(pix.reshape(batch_size, V, M * J, 2)),
+            view_data.affine).reshape(batch_size, V, M, J, 2).numpy()
+        views = render_blobs(net_pix, vis2d, num_people, H, W)
+    else:
+        views = rng.randn(batch_size, V, H, W, 3).astype(np.float32) * 0.1
     return Batch(views=torch.from_numpy(views), view_data=view_data,
                  targets=targets).to(device)
 
@@ -176,5 +227,7 @@ def batch_from_jax(batch) -> Batch:
         inv_affine=t(vd.inv_affine), joints_vis_2d=t(vd.joints_vis_2d))
     targets = None if tg is None else Targets(
         joints_3d=t(tg.joints_3d), joints_3d_vis=t(tg.joints_3d_vis),
-        roots_3d=t(tg.roots_3d), num_person=t(tg.num_person))
+        roots_3d=t(tg.roots_3d), num_person=t(tg.num_person),
+        voxelpose_pred=(None if tg.voxelpose_pred is None
+                        else t(tg.voxelpose_pred)))
     return Batch(views=t(batch.views), view_data=view_data, targets=targets)

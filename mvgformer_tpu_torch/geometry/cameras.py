@@ -56,6 +56,11 @@ def world_to_camera(x: torch.Tensor, cam: CameraParams) -> torch.Tensor:
     return _rot_apply(cam.R, x - cam.T.transpose(-1, -2))
 
 
+def camera_to_world(x: torch.Tensor, cam: CameraParams) -> torch.Tensor:
+    """(..., N, 3) camera-frame points -> world."""
+    return _rot_apply(cam.R, x, transpose=True) + cam.T.transpose(-1, -2)
+
+
 def _distort(y: torch.Tensor, cam: CameraParams) -> torch.Tensor:
     """Radial + tangential distortion of normalized coords y (..., N, 2).
 

@@ -317,13 +317,22 @@ class DQDecoder(nn.Module):
 
     In training (`train=True`) the top-K, the window plan, the offset clamp
     and point-top-m are off, as in JAX; with `remat` each layer runs under
-    torch.utils.checkpoint and is recomputed in the backward."""
+    torch.utils.checkpoint and is recomputed in the backward.
+
+    ref_clamp_box: an optional (x_lo, y_lo, z_lo, x_hi, y_hi, z_hi) mm box
+    (DECODER.clamp_refs_to_space) into which each layer's reference points
+    are clipped before the next layer takes them. A stabilizer for
+    from-scratch training: early triangulations of near-parallel rays fly
+    to ~1e6 mm and each layer amplifies the previous one's. The layer
+    outputs, and so the loss, keep the raw predictions."""
 
     def __init__(self, num_layers: int, num_joints: int, remat: bool = False,
+                 ref_clamp_box: Optional[Tuple[float, ...]] = None,
                  **layer_kwargs):
         super().__init__()
         self.num_joints = num_joints
         self.remat = remat
+        self.ref_clamp_box = ref_clamp_box
         self.layers = nn.ModuleList(
             DQDecoderLayer(num_joints=num_joints, **layer_kwargs)
             for _ in range(num_layers))
@@ -349,6 +358,10 @@ class DQDecoder(nn.Module):
                                       device=dev).tolist()
         outputs = []
         out, qpos, refs, sel = tgt, query_pos, reference_points, None
+        box = self.ref_clamp_box
+        if box is not None:
+            lo = torch.tensor(box[:3], dtype=torch.float32, device=tgt.device)
+            hi = torch.tensor(box[3:], dtype=torch.float32, device=tgt.device)
         for lid, layer in enumerate(self.layers):
             run = layer
             if train and self.remat:
@@ -378,6 +391,10 @@ class DQDecoder(nn.Module):
                     "class_prob": _scatter_queries(class_prob, sel, Q, 1,
                                                    1),
                 })
+            if box is not None:
+                # bound only the next layer's input; the outputs above keep
+                # the raw predictions
+                refs = torch.clamp(refs, lo, hi)
             if (topk_queries is not None and sel is None and lid == 0
                     and topk_queries < Q):
                 sel = top_indices(class_prob[..., 1], topk_queries)

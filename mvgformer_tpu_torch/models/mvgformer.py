@@ -10,7 +10,12 @@ reference init:
   * reference points on a ceil(sqrt(Q))^2 grid over (x, y) at z = 0.5 of
     the normalized space, plus T-pose offsets;
   * the DQ decoder; per-layer outputs {pred_logits, pred_poses,
-    pred_poses_2d, pred_poses_2d_proj};
+    pred_poses_2d, pred_poses_2d_proj}, their joints reordered by
+    DECODER.convert_joint_format_indices where set (Panoptic's 15 joints
+    to Shelf / Campus's 14);
+  * DECODER.clamp_refs_to_space: each layer's next-layer reference points
+    clipped to the capture space, centre +- 0.75 x size (the outputs keep
+    the raw predictions);
   * the windowed layer-1 serving path (DECODER.layer1_windowed_sampling):
     `build_layer1_window_plan` buckets the static layer-1 centers once per
     rig, and `forward(..., window_plan=plan)` samples layer 1 through the
@@ -96,9 +101,6 @@ def check_supported(cfg: Config) -> None:
         "DECODER.init_self_attention": (dec.init_self_attention, False),
         "DECODER.bayesian_update": (dec.bayesian_update, False),
         "DECODER.share_layer_weights": (dec.share_layer_weights, False),
-        "DECODER.clamp_refs_to_space": (dec.clamp_refs_to_space, False),
-        "DECODER.convert_joint_format_indices": (
-            dec.convert_joint_format_indices, None),
     }
     bad = [f"{k}={got!r}" for k, (got, want) in wanted.items()
            if got != want]
@@ -138,6 +140,13 @@ class MVGFormer(nn.Module):
                                             dec.d_model * 2)
         self.instance_embedding = nn.Embedding(dec.num_instance,
                                                dec.d_model * 2)
+        ref_clamp_box = None
+        if dec.clamp_refs_to_space:
+            # the capture space with 50% slack on the half-extent
+            c = cfg.MULTI_PERSON.SPACE_CENTER
+            s = cfg.MULTI_PERSON.SPACE_SIZE
+            ref_clamp_box = (tuple(c[i] - 0.75 * s[i] for i in range(3))
+                             + tuple(c[i] + 0.75 * s[i] for i in range(3)))
         with torch.no_grad():
             for emb in (self.joint_embedding, self.instance_embedding):
                 nn.init.normal_(emb.weight, 0.0, 1.0, generator=generator)
@@ -145,6 +154,7 @@ class MVGFormer(nn.Module):
             num_layers=dec.num_decoder_layers,
             num_joints=dec.num_keypoints,
             remat=cfg.PARALLEL.REMAT_DECODER,
+            ref_clamp_box=ref_clamp_box,
             d_model=dec.d_model,
             d_ffn=dec.dim_feedforward,
             dropout=dec.dropout,
@@ -233,12 +243,24 @@ class MVGFormer(nn.Module):
             layer1_offset_clamp=dec.layer1_offset_clamp,
             point_topm=dec.inference_point_topm,
             query_mask=query_mask, train=train, generator=generator)
+        cji = dec.convert_joint_format_indices
+        J = self.num_joints
         outs = []
         for lo in layer_outputs:
+            coords, coords_2d = lo["refs"], lo["refs_2d"]
+            coords_2d_proj = lo["projs_2d"]
+            if cji is not None:
+                idx = list(cji)
+                coords = coords.reshape(B, -1, J, 3)[:, :, idx].reshape(
+                    B, -1, 3)
+                coords_2d = coords_2d.reshape(B, V, -1, J, 2)[
+                    :, :, :, idx].reshape(B, V, -1, 2)
+                coords_2d_proj = coords_2d_proj.reshape(B, V, -1, J, 2)[
+                    :, :, :, idx].reshape(B, V, -1, 2)
             outs.append({"pred_logits": inverse_sigmoid(lo["class_prob"]),
-                         "pred_poses": lo["refs"],
-                         "pred_poses_2d": lo["refs_2d"],
-                         "pred_poses_2d_proj": lo["projs_2d"]})
+                         "pred_poses": coords,
+                         "pred_poses_2d": coords_2d,
+                         "pred_poses_2d_proj": coords_2d_proj})
             if "escaped_mass" in lo:
                 outs[-1]["escaped_mass"] = lo["escaped_mass"]
         return outs

@@ -1,9 +1,11 @@
 """The port imports and runs with jax and flax blocked: in a fresh
 interpreter where importing either raises, import every module of
-mvgformer_tpu_torch and run a toy forward and eval step on the CPU, through
-the gather and through each windowed layer-1 impl, and one training step
-(matcher, criterion, corner sampler, optimizer); and, statically, no file
-of the port imports jax, flax or the JAX package."""
+mvgformer_tpu_torch (run/ and runtime/ among them) and run a toy forward
+and eval step on the CPU, through the gather and through each windowed
+layer-1 impl, one training step (matcher, criterion, corner sampler,
+optimizer), and the train and validate CLIs on the synthetic smoke config
+(datasets, prefetch, checkpoint, NMS, evaluation); and, statically, no
+file of the port imports jax, flax or the JAX package."""
 
 import ast
 import os
@@ -19,10 +21,13 @@ SCRIPT = textwrap.dedent("""
     sys.modules["flax"] = None
     import importlib, pkgutil
     import torch
+    torch.set_num_threads(1)  # toy sizes; the suite runs workers in parallel
     import mvgformer_tpu_torch
     for mod in pkgutil.walk_packages(mvgformer_tpu_torch.__path__,
                                      "mvgformer_tpu_torch."):
         importlib.import_module(mod.name)
+    assert {"mvgformer_tpu_torch.run.train", "mvgformer_tpu_torch.run.validate",
+            "mvgformer_tpu_torch.runtime"} <= set(sys.modules)
     from mvgformer_tpu_torch.config import load_config
     from mvgformer_tpu_torch.core.infer import make_eval_step
     from mvgformer_tpu_torch.data.synthetic import make_batch
@@ -61,6 +66,15 @@ SCRIPT = textwrap.dedent("""
     state, metrics = make_train_step(cfg, model, tx)(
         state, batch, torch.Generator().manual_seed(0))
     assert state.step == 1 and metrics["total"].isfinite(), metrics
+    import tempfile
+    from mvgformer_tpu_torch.run import train as train_cli
+    from mvgformer_tpu_torch.run import validate as validate_cli
+    with tempfile.TemporaryDirectory() as out:
+        args = ["--cfg", "configs/synthetic_smoke.yaml", "--device", "cpu",
+                f"OUTPUT_DIR={out}", "DATASET.MAX_DATA_NUM=2"]
+        res = train_cli.main(args + ["--max_steps", "1"])
+        assert res["steps"] == 1, res
+        validate_cli.main(args + ["--model_path", res["ckpt_dir"]])
     jax_side = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "flax", "jaxlib",
                                              "mvgformer_tpu")
