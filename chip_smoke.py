@@ -92,7 +92,31 @@ exits non-zero:
      the escaped mass; and the Prefetcher's placed batches against
      synchronous copies, bit for bit. Each CLI run sets the kernel counts
      to 0 before it and reads them after; the kernel rows carry them as
-     `cli_launches`.
+     `cli_launches`;
+ 18. mvp: configs/panoptic/knn5-lr4-q1024.yaml at its full width as the
+     MvP baseline (TRANSFORMER=multi_view_pose_transformer, camera-ray
+     ProjAttn, cat_proj fusion, query adaptation). 18a: one frame with 64
+     queries through the kernels on the card against the plain path on the
+     CPU, float32 with TF32 off, every layer at the golden classes. 18b:
+     serve in bfloat16, batch 1, 1024 queries: B1 once per layer and frame
+     at its L 3 / P 8 instance and nothing else, frames/s, latency, peak
+     memory. 18c: train in bfloat16, 2 warm-up and 5 timed steps through
+     make_train_step: finite losses, 12 / 12 / 12 B2 / B3 launches per
+     step, non-zero sampler gradients, steps/s, peak memory. 18d:
+     torch.profiler over 2 frames and over 2 steps: the device's idle
+     share and its top ops;
+ 19. dq_options: the DQ model's options at the toy width, one frame and one
+     training step each, card against CPU (attention_embed,
+     init_self_attention, bayesian_update, share_layer_weights,
+     triangulation 'st', init query_adapt_center); then the flagship
+     training config at full width, one warm-up and one timed step each
+     with TRAIN.SAMPLE_CHUNKS 8 and with REMAT_POLICY 'save_sampled'
+     against neither (the port accepts both and runs its one path): the
+     same first-step losses within bfloat16 2e-2, every gradient within
+     2e-2 of its leaf's largest, the plain step's B2 / B3 launches per
+     step, steps/s, peak memory.
+     Each of these paths runs with the kernel counts set to 0 before it;
+     the kernel rows carry the counts as `path_launches`.
 
 Phase 10 also holds F.embedding_bag, the library call of B3's function,
 against B3's plain versions and times it. The models, batches and window
@@ -329,8 +353,9 @@ def cuda_ms(fn, runs=20, warmup=3):
 
 def check_kernel(card):
     """Phase 3: kernel against the plain version on the card. Returns the
-    worst float32 error and, per shape of a served frame (B1_SHAPES,
-    bfloat16), ms, device_ms, plain ms and the compulsory work."""
+    worst float32 error and, per (Lq, P) in bfloat16 (the DQ model's
+    served shapes B1_SHAPES and the MvP baseline's Lq 15360 at P 8), ms,
+    device_ms, plain ms and the compulsory work."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     worst_f32, serving = 0.0, {}
     for Lq, P in ((15360, 4), (15360, 8), (960, 4)):
@@ -368,8 +393,8 @@ def check_kernel(card):
             if vec == 1:
                 fail(f"the flagship shape Lq={Lq} P={P} {dtype} took the "
                      f"generic instance")
-            if (Lq, P) in B1_SHAPES and dtype == torch.bfloat16:
-                serving[Lq] = {
+            if dtype == torch.bfloat16:
+                serving[(Lq, P)] = {
                     "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
                     "work": bounds.deform_sample(value, SPATIAL_SHAPES, loc,
                                                  aw)}
@@ -945,44 +970,51 @@ def toy_train_cfg():
     return cfg
 
 
-def check_train_step(card):
-    """Phase 12: one training step of the toy config, kernels on the card
-    against the plain path on the CPU, float32 with TF32 off: loss terms
-    at rtol 1e-4, every gradient within 1e-3 of its leaf's largest."""
+def card_vs_cpu_train_step(cfg, name):
+    """One training step of `cfg` through the kernels on the card and
+    through the plain path on the CPU, the same weights and batch: the
+    worst relative loss error, the worst gradient error relative to its
+    leaf's largest (and that leaf), and the card's kernel launches."""
     from mvgformer_tpu_torch.core.train import (create_train_state,
                                                 make_train_step)
     from mvgformer_tpu_torch.data.synthetic import make_batch
-    from mvgformer_tpu_torch.models.mvgformer import MVGFormer
+    from mvgformer_tpu_torch.models import build_model
 
-    cfg = toy_train_cfg()
-    runs = []
-    for device in ("cuda", "cpu"):
-        runs.append((MVGFormer(cfg, device=device,
-                               generator=torch.Generator().manual_seed(SEED)),
-                     make_batch(cfg, batch_size=1, seed=SEED, num_people=2,
-                                device=device)))
-    before = [fn.launches for fn in TRAIN_KERNELS]
     results = []
-    for model, b in runs:
+    for device in ("cuda", "cpu"):
+        model = build_model(cfg, device=device,
+                            generator=torch.Generator().manual_seed(SEED))
+        batch = make_batch(cfg, batch_size=1, seed=SEED, num_people=2,
+                           device=device)
         state, tx = create_train_state(cfg, model)
-        _, metrics = make_train_step(cfg, model, tx)(state, b)
+        (_, metrics), counts = count_launches(
+            lambda: make_train_step(cfg, model, tx)(state, batch))
         results.append((metrics, {k: p.grad for k, p in
-                                  model.named_parameters()}))
-    (m_gpu, g_gpu), (m_cpu, g_cpu) = results
-    if [fn.launches for fn in TRAIN_KERNELS] == before:
-        fail("the card's training step launched no training kernel")
+                                  model.named_parameters()}, counts))
+    (m_gpu, g_gpu, counts), (m_cpu, g_cpu, _) = results
+    if not all(counts[fn.__name__] for fn in TRAIN_KERNELS):
+        fail(f"{name}: the card's training step launched {counts}")
     loss_err = max(abs(m_gpu[k].item() - m_cpu[k].item())
                    / max(abs(m_cpu[k].item()), 1e-6) for k in m_cpu)
     grad_err, worst = 0.0, None
     for k, g in g_cpu.items():
+        if (g is None) != (g_gpu[k] is None):
+            fail(f"{name}: {k} has a gradient on one device only")
         if g is None:
-            if g_gpu[k] is not None:
-                fail(f"{k} has a gradient on the card only")
             continue
         rel = ((g_gpu[k].cpu() - g).abs().max()
                / max(g.abs().max().item(), 1e-12)).item()
         if rel > grad_err:
             grad_err, worst = rel, k
+    return loss_err, grad_err, worst, counts
+
+
+def check_train_step(card):
+    """Phase 12: one training step of the toy config, kernels on the card
+    against the plain path on the CPU, float32 with TF32 off: loss terms
+    at rtol 1e-4, every gradient within 1e-3 of its leaf's largest."""
+    loss_err, grad_err, worst, _ = card_vs_cpu_train_step(toy_train_cfg(),
+                                                          "toy")
     ok = loss_err <= 1e-4 and grad_err <= 1e-3
     phase("train_step_card_vs_cpu", dtype="float32",
           loss_max_rel_err=loss_err, grad_max_rel_err=grad_err,
@@ -1646,6 +1678,437 @@ def cli_validate(card, ckpt_dir, out_dir):
     return runs
 
 
+# phases 18-19: the MvP baseline at the flagship width, and the DQ model's
+# options; B1's MvP shape (every layer dense at P 8)
+MVP_OVERRIDES = ("TRANSFORMER=multi_view_pose_transformer",
+                 "DECODER.projattn_posembed_mode=use_rayconv")
+MVP_LQ, MVP_P = 1024 * 15, 8
+MVP_SLICE_QUERIES = 64
+PROFILE_STEPS = 2
+DQ_OPTIONS = {
+    "attention_embed": {"feature_update_method": "attention_embed"},
+    "init_self_attention": {"init_self_attention": True},
+    "bayesian_update": {"bayesian_update": True},
+    "share_layer_weights": {"share_layer_weights": True},
+    "st": {"triangulation_method": "st"},
+    "query_adapt_center": {"init_ref_method": "query_adapt_center"},
+}
+B1_KERNEL = "deform_sample_fwd_kernel"
+
+
+def mvp_cfg(dtype: str, **decoder):
+    """configs/panoptic/knn5-lr4-q1024.yaml at its full width as the MvP
+    baseline with camera-ray ProjAttn (fuse_view_feats cat_proj and
+    query_adaptation on are the config's defaults)."""
+    from mvgformer_tpu_torch.config import load_config
+
+    cfg = load_config(str(FLAGSHIP_CFG), list(MVP_OVERRIDES)
+                      + [f"PARALLEL.COMPUTE_DTYPE={dtype}"])
+    for key, val in decoder.items():
+        setattr(cfg.DECODER, key, val)
+    return cfg
+
+
+def compare_layers(name, got, want, card, **fields):
+    """Every layer's logits and 3D of two runs at the golden tolerance
+    classes (logits rtol 1e-3 / atol 2e-3, 3D p99 < 2 mm, max < 6 mm)."""
+    worst = {"logits_max_abs_err": 0.0, "poses_mm_p99": 0.0,
+             "poses_mm_max": 0.0}
+    ok = True
+    for g, w in zip(got, want):
+        lg = g["pred_logits"].float().cpu().numpy()
+        lw = w["pred_logits"].float().cpu().numpy()
+        err3d = np.abs(g["pred_poses"].float().cpu().numpy()
+                       - w["pred_poses"].float().cpu().numpy())
+        p99, mx = float(np.percentile(err3d, 99)), float(err3d.max())
+        worst["logits_max_abs_err"] = max(worst["logits_max_abs_err"],
+                                          float(np.abs(lg - lw).max()))
+        worst["poses_mm_p99"] = max(worst["poses_mm_p99"], p99)
+        worst["poses_mm_max"] = max(worst["poses_mm_max"], mx)
+        ok &= bool(np.allclose(lg, lw, rtol=1e-3, atol=2e-3)
+                   and p99 < 2.0 and mx < 6.0 and np.isfinite(lg).all()
+                   and np.isfinite(err3d).all())
+    phase(name, layers=len(got), ok=ok, card=card, **worst, **fields)
+    if not ok or len(got) != len(want):
+        fail(f"{name}: the two runs disagree")
+
+
+def count_launches(fn):
+    """Run fn() with every kernel count set to 0; returns its result and
+    the counts after it."""
+    for k in ALL_KERNELS:
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k.__name__: k.launches for k in ALL_KERNELS}
+
+
+def profile_window(fn, runs):
+    """torch.profiler over `runs` calls of fn(): the device's busy time
+    (the union of its kernel, copy and set intervals) and idle share of
+    the window's host wall time, the top device ops by device time per
+    call, and the device ms per launch of B1's kernel. The profiler's own
+    host work lengthens the window, so the idle share is an upper
+    bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + (end - start) / 1e3, n + 1)
+    if not spans:
+        fail("the profiler saw no device time")
+    busy_us, last = 0.0, None
+    for start, end in sorted(spans):
+        if last is None or start > last:
+            busy_us += end - start
+            last = end
+        elif end > last:
+            busy_us += end - last
+            last = end
+    if busy_us / 1e6 > wall:
+        fail(f"the profiler counted {busy_us / 1e6} s of device time in a "
+             f"{wall} s window")
+    ops = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    b1 = [v for k, v in by_name.items() if B1_KERNEL in k]
+    return {"runs": runs, "wall_s": wall, "device_busy_s": busy_us / 1e6,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "device_launches_per_run": len(spans) / runs,
+            "top_device_ops": [{"op": k[:90], "ms_per_run": ms / runs,
+                                "launches_per_run": n / runs}
+                               for k, (ms, n) in ops[:8]],
+            "b1_device_ms_per_launch": (sum(ms for ms, _ in b1)
+                                        / sum(n for _, n in b1)
+                                        if b1 else None)}
+
+
+@contextlib.contextmanager
+def record_b1_instances(into):
+    """While active, ProjAttn's calls of B1 record (L, P, dtype, elements
+    per thread) into `into` and call through."""
+    from mvgformer_tpu_torch.ops import projattn
+
+    inner = projattn.deform_sample
+
+    def recording(value, shapes, loc, aw):
+        out = inner(value, shapes, loc, aw)
+        into.append((loc.shape[3], loc.shape[4], str(value.dtype),
+                     _build.vector_width(value.shape[3],
+                                         value.element_size(), value, loc,
+                                         aw, out)))
+        return out
+
+    projattn.deform_sample = recording
+    try:
+        yield
+    finally:
+        projattn.deform_sample = inner
+
+
+def check_mvp_slice(card):
+    """Phase 18a: one frame of the MvP baseline at the flagship width with
+    64 queries, float32 (TF32 off), through the kernels on the card and
+    through the plain path on the CPU: every layer at the golden
+    classes."""
+    from mvgformer_tpu_torch.data.synthetic import make_batch
+    from mvgformer_tpu_torch.models import build_model
+
+    cfg = mvp_cfg("float32", num_instance=MVP_SLICE_QUERIES)
+    outs, times = [], []
+    for device in ("cuda", "cpu"):
+        model = build_model(cfg, device=device,
+                            generator=torch.Generator().manual_seed(SEED))
+        batch = make_batch(cfg, batch_size=1, seed=SEED, num_people=3,
+                           device=device)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            if device == "cuda":
+                out, counts = count_launches(lambda: model(batch))
+            else:
+                out = model(batch)
+        times.append(time.perf_counter() - t0)
+        outs.append(out)
+        del model
+    layers = cfg.DECODER.num_decoder_layers
+    if counts != {**{k.__name__: 0 for k in ALL_KERNELS},
+                  "deform_sample": layers}:
+        fail(f"the MvP forward on the card launched {counts}")
+    compare_layers("mvp_slice_kernel_vs_plain", outs[0], outs[1], card,
+                   queries=MVP_SLICE_QUERIES, dtype="float32",
+                   b1_launches=counts["deform_sample"], gpu_s=times[0],
+                   cpu_s=times[1])
+    torch.cuda.empty_cache()
+
+
+def mvp_serve(card):
+    """Phase 18b: serve the MvP baseline in bfloat16, batch 1, 1024
+    queries, distinct synthetic frames of one rig through make_eval_step:
+    B1 once per layer and frame at its L 3 / P 8 instance, nothing else;
+    frames/s, latency, peak memory; then a profiler window over 2 frames
+    (device idle share, top ops, B1's device ms per launch)."""
+    from mvgformer_tpu_torch.core.infer import make_eval_step
+    from mvgformer_tpu_torch.data.synthetic import make_batch
+    from mvgformer_tpu_torch.models import build_model
+
+    cfg = mvp_cfg("bfloat16")
+    Q, J = cfg.DECODER.num_instance, cfg.DECODER.num_keypoints
+    layers = cfg.DECODER.num_decoder_layers
+    model = build_model(cfg, generator=torch.Generator().manual_seed(SEED))
+    frames = [make_batch(cfg, batch_size=1, seed=SEED + 1 + i, num_people=3,
+                         cam_seed=SEED) for i in range(SERVE_FRAMES)]
+    step = make_eval_step(cfg, model, THRESHOLD)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    instances, times = [], []
+
+    def run():
+        with record_b1_instances(instances):
+            for i, frame in enumerate(frames):
+                t0 = time.perf_counter()
+                pred = step(frame)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                if tuple(pred.shape) != (1, Q, J, 5):
+                    fail(f"MvP pred shape {tuple(pred.shape)}")
+                if not torch.isfinite(pred).all():
+                    fail(f"non-finite MvP pred in frame {i}")
+
+    _, launches = count_launches(run)
+    want = {**{k.__name__: 0 for k in ALL_KERNELS},
+            "deform_sample": layers * len(frames)}
+    if launches != want:
+        fail(f"MvP serving launched {launches}, expected {want}")
+    if set(instances) != {(3, MVP_P, "torch.bfloat16", 8)}:
+        fail(f"MvP serving took B1 instances {set(instances)}, expected "
+             f"L 3 / P {MVP_P} bfloat16 with 8 elements per thread")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = profile_window(lambda: step(frames[0]), PROFILE_STEPS)
+    steady = times[SERVE_WARMUP:]
+    phase("mvp_serve", frames=len(frames), batch=1, dtype="bfloat16",
+          queries=Q, frames_per_s=len(steady) / sum(steady),
+          latency_ms_median=1e3 * float(np.median(steady)),
+          first_frame_s=times[0], peak_mem_gib=peak,
+          b1_launches_per_frame=launches["deform_sample"] / len(frames),
+          b1_instance={"L": 3, "P": MVP_P, "dtype": "bfloat16",
+                       "elements_per_thread": 8},
+          profile=prof, card=card)
+    del model, frames
+    torch.cuda.empty_cache()
+    return launches, prof
+
+
+def mvp_train(card):
+    """Phases 18c and 18d: train the MvP baseline in bfloat16, batch 1, 2
+    warm-up and 5 timed steps through make_train_step (no remat, as JAX's
+    MvP model): finite losses, B2 / B3 launches per step (4 layers x 3
+    levels each, no B1), non-zero sampler gradients, steps/s, peak memory;
+    then a profiler window over 2 steps."""
+    from mvgformer_tpu_torch.core.train import (create_train_state,
+                                                make_train_step)
+    from mvgformer_tpu_torch.data.synthetic import make_batch
+    from mvgformer_tpu_torch.models import build_model
+
+    cfg = mvp_cfg("bfloat16")
+    layers = cfg.DECODER.num_decoder_layers
+    L = len(SPATIAL_SHAPES)
+    model = build_model(cfg, generator=torch.Generator().manual_seed(SEED))
+    batches = [make_batch(cfg, batch_size=1, seed=SEED + 100 + i,
+                          num_people=3, cam_seed=SEED)
+               for i in range(TRAIN_STEPS)]
+    state, tx = create_train_state(cfg, model)
+    step = make_train_step(cfg, model, tx)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics = [], None
+
+    def run():
+        nonlocal state, metrics
+        for i, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, gen)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            bad = [k for k, v in metrics.items() if not torch.isfinite(v)]
+            if bad:
+                fail(f"non-finite {bad} in MvP training step {i}")
+
+    _, launches = count_launches(run)
+    per_step = {"build_corner_table": L * layers,
+                "gather_reduce_forward": L * layers,
+                "gather_reduce_backward": L * layers}
+    want = {**{k.__name__: 0 for k in ALL_KERNELS},
+            **{k: n * len(batches) for k, n in per_step.items()}}
+    if launches != want:
+        fail(f"MvP training launched {launches}, expected {want}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    grads = {}
+    for i, layer in enumerate(model.decoder.layers):
+        for lin in ("sampling_offsets", "attention_weights", "rayconv",
+                    "output_proj"):
+            g = layer.proj_attn.get_submodule(lin).weight.grad
+            grads[f"layer{i}.{lin}"] = (float("nan") if g is None
+                                        else g.abs().max().item())
+    dead = [k for k, v in grads.items() if not (math.isfinite(v) and v > 0)]
+    if dead:
+        fail(f"no finite non-zero MvP gradient reached {dead}")
+    steady = times[TRAIN_WARMUP:]
+    phase("mvp_train", steps=len(times), batch=1, dtype="bfloat16",
+          remat=False, dropout=cfg.DECODER.dropout,
+          steps_per_s=len(steady) / sum(steady), first_step_s=times[0],
+          step_s=times, peak_mem_gib=peak,
+          losses={k: v.item() for k, v in metrics.items()},
+          launches_per_step=per_step, sampler_grad_max_abs=grads,
+          card=card)
+    prof = profile_window(lambda: step(state, batches[0], gen),
+                          PROFILE_STEPS)
+    phase("mvp_train_profile", **prof, card=card)
+    del model, state, batches
+    torch.cuda.empty_cache()
+    return launches, prof
+
+
+def check_option(name, cfg, card):
+    """Phase 19a for one option: one serving frame and one training step
+    of `cfg`, card against CPU, float32 (TF32 off): every layer at the
+    golden classes, the loss terms at rtol 1e-4, every gradient within
+    1e-3 of its leaf's largest. Returns the step's launches."""
+    from mvgformer_tpu_torch.data.synthetic import make_batch
+    from mvgformer_tpu_torch.models import build_model
+
+    outs = []
+    for device in ("cuda", "cpu"):
+        model = build_model(cfg, device=device,
+                            generator=torch.Generator().manual_seed(SEED))
+        batch = make_batch(cfg, batch_size=1, seed=SEED, num_people=2,
+                           device=device)
+        with torch.inference_mode():
+            outs.append(model(batch, threshold=THRESHOLD))
+    compare_layers("dq_option_forward_card_vs_cpu", outs[0], outs[1], card,
+                   option=name)
+    loss_err, grad_err, worst, counts = card_vs_cpu_train_step(cfg, name)
+    ok = loss_err <= 1e-4 and grad_err <= 1e-3
+    phase("dq_option_train_step_card_vs_cpu", option=name,
+          loss_max_rel_err=loss_err, grad_max_rel_err=grad_err,
+          worst_grad=worst, launches=counts, ok=ok, card=card)
+    if not ok:
+        fail(f"{name}: the card's training step disagrees with the CPU's")
+    return counts
+
+
+def flagship_train_once(cfg, batches):
+    """A fresh flagship-width model from SEED, 1 warm-up and 1 timed
+    training step on `batches`: (first step's losses, its gradients in
+    float32, the timed step's s, peak GiB, launches per step)."""
+    from mvgformer_tpu_torch.core.train import (create_train_state,
+                                                make_train_step)
+    from mvgformer_tpu_torch.models import build_model
+
+    model = build_model(cfg, generator=torch.Generator().manual_seed(SEED))
+    state, tx = create_train_state(cfg, model)
+    step = make_train_step(cfg, model, tx)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (state, first), counts = count_launches(
+        lambda: step(state, batches[0], gen))
+    grads = {k: p.grad.float().clone() for k, p in model.named_parameters()
+             if p.grad is not None}
+    t0 = time.perf_counter()
+    step(state, batches[1], gen)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del model, state
+    torch.cuda.empty_cache()
+    return ({k: v.item() for k, v in first.items()}, grads, seconds, peak,
+            counts)
+
+
+def dq_options(card):
+    """Phase 19: each DQ option at the toy width, card against CPU; then
+    the flagship training config at full width, one step each with
+    TRAIN.SAMPLE_CHUNKS 8 and with REMAT_POLICY 'save_sampled', against
+    the plain setting: the same first-step losses within bfloat16 2e-2 and
+    every gradient within 2e-2 of its leaf's largest entry (a dropped
+    gradient is off by 1), the plain step's B2 / B3 launches per step,
+    steps/s and peak memory."""
+    from mvgformer_tpu_torch.config import load_config
+    from mvgformer_tpu_torch.data.synthetic import make_batch
+
+    option_launches = {}
+    for name, overrides in DQ_OPTIONS.items():
+        cfg = toy_train_cfg()
+        for key, val in overrides.items():
+            setattr(cfg.DECODER, key, val)
+        counts = check_option(name, cfg, card)
+        for k, n in counts.items():
+            option_launches[k] = option_launches.get(k, 0) + n
+
+    base = load_config(str(FLAGSHIP_CFG))
+    base.DECODER.triangulation_method = "jacobi"
+    base.PARALLEL.COMPUTE_DTYPE = "bfloat16"
+    batches = [make_batch(base, batch_size=1, seed=SEED + 200 + i,
+                          num_people=3, cam_seed=SEED) for i in range(2)]
+    layers, L = base.DECODER.num_decoder_layers, len(SPATIAL_SHAPES)
+    runs, grads = {}, {}
+    for name, (section, key, val) in (
+            ("plain", (None, None, None)),
+            ("sample_chunks_8", ("TRAIN", "SAMPLE_CHUNKS", 8)),
+            ("save_sampled", ("PARALLEL", "REMAT_POLICY", "save_sampled"))):
+        cfg = load_config(str(FLAGSHIP_CFG))
+        cfg.DECODER.triangulation_method = "jacobi"
+        cfg.PARALLEL.COMPUTE_DTYPE = "bfloat16"
+        if section is not None:
+            setattr(getattr(cfg, section), key, val)
+        losses, grads[name], seconds, peak, counts = flagship_train_once(
+            cfg, batches)
+        want = {"build_corner_table": 2 * L * layers,
+                "gather_reduce_forward": 2 * L * layers,
+                "gather_reduce_backward": L * layers}
+        got = {k: counts[k] for k in want}
+        if got != want or counts["deform_sample"]:
+            fail(f"{name}: launches per step {counts}, expected {want}")
+        runs[name] = {"losses": losses, "steps_per_s": 1.0 / seconds,
+                      "peak_mem_gib": peak, "launches_per_step": got}
+    worst, grad_worst = 0.0, 0.0
+    plain_grads = grads.pop("plain")
+    if not plain_grads:
+        fail("the plain flagship step left no gradient")
+    for name in ("sample_chunks_8", "save_sampled"):
+        for k, v in runs["plain"]["losses"].items():
+            got = runs[name]["losses"][k]
+            worst = max(worst, abs(got - v) / max(abs(v), 1.0))
+            if not math.isclose(got, v, rel_tol=2e-2, abs_tol=2e-2):
+                fail(f"{name}: {k} {got} against {v} without it")
+        if grads[name].keys() != plain_grads.keys():
+            fail(f"{name}: gradients of other parameters than the plain "
+                 f"step's")
+        for k, want_g in plain_grads.items():
+            err = ((grads[name][k] - want_g).abs().max()
+                   / want_g.abs().max().clamp_min(1e-12)).item()
+            grad_worst = max(grad_worst, err)
+            if not err <= 2e-2:
+                fail(f"{name}: gradient of {k} off by {err} of its largest")
+    phase("dq_options", options=list(DQ_OPTIONS),
+          option_launches=option_launches, flagship_train=runs,
+          loss_max_rel_err=worst, grad_max_rel_err=grad_worst, card=card)
+    return option_launches, runs
+
+
 def parent_vs_change(card, parent):
     """B1 at B1_SHAPES, B4 and B5 on the K = 28 plan and B2 on the flagship
     value's level views, bfloat16, timed by this checkout's
@@ -1764,6 +2227,22 @@ def main(argv=None):
             fail(f"the CLIs never launched {name}")
     torch.cuda.empty_cache()
 
+    t_new = time.perf_counter()
+    check_mvp_slice(card)
+    mvp_serve_launches, mvp_serve_prof = mvp_serve(card)
+    mvp_train_launches, mvp_train_prof = mvp_train(card)
+    option_launches, flagship_options = dq_options(card)
+    phase("mvp_and_options", seconds=time.perf_counter() - t_new, card=card)
+    mvp = {"serve_launches": mvp_serve_launches,
+           "b1_device_ms_per_launch":
+               mvp_serve_prof["b1_device_ms_per_launch"]}
+    path_launches = {
+        "dq_serve": {**{k.__name__: 0 for k in ALL_KERNELS}, **launches},
+        "dq_train": train_launches, "mvp_serve": mvp_serve_launches,
+        "mvp_train": mvp_train_launches, "dq_options_toy": option_launches,
+        **{f"flagship_train_{name}": run["launches_per_step"]
+           for name, run in flagship_options.items()}}
+
     turns = (parent_vs_change(card, Path(args.parent).resolve())
              if args.parent else {})
     flagship = "bfloat16 NH=40 S=122880 D=32 per level, the 3 flagship " \
@@ -1775,13 +2254,24 @@ def main(argv=None):
     b1_launches = {15360: b1_frames, 960: launches["deform_sample"]
                    - b1_frames}
     by_shape = [{"at": f"bfloat16 N=5 Lq={Lq} H=8 D=32 L=3 P={P}",
-                 "launches": b1_launches[Lq], "ms": b1_shapes[Lq]["ms"],
-                 "device_ms": b1_shapes[Lq]["device_ms"],
-                 "plain_ms": b1_shapes[Lq]["plain_ms"],
-                 "bound_ms": b1_shapes[Lq]["work"].bound_ms,
+                 "launches": b1_launches[Lq],
+                 "ms": b1_shapes[(Lq, P)]["ms"],
+                 "device_ms": b1_shapes[(Lq, P)]["device_ms"],
+                 "plain_ms": b1_shapes[(Lq, P)]["plain_ms"],
+                 "bound_ms": b1_shapes[(Lq, P)]["work"].bound_ms,
                  **turns.get(f"deform_sample Lq {Lq} P {P}", {})}
                 for Lq, P in B1_SHAPES]
-    dense = b1_shapes[B1_SHAPES[0][0]]
+    # the MvP baseline serves every layer densely at P 8 (phase 18b)
+    mvp_shape = b1_shapes[(MVP_LQ, MVP_P)]
+    by_shape.append({
+        "at": f"bfloat16 N=5 Lq={MVP_LQ} H=8 D=32 L=3 P={MVP_P} (MvP "
+              f"baseline, every layer)",
+        "launches": mvp["serve_launches"]["deform_sample"],
+        "ms": mvp_shape["ms"], "device_ms": mvp_shape["device_ms"],
+        "plain_ms": mvp_shape["plain_ms"],
+        "bound_ms": mvp_shape["work"].bound_ms,
+        "in_step_device_ms_per_launch": mvp["b1_device_ms_per_launch"]})
+    dense = b1_shapes[B1_SHAPES[0]]
     kernels = [
         kernel_row(deform_attn.deform_sample, "deform_sample.cu",
                    "mvgformer_tpu/ops/pallas_deform.py:32",
@@ -1855,6 +2345,10 @@ def main(argv=None):
         if row["name"] in serving_training:
             row["cli_launches"] = {run: counts[row["name"]]
                                    for run, counts in cli_runs.items()}
+            # each path driven with the counts set to 0 just before it
+            row["path_launches"] = {
+                path: counts.get(row["name"], 0)
+                for path, counts in path_launches.items()}
     phase("ranking", order=ranking(kernels), card=card)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -246,13 +246,11 @@ class TrainConfig:
     # default off (the reference never trains from scratch, its
     # pretrained backbone keeps triangulations well-conditioned)
     TRI_GRAD_CLIP: Optional[float] = None
-    # query-chunked rematerialized deformable gather in the training
-    # forward (ops/sampling.py query_chunks): the backward re-gathers
-    # one chunk at a time instead of materializing the full
-    # N*H*Lq*P-row corner buffer (~3.8 GB/layer at flagship dense
-    # shapes, the HBM occupant that blocks batch-2; PERF.md "training
-    # wall-clock budget"). 0/None = off (reference-equivalent single
-    # gather). Must divide Q*J; no numerics change, only scheduling.
+    # the JAX package's query-chunked deformable gather, which keeps its
+    # training backward from holding every sample's corner rows; the
+    # port's gather-reduce backward holds only the tables, indices and
+    # weights, so the value is accepted and the sampler runs unchunked
+    # (the same result)
     SAMPLE_CHUNKS: Optional[int] = None
 
 
@@ -329,12 +327,10 @@ class ParallelConfig:
     # the flagship train step otherwise exceeds v5e HBM (19.6G vs 15.75G
     # measured; see PERF.md "training memory")
     REMAT_DECODER: bool = True
-    # decoder remat policy: 'save_sampled' saves each layer's sampled
-    # attention features (checkpoint_name 'attn_sampled') so the training
-    # backward skips re-running the deformable gather forward; measured a
-    # WASH on v5e (0.454 vs 0.462 steps/s, PERF.md "selective remat")
-    # because AD of the sampling-location gradient re-gathers the corner
-    # rows in the backward regardless. Kept as a knob; default 'full'.
+    # the JAX package's decoder remat policy: 'save_sampled' keeps each
+    # layer's sampled features for the backward; the port's sampler
+    # backward recomputes no gather forward, so the value is accepted and
+    # every policy checkpoints the whole layer ('full')
     REMAT_POLICY: str = "full"
 
 

@@ -20,11 +20,11 @@ from mvgformer_tpu_torch.config import Config
 from mvgformer_tpu_torch.core.nms import apply_pose_nms
 from mvgformer_tpu_torch.data.meta import Batch
 from mvgformer_tpu_torch.data.prefetch import DevicePlacer
-from mvgformer_tpu_torch.models.mvgformer import MVGFormer
+from mvgformer_tpu_torch.models import is_dq
 from mvgformer_tpu_torch.ops.window_sampling import WindowPlan
 
 
-def make_eval_step(cfg: Config, model: MVGFormer, threshold: float,
+def make_eval_step(cfg: Config, model: torch.nn.Module, threshold: float,
                    window_plan: Optional[WindowPlan] = None,
                    with_escape_telemetry: bool = False) -> Callable:
     """An inference step returning the reference's pred array
@@ -35,13 +35,20 @@ def make_eval_step(cfg: Config, model: MVGFormer, threshold: float,
     moved to the model's device once with `.to(device)`).
     with_escape_telemetry: return (pred, escaped_mass) instead, the
     attention mass that escaped the windows of layer 1 as a float32 scalar
-    tensor (0 without a plan)."""
-    del cfg  # the model carries its config; kept for the JAX signature
+    tensor (0 without a plan). The MvP baseline takes no plan: passing
+    one raises."""
     model.eval()
+    dq = is_dq(cfg)
+    if window_plan is not None and not dq:
+        raise ValueError("the window plan is for the DQ model's layer 1; "
+                         "the MvP baseline takes none")
 
     @torch.inference_mode()
     def eval_step(batch: Batch):
-        outs = model(batch, threshold=threshold, window_plan=window_plan)
+        # the MvP baseline filters no queries: the threshold only sets the
+        # flag channel
+        outs = (model(batch, threshold=threshold, window_plan=window_plan)
+                if dq else model(batch))
         out = outs[-1]
         B, Q = out["pred_logits"].shape[:2]
         poses = out["pred_poses"].reshape(B, Q, -1, 3)

@@ -37,7 +37,7 @@ import torch
 from mvgformer_tpu_torch.config import Config
 from mvgformer_tpu_torch.core.criterion import compute_losses, match_queries
 from mvgformer_tpu_torch.data.meta import Batch
-from mvgformer_tpu_torch.models.mvgformer import MVGFormer
+from mvgformer_tpu_torch.models import is_dq
 from mvgformer_tpu_torch.ops.window_sampling import WindowPlan
 
 MAX_CONSECUTIVE_ERRORS = 100
@@ -55,7 +55,7 @@ class OptState:
 @dataclasses.dataclass
 class TrainState:
     step: int
-    model: MVGFormer
+    model: torch.nn.Module
     opt_state: OptState
 
 
@@ -187,7 +187,7 @@ def make_optimizer(cfg: Config, steps_per_epoch: int) -> Optimizer:
     return Optimizer(cfg, steps_per_epoch)
 
 
-def create_train_state(cfg: Config, model: MVGFormer,
+def create_train_state(cfg: Config, model: torch.nn.Module,
                        steps_per_epoch: int = 1000
                        ) -> Tuple[TrainState, Optimizer]:
     """The state of an initialized model (its weights made from a seed or
@@ -197,7 +197,7 @@ def create_train_state(cfg: Config, model: MVGFormer,
     return TrainState(step=0, model=model, opt_state=opt_state), tx
 
 
-def make_train_step(cfg: Config, model: MVGFormer, tx: Optimizer,
+def make_train_step(cfg: Config, model: torch.nn.Module, tx: Optimizer,
                     num_replicas: int = 1) -> Callable:
     """train_step(state, batch, generator=None) -> (state, metrics).
 
@@ -205,8 +205,10 @@ def make_train_step(cfg: Config, model: MVGFormer, tx: Optimizer,
     decoder layer (dropout from `generator`), the criterion, the backward,
     the clipped Adam update of the model's parameters in place. metrics
     holds every loss term as a scalar tensor, and `notfinite_total` under
-    TRAIN.SKIP_NONFINITE."""
-    gt_match = cfg.DECODER.gt_match
+    TRAIN.SKIP_NONFINITE. The MvP baseline has no query grid: the
+    criterion matches each of its layers on the layer's own outputs."""
+    dq = is_dq(cfg)
+    gt_match = cfg.DECODER.gt_match and dq
 
     def train_step(state: TrainState, batch: Batch,
                    generator: Optional[torch.Generator] = None):
@@ -215,13 +217,18 @@ def make_train_step(cfg: Config, model: MVGFormer, tx: Optimizer,
         params = dict(mdl.named_parameters())
         for p in params.values():
             p.grad = None
-        init_refs = mdl.initial_reference_points_static(
-            batch.views.shape[0])
-        # with gt_match off the criterion matches per layer and this match
-        # is unused, as in JAX
-        match = match_queries(cfg, init_refs, batch)
-        outs = mdl(batch, query_mask=match.query_mask if gt_match else None,
-                   train=True, generator=generator)
+        if dq:
+            init_refs = mdl.initial_reference_points_static(
+                batch.views.shape[0])
+            # with gt_match off the criterion matches per layer and this
+            # match is unused, as in JAX
+            match = match_queries(cfg, init_refs, batch)
+            outs = mdl(batch,
+                       query_mask=match.query_mask if gt_match else None,
+                       train=True, generator=generator)
+        else:
+            init_refs = match = None
+            outs = mdl(batch, train=True, generator=generator)
         losses = compute_losses(cfg, outs, batch,
                                 match if gt_match else None,
                                 init_reference=init_refs,
@@ -242,17 +249,26 @@ def make_train_step(cfg: Config, model: MVGFormer, tx: Optimizer,
     return train_step
 
 
-def make_eval_loss_step(cfg: Config, model: MVGFormer, threshold: float,
+def make_eval_loss_step(cfg: Config, model: torch.nn.Module, threshold: float,
                         window_plan: Optional[WindowPlan] = None
                         ) -> Callable:
     """The loss dict on eval batches (DEBUG.LOG_VAL_LOSS): the serving
     forward (threshold filtering, no gt match) with the criterion matching
-    each layer's own outputs."""
+    each layer's own outputs. The MvP baseline takes no window plan: passing
+    one raises."""
+    dq = is_dq(cfg)
+    if window_plan is not None and not dq:
+        raise ValueError("the window plan is for the DQ model's layer 1; "
+                         "the MvP baseline takes none")
 
     @torch.no_grad()
     def loss_step(batch: Batch) -> Dict[str, torch.Tensor]:
         model.eval()
-        outs = model(batch, threshold=threshold, window_plan=window_plan)
+        if dq:
+            outs = model(batch, threshold=threshold,
+                         window_plan=window_plan)
+        else:
+            outs = model(batch)
         return compute_losses(cfg, outs, batch, None)
 
     return loss_step

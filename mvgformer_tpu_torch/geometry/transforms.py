@@ -89,3 +89,12 @@ def get_scale(image_size, resized_size) -> np.ndarray:
         w_pad = w
         h_pad = w / w_resized * h_resized
     return np.array([w_pad / 200.0, h_pad / 200.0], dtype=np.float32)
+
+
+def norm2absolute(coords: torch.Tensor, grid_size,
+                  grid_center) -> torch.Tensor:
+    """Normalized [0, 1] capture-space coordinates -> world mm."""
+    size = torch.tensor(grid_size, dtype=coords.dtype, device=coords.device)
+    center = torch.tensor(grid_center, dtype=coords.dtype,
+                          device=coords.device)
+    return coords * size + center - size / 2.0

@@ -1,1 +1,38 @@
-"""Model layer: backbone, DQ decoder, MVGFormer top model."""
+"""Model layer: backbone, DQ decoder, MVGFormer top model, MvP baseline."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from mvgformer_tpu_torch.config import Config
+
+# the cfg.TRANSFORMER values: the paper model and the MvP baseline
+DQ_TRANSFORMER = "dq_transformer"
+MVP_TRANSFORMER = "multi_view_pose_transformer"
+
+
+def build_model(cfg: Config, generator: Optional[torch.Generator] = None,
+                device="cuda"):
+    """The top model that cfg.TRANSFORMER selects, its weights drawn from
+    `generator`, on `device` (the card unless the caller asks for the
+    CPU)."""
+    if cfg.TRANSFORMER == DQ_TRANSFORMER:
+        from mvgformer_tpu_torch.models.mvgformer import MVGFormer
+
+        return MVGFormer(cfg, generator=generator, device=device)
+    if cfg.TRANSFORMER == MVP_TRANSFORMER:
+        from mvgformer_tpu_torch.models.mvp_decoder import MvPTransformer
+
+        return MvPTransformer(cfg, generator=generator, device=device)
+    raise ValueError(
+        f"unknown TRANSFORMER {cfg.TRANSFORMER!r}; expected "
+        f"{DQ_TRANSFORMER!r} or {MVP_TRANSFORMER!r}")
+
+
+def is_dq(cfg: Config) -> bool:
+    """Whether cfg.TRANSFORMER selects the DQ model (MVGFormer), with an
+    initial query grid to match on and a layer 1 that takes a window plan,
+    rather than the MvP baseline."""
+    return cfg.TRANSFORMER == DQ_TRANSFORMER

@@ -1,28 +1,37 @@
 """Dynamic-query decoder: iterative project -> attend -> refine -> triangulate.
 
-Port of `mvgformer_tpu/models/decoder.py` for feature_update_method 'MLP':
-the FFN, threshold (or 'all') query filtering, the in-layer top-K of layer
-1, the decoder-level top-K compaction of the later layers and point-top-m
-in serving; in training (`train=True`) the gt-match query mask, dropout at
-JAX's sites (dropout2-4), the corner-table sampler, TRAIN.TRI_GRAD_CLIP and
-per-layer rematerialization (PARALLEL.REMAT_DECODER), with no compaction,
-point-top-m or window plan. Everything is dense with a boolean query mask:
-inactive queries' outputs and next-layer reference points become zeros.
+Port of `mvgformer_tpu/models/decoder.py`: the FFN, threshold (or 'all')
+query filtering, the in-layer top-K of layer 1, the decoder-level top-K
+compaction of the later layers and point-top-m in serving; in training
+(`train=True`) the gt-match query mask, dropout at JAX's sites, the
+corner-table sampler, TRAIN.TRI_GRAD_CLIP and per-layer
+rematerialization (PARALLEL.REMAT_DECODER), with no compaction, point-top-m
+or window plan. Everything is dense with a boolean query mask: inactive
+queries' outputs and next-layer reference points become zeros.
 
-Dropout draws its masks from a generator seeded per layer and step, so a
+The model options of the original DQ decoder: every
+DECODER.feature_update_method (`update_feature`), init_self_attention (a
+self-attention over the queries before ProjAttn), triangulation_method
+'st' (structural triangulation with bone-length targets), bayesian_update
+(a learned blend of the triangulation with the layer's input pose) and
+share_layer_weights (one `layer_shared` module run num_layers times).
+
+Dropout draws its masks from generators seeded per layer and step, so a
 layer recomputed for the backward draws the same masks; which layers drop
 out is decided by the `train` argument, as in JAX, not by nn.Module.train().
 
 Per layer:
   1. project each query's 3D joints into every view, bounds-mask, clamp,
      map to network-image coordinates;
-  2. projective attention over the per-view feature maps (ProjAttn);
-  3. fuse the mean over views into the query features, then the FFN;
-  4. classify queries and derive the active mask;
-  5. (layer 1 with top-K) keep the top-K queries for stages 6-8;
-  6. per-view 2D offsets and confidences;
-  7. inverse crop affine and undistortion;
-  8. confidence-weighted DLT triangulation, masked dense update.
+  2. (init_self_attention) self-attention over the queries;
+  3. projective attention over the per-view feature maps (ProjAttn);
+  4. fuse the mean over views into the query features, then the FFN;
+  5. classify queries and derive the active mask;
+  6. (layer 1 with top-K) keep the top-K queries for stages 7-9;
+  7. per-view 2D offsets and confidences;
+  8. inverse crop affine and undistortion;
+  9. confidence-weighted DLT (or structural) triangulation, the optional
+     bayesian blend, the masked dense update.
 """
 
 from __future__ import annotations
@@ -38,9 +47,12 @@ from mvgformer_tpu_torch.data.meta import ViewData
 from mvgformer_tpu_torch.geometry.cameras import (project_points,
                                                   projection_matrices,
                                                   undistort_points)
+from mvgformer_tpu_torch.geometry.structural import (HumanTree,
+                                                     structural_triangulate)
 from mvgformer_tpu_torch.geometry.transforms import apply_affine
 from mvgformer_tpu_torch.geometry.triangulate import (clip_cotangent,
                                                       triangulate_dlt)
+from mvgformer_tpu_torch.models.attention import MultiheadAttention
 from mvgformer_tpu_torch.models.mlp import Dense, OffsetNet
 from mvgformer_tpu_torch.ops.projattn import ProjAttn, top_indices
 from mvgformer_tpu_torch.ops.window_sampling import WindowPlan
@@ -127,6 +139,19 @@ def _dropout(x: torch.Tensor, p: float,
                                                         device=x.device))
 
 
+FEATURE_UPDATE_METHODS = ("MLP", "MLP0", "MLPr", "mean")
+
+
+def _drop_fn(p: float, seed: Optional[int], device):
+    """The dropout of one layer: identity unless a seed is given
+    (training with p > 0), else masks from a generator it seeds."""
+    if seed is None:
+        return lambda x: x
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return lambda x: _dropout(x, p, gen)
+
+
 class DQDecoderLayer(nn.Module):
     """One iterative-geometry decoder layer (dense-masked)."""
 
@@ -135,25 +160,64 @@ class DQDecoderLayer(nn.Module):
                  n_levels: int = 1, n_heads: int = 8, n_points: int = 8,
                  img_size: Tuple[int, int] = (960, 512),
                  num_joints: int = 15, detach_refpoints: bool = True,
+                 feature_update_method: str = "MLP",
+                 init_self_attention: bool = False,
                  open_forward_ffn: bool = True,
+                 posembed_mode: str = "ablation_not_use_rayconv",
                  triangulation_solver: str = "eigh",
+                 st_bone_lengths: Optional[Sequence[float]] = None,
+                 st_n_steps: int = 1,
+                 bayesian_update: bool = False,
                  pose_embed_layers: int = 3,
                  tri_grad_clip: Optional[float] = None,
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        method = feature_update_method
+        if not (method in FEATURE_UPDATE_METHODS
+                or method.startswith("attention")):
+            raise ValueError(f"unknown feature_update_method: {method}")
+        if posembed_mode != "ablation_not_use_rayconv":
+            # the DQ layer passes ProjAttn no camera rays (JAX's asserts)
+            raise ValueError(
+                f"projattn_posembed_mode {posembed_mode!r} needs camera "
+                f"rays, which only the MvP baseline builds")
+        if triangulation_solver == "st" and st_bone_lengths is None:
+            raise ValueError("triangulation_solver 'st' needs "
+                             "st_bone_lengths")
         g = generator
         self.dropout = float(dropout)
         self.img_size = tuple(img_size)
         self.num_joints = num_joints
         self.detach_refpoints = detach_refpoints
+        self.feature_update_method = method
         self.open_forward_ffn = open_forward_ffn
         self.triangulation_solver = triangulation_solver
+        self.st_n_steps = st_n_steps
         self.tri_grad_clip = tri_grad_clip
+        if st_bone_lengths is not None:
+            self.register_buffer("st_bone_lengths", torch.tensor(
+                list(st_bone_lengths), dtype=torch.float32),
+                persistent=False)
+            self.register_buffer("st_conversion", torch.tensor(
+                HumanTree().conv_B2J, dtype=torch.float32), persistent=False)
+        if init_self_attention:
+            self.init_self_attn = MultiheadAttention(d_model, n_heads, dtype,
+                                                     generator=g)
+            self.norm_init = LayerNorm(d_model, dtype)
         self.proj_attn = ProjAttn(d_model, n_levels, n_heads, n_points,
                                   dtype=dtype, generator=g)
-        self.feature_update_mlp = Dense(d_model, d_model, dtype, generator=g)
-        self.norm2 = LayerNorm(d_model, dtype)
+        if method == "mean":
+            self.norm1 = LayerNorm(d_model, dtype)
+        elif method.startswith("attention"):
+            self.self_attn = MultiheadAttention(d_model, n_heads, dtype,
+                                                generator=g)
+            self.norm2 = LayerNorm(d_model, dtype)
+        else:
+            self.feature_update_mlp = Dense(d_model, d_model, dtype,
+                                            generator=g)
+            if method == "MLP":
+                self.norm2 = LayerNorm(d_model, dtype)
         if open_forward_ffn:
             self.linear1 = Dense(d_model, d_ffn, dtype, generator=g)
             self.linear2 = Dense(d_ffn, d_model, dtype, generator=g)
@@ -161,6 +225,34 @@ class DQDecoderLayer(nn.Module):
         self.class_embed = Dense(d_model, 2, dtype, generator=g)
         self.pose_embed = OffsetNet(d_model, pose_embed_layers, dtype,
                                     generator=g)
+        if bayesian_update:
+            self.bayesian_conf = Dense(d_model, 1, dtype, generator=g)
+
+    def update_feature(self, tgt, attn_mean, query_pos, drop):
+        """Fuse the view-mean features (B, Nq, C) into the query
+        features by DECODER.feature_update_method."""
+        method = self.feature_update_method
+        if method == "mean":
+            # the mean over the QUERY axis, as the original code has it
+            return self.norm1(tgt + drop(attn_mean.mean(dim=1,
+                                                        keepdim=True)))
+        if method.startswith("attention"):
+            # q = k = the features (+ pos for the 'embed' variants); the
+            # value is tgt for plain 'attention', the original code's
+            # acknowledged bug, kept for checkpoint compatibility
+            q = (attn_mean if query_pos is None or "embed" not in method
+                 else attn_mean + query_pos)
+            value = tgt if method == "attention" else attn_mean
+            attn = self.self_attn(q, q, value)
+            if method.endswith("direct"):
+                return self.norm2(drop(attn))
+            return self.norm2(tgt + drop(attn))
+        tgt2 = self.feature_update_mlp(attn_mean)
+        if method == "MLP0":
+            return tgt2
+        if method == "MLPr":
+            return tgt + drop(tgt2)
+        return self.norm2(tgt + drop(tgt2))
 
     def forward(self, tgt: torch.Tensor, query_pos: Optional[torch.Tensor],
                 reference_points: torch.Tensor,
@@ -203,24 +295,29 @@ class DQDecoderLayer(nn.Module):
         Q = Nq // J
         img_wh = torch.tensor(self.img_size, dtype=torch.float32,
                               device=tgt.device)
-        drop_gen = None
+        seed = None
         if train and self.dropout > 0.0:
             if dropout_seed is None:
                 raise ValueError("training with dropout needs a dropout_seed")
-            drop_gen = torch.Generator(device=tgt.device)
-            drop_gen.manual_seed(int(dropout_seed))
-
-        def drop(x):
-            return x if drop_gen is None else _dropout(x, self.dropout,
-                                                       drop_gen)
+            seed = dropout_seed
+        drop = _drop_fn(self.dropout, seed, tgt.device)
 
         # (1) project the query joints into every view
         ref_norm, ref_lvl, bounds = project_reference_points(
             reference_points, view_data, spatial_shapes, self.img_size,
             detach=self.detach_refpoints)
 
-        # (2) projective attention, views folded view-major (v*B + b)
-        q_in = tgt if query_pos is None else tgt + query_pos
+        # (2) the optional self-attention over the queries; its result
+        # feeds ProjAttn only, update_feature's residual stays tgt
+        tgt_for_attn = tgt
+        if hasattr(self, "init_self_attn"):
+            q = tgt if query_pos is None else tgt + query_pos
+            tgt_for_attn = self.norm_init(
+                tgt + drop(self.init_self_attn(q, q, tgt)))
+
+        # (3) projective attention, views folded view-major (v*B + b)
+        q_in = (tgt_for_attn if query_pos is None
+                else tgt_for_attn + query_pos)
         q_fold = q_in[None].expand(V, B, Nq, C).reshape(V * B, Nq, C)
         ref_fold = ref_lvl.transpose(0, 1).reshape(
             V * B, Nq, len(spatial_shapes), 2)
@@ -232,15 +329,15 @@ class DQDecoderLayer(nn.Module):
         # zero features whose projection fell outside the image
         attn = attn * bounds.transpose(0, 1)[..., None].to(attn.dtype)
 
-        # (3) fuse the view mean into the query features (dropout2), then
-        # the FFN (dropout3 after the ReLU, dropout4 after linear2)
-        tgt_update = self.norm2(tgt + drop(self.feature_update_mlp(
-            attn.mean(dim=0))))
+        # (4) fuse the view mean into the query features, then the FFN
+        # (dropout after the ReLU and after linear2)
+        tgt_update = self.update_feature(tgt, attn.mean(dim=0), query_pos,
+                                         drop)
         if self.open_forward_ffn:
             x = self.linear2(drop(F.relu(self.linear1(tgt_update))))
             tgt_update = self.norm3(tgt_update + drop(x))
 
-        # (4) classify; the active-query mask
+        # (5) classify; the active-query mask
         prob = torch.sigmoid(self.class_embed(tgt_update).float())
         class_prob = prob.reshape(B, Q, J, 2).mean(dim=2)  # (B, Q, 2)
         if query_mask is None:
@@ -253,26 +350,28 @@ class DQDecoderLayer(nn.Module):
                 raise ValueError(filter_method)
         mask_nq = query_mask.repeat_interleave(J, dim=1)  # (B, Nq)
 
-        # (5) in-layer compaction: stages 6-8 run on the top-K queries
+        # (6) in-layer compaction: stages 7-9 run on the top-K queries
         sel = None
-        Nqc = Nq
+        Qc = Q
         if (triangulate_topk is not None and not train
                 and triangulate_topk < Q):
             sel = top_indices(class_prob[..., 1], triangulate_topk)
-            Nqc = triangulate_topk * J
+            Qc = triangulate_topk
             attn = _take_queries(attn.transpose(0, 1), sel, J,
                                  2).transpose(0, 1)
             ref_norm = _take_queries(ref_norm, sel, J, 2)
             mask_nq = _take_queries(mask_nq, sel, J, 1)
+            reference_points = _take_queries(reference_points, sel, J, 1)
+        Nqc = Qc * J
 
-        # (6) per-view offsets + confidences
+        # (7) per-view offsets + confidences
         out2d, conf_logits = self.pose_embed(attn)
         ref_norm_v = ref_norm.transpose(0, 1)  # (V, B, Nqc, 2)
         refined_abs = (ref_norm_v + out2d.float() / img_wh) * img_wh
         projs_abs = ref_norm_v * img_wh
         conf = torch.softmax(conf_logits.float(), dim=0)
 
-        # (7) masked-out queries triangulate the image centre, a safe
+        # (8) masked-out queries triangulate the image centre, a safe
         # stand-in, before the inverse affine and undistortion
         tri_in = torch.where(mask_nq[None, :, :, None], refined_abs,
                              img_wh * 0.5)
@@ -280,18 +379,38 @@ class DQDecoderLayer(nn.Module):
         orig_undist = undistort_points(orig, view_data.cameras, iter_num=5)
         proj_mats = projection_matrices(view_data.cameras, inv_trans=True)
 
-        # (8) triangulate, then the masked dense update
-        pts = orig_undist.transpose(1, 2)  # (B, Nqc, V, 2)
-        conf_bqv = conf.permute(1, 2, 0)  # (B, Nqc, V)
-        if train and self.tri_grad_clip is not None:
-            # TRAIN.TRI_GRAD_CLIP: bound the solver-amplified cotangents
-            # reaching the offset net and the confidence head
-            pts = clip_cotangent(pts, self.tri_grad_clip)
-            conf_bqv = clip_cotangent(conf_bqv[..., None],
-                                      self.tri_grad_clip)[..., 0]
-        pm = proj_mats[:, None].expand(B, Nqc, V, 3, 4)
-        new_refs = triangulate_dlt(pm, pts, conf_bqv,
-                                   solver=self.triangulation_solver)
+        # (9) triangulate, then the masked dense update
+        if self.triangulation_solver == "st":
+            # structural triangulation, one person per query
+            pts_p = orig_undist.transpose(1, 2).reshape(
+                B * Qc, J, V, 2).transpose(1, 2)  # (B*Qc, V, J, 2)
+            conf_p = conf.permute(1, 2, 0).reshape(B * Qc, J, V).transpose(
+                1, 2)  # (B*Qc, V, J)
+            pm_p = proj_mats[:, None].expand(B, Qc, V, 3, 4).reshape(
+                B * Qc, V, 3, 4)
+            lengths = self.st_bone_lengths[None].expand(B * Qc, J - 1)
+            new_refs = structural_triangulate(
+                pm_p, pts_p, conf_p, lengths, n_steps=self.st_n_steps,
+                conversion=self.st_conversion).reshape(B, Nqc, 3)
+        else:
+            pts = orig_undist.transpose(1, 2)  # (B, Nqc, V, 2)
+            conf_bqv = conf.permute(1, 2, 0)  # (B, Nqc, V)
+            if train and self.tri_grad_clip is not None:
+                # TRAIN.TRI_GRAD_CLIP: bound the solver-amplified
+                # cotangents reaching the offset net and the confidence
+                # head
+                pts = clip_cotangent(pts, self.tri_grad_clip)
+                conf_bqv = clip_cotangent(conf_bqv[..., None],
+                                          self.tri_grad_clip)[..., 0]
+            pm = proj_mats[:, None].expand(B, Nqc, V, 3, 4)
+            new_refs = triangulate_dlt(pm, pts, conf_bqv,
+                                       solver=self.triangulation_solver)
+        if hasattr(self, "bayesian_conf"):
+            # blend with the layer's input pose by a learned confidence
+            bconf = torch.sigmoid(self.bayesian_conf(attn)).mean(
+                dim=0).float()  # (B, Nqc, 1)
+            new_refs = (bconf * new_refs
+                        + (1 - bconf) * reference_points.float())
         new_refs = torch.where(mask_nq[..., None], new_refs, 0.0)
         m4 = mask_nq[:, None, :, None]
         refined_out = torch.where(m4, refined_abs.transpose(0, 1), 0.0)
@@ -302,7 +421,6 @@ class DQDecoderLayer(nn.Module):
             projs_out = _scatter_queries(projs_out, sel, Q, J, 2)
         return (tgt_update, new_refs, refined_out, projs_out, class_prob,
                 escaped)
-
 
 class DQDecoder(nn.Module):
     """Stack of decoder layers collecting per-layer outputs.
@@ -319,6 +437,8 @@ class DQDecoder(nn.Module):
     and point-top-m are off, as in JAX; with `remat` each layer runs under
     torch.utils.checkpoint and is recomputed in the backward.
 
+    share_layer_weights: one `layer_shared` layer runs num_layers times.
+
     ref_clamp_box: an optional (x_lo, y_lo, z_lo, x_hi, y_hi, z_hi) mm box
     (DECODER.clamp_refs_to_space) into which each layer's reference points
     are clipped before the next layer takes them. A stabilizer for
@@ -327,15 +447,22 @@ class DQDecoder(nn.Module):
     outputs, and so the loss, keep the raw predictions."""
 
     def __init__(self, num_layers: int, num_joints: int, remat: bool = False,
+                 share_layer_weights: bool = False,
                  ref_clamp_box: Optional[Tuple[float, ...]] = None,
                  **layer_kwargs):
         super().__init__()
         self.num_joints = num_joints
         self.remat = remat
         self.ref_clamp_box = ref_clamp_box
-        self.layers = nn.ModuleList(
-            DQDecoderLayer(num_joints=num_joints, **layer_kwargs)
-            for _ in range(num_layers))
+        if share_layer_weights:
+            self.layer_shared = DQDecoderLayer(num_joints=num_joints,
+                                               **layer_kwargs)
+            self.stack = [self.layer_shared] * num_layers
+        else:
+            self.layers = nn.ModuleList(
+                DQDecoderLayer(num_joints=num_joints, **layer_kwargs)
+                for _ in range(num_layers))
+            self.stack = list(self.layers)
 
     def forward(self, tgt, query_pos, reference_points, src_views,
                 spatial_shapes, view_data, threshold=0.5,
@@ -347,13 +474,13 @@ class DQDecoder(nn.Module):
         default generator if None)."""
         J = self.num_joints
         Q = tgt.shape[1] // J
-        seeds = [None] * len(self.layers)
+        seeds = [None] * len(self.stack)
         if train:
             topk_queries = window_plan = layer1_offset_clamp = None
             point_topm = None
-            if self.layers[0].dropout > 0.0:
+            if self.stack[0].dropout > 0.0:
                 dev = generator.device if generator is not None else "cpu"
-                seeds = torch.randint(0, 2 ** 62, (len(self.layers),),
+                seeds = torch.randint(0, 2 ** 62, (len(self.stack),),
                                       generator=generator,
                                       device=dev).tolist()
         outputs = []
@@ -362,20 +489,20 @@ class DQDecoder(nn.Module):
         if box is not None:
             lo = torch.tensor(box[:3], dtype=torch.float32, device=tgt.device)
             hi = torch.tensor(box[3:], dtype=torch.float32, device=tgt.device)
-        for lid, layer in enumerate(self.layers):
-            run = layer
-            if train and self.remat:
-                def run(*args, _layer=layer, **kwargs):
-                    return checkpoint(_layer, *args, use_reentrant=False,
-                                      **kwargs)
-            out, refs, ref2d, projs2d, class_prob, escaped = run(
-                out, qpos, refs, src_views, spatial_shapes, view_data,
+        for lid, layer in enumerate(self.stack):
+            kwargs = dict(
                 threshold=threshold, filter_method=filter_method,
                 triangulate_topk=topk_queries if lid == 0 else None,
                 window_plan=window_plan if lid == 0 else None,
                 offset_clamp=layer1_offset_clamp if lid == 0 else None,
                 point_topm=point_topm, query_mask=query_mask, train=train,
                 dropout_seed=seeds[lid])
+            args = (out, qpos, refs, src_views, spatial_shapes, view_data)
+            if not (train and self.remat):
+                res = layer(*args, **kwargs)
+            else:
+                res = checkpoint(layer, *args, use_reentrant=False, **kwargs)
+            out, refs, ref2d, projs2d, class_prob, escaped = res
             if sel is None:
                 outputs.append({"hs": out, "refs": refs, "refs_2d": ref2d,
                                 "projs_2d": projs2d,

@@ -1,14 +1,17 @@
 """MVGFormer top model: backbone -> queries -> iterative-geometry decoder.
 
-Port of `mvgformer_tpu/models/mvgformer.py` for the 'sample_space'
-reference init:
+Port of `mvgformer_tpu/models/mvgformer.py`:
 
   * PoseResNet features for all (batch, view) images in one view-major
     folded pass, levels reversed to finest-first;
   * person_joint query embeddings (joint-embed + instance-embed outer sum),
     the first d_model channels positional, the rest content;
-  * reference points on a ceil(sqrt(Q))^2 grid over (x, y) at z = 0.5 of
-    the normalized space, plus T-pose offsets;
+  * the initial reference points by DECODER.init_ref_method:
+    'sample_space' (a ceil(sqrt(Q))^2 grid over (x, y) at z = 0.5 of the
+    normalized space, plus T-pose offsets), 'gt_noise' (the targets plus
+    Gaussian noise, a debugging init), 'query_adapt' / 'query_adapt_center'
+    (a head on the pooled features of every view and level) or
+    'voxcel_pose_base' (VoxelPose's predicted poses);
   * the DQ decoder; per-layer outputs {pred_logits, pred_poses,
     pred_poses_2d, pred_poses_2d_proj}, their joints reordered by
     DECODER.convert_joint_format_indices where set (Panoptic's 15 joints
@@ -41,8 +44,10 @@ from mvgformer_tpu_torch.config import Config
 from mvgformer_tpu_torch.data.meta import Batch, ViewData, map_tensors
 from mvgformer_tpu_torch.data.synthetic import T_POSE
 from mvgformer_tpu_torch.device import compute_dtype, resolve_device
+from mvgformer_tpu_torch.geometry.structural import HumanTree
 from mvgformer_tpu_torch.models.decoder import (DQDecoder,
                                                 project_reference_points)
+from mvgformer_tpu_torch.models.mlp import Dense
 from mvgformer_tpu_torch.models.pose_resnet import PoseResNet
 from mvgformer_tpu_torch.ops.window_sampling import (WindowPlan,
                                                      build_window_plan)
@@ -88,31 +93,34 @@ def sample_space_reference_points(num_instance: int, t_pose: np.ndarray,
     return joints.reshape(-1, 3).astype(np.float32)
 
 
-def check_supported(cfg: Config) -> None:
-    """Raise NotImplementedError for config values this port does not run
-    yet (ROADMAP.md lists them)."""
-    dec = cfg.DECODER
-    wanted = {
-        "TRANSFORMER": (cfg.TRANSFORMER, "dq_transformer"),
-        "DECODER.init_ref_method": (dec.init_ref_method, "sample_space"),
-        "DECODER.feature_update_method": (dec.feature_update_method, "MLP"),
-        "DECODER.projattn_posembed_mode": (dec.projattn_posembed_mode,
-                                           "ablation_not_use_rayconv"),
-        "DECODER.init_self_attention": (dec.init_self_attention, False),
-        "DECODER.bayesian_update": (dec.bayesian_update, False),
-        "DECODER.share_layer_weights": (dec.share_layer_weights, False),
-    }
-    bad = [f"{k}={got!r}" for k, (got, want) in wanted.items()
-           if got != want]
-    if dec.triangulation_method == "st":
-        bad.append("DECODER.triangulation_method='st'")
-    # training knobs
-    if cfg.TRAIN.SAMPLE_CHUNKS is not None and cfg.TRAIN.SAMPLE_CHUNKS > 1:
-        bad.append(f"TRAIN.SAMPLE_CHUNKS={cfg.TRAIN.SAMPLE_CHUNKS!r}")
-    if cfg.PARALLEL.REMAT_DECODER and cfg.PARALLEL.REMAT_POLICY != "full":
-        bad.append(f"PARALLEL.REMAT_POLICY={cfg.PARALLEL.REMAT_POLICY!r}")
-    if bad:
-        raise NotImplementedError("not ported yet: " + ", ".join(bad))
+def tpose_bone_lengths(t_pose: np.ndarray) -> np.ndarray:
+    """(J - 1,) float32 target bone lengths of structural triangulation,
+    from the T-pose (the original repo loads them from a file it does not
+    ship)."""
+    return HumanTree("cmupanoptic").bone_lengths(
+        t_pose[None]).reshape(-1).astype(np.float32)
+
+
+def pooled_view_features(feats, batch_size: int,
+                         head: nn.Module) -> torch.Tensor:
+    """(B, 1, C) float32 `head` of every view's and level's mean feature:
+    the backbone's (V*B, h, w, C) view-major levels pooled, regrouped per
+    batch item and flattened to V x levels x C, the input width the head
+    was built for (DATASET.CAMERA_NUM x levels x d_model); another view
+    count raises."""
+    pooled = torch.cat([f.mean(dim=(1, 2)) for f in feats], dim=-1)
+    pooled = pooled.reshape(-1, batch_size, pooled.shape[-1]).transpose(
+        0, 1).reshape(batch_size, -1).float()
+    if pooled.shape[1] != head.in_features:
+        raise ValueError(
+            f"{pooled.shape[1]} pooled features of {len(feats)} levels do "
+            f"not fit the query-adaptation head ({head.in_features} = "
+            f"DATASET.CAMERA_NUM x levels x d_model): another view count")
+    return head(pooled)[:, None]
+
+
+INIT_REF_METHODS = ("sample_space", "gt_noise", "query_adapt",
+                    "query_adapt_center", "voxcel_pose_base")
 
 
 class MVGFormer(nn.Module):
@@ -126,10 +134,12 @@ class MVGFormer(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  device="cuda"):
         super().__init__()
-        check_supported(cfg)
         device = resolve_device(device)
         self.cfg = cfg
         dec = cfg.DECODER
+        if dec.init_ref_method not in INIT_REF_METHODS:
+            raise ValueError(
+                f"unknown init_ref_method: {dec.init_ref_method}")
         self.dtype = compute_dtype(cfg)
         self.num_joints = dec.num_keypoints
         self.num_instance = dec.num_instance
@@ -150,10 +160,16 @@ class MVGFormer(nn.Module):
         with torch.no_grad():
             for emb in (self.joint_embedding, self.instance_embedding):
                 nn.init.normal_(emb.weight, 0.0, 1.0, generator=generator)
+        t_pose = load_tpose(dec.t_pose_dir)
+        # 'linalg'/'batch'/'default' are the original SVD variants
+        solver = (dec.triangulation_method
+                  if dec.triangulation_method in ("eigh", "st", "jacobi")
+                  else "svd")
         self.decoder = DQDecoder(
             num_layers=dec.num_decoder_layers,
             num_joints=dec.num_keypoints,
             remat=cfg.PARALLEL.REMAT_DECODER,
+            share_layer_weights=dec.share_layer_weights,
             ref_clamp_box=ref_clamp_box,
             d_model=dec.d_model,
             d_ffn=dec.dim_feedforward,
@@ -163,19 +179,32 @@ class MVGFormer(nn.Module):
             n_points=dec.dec_n_points,
             img_size=tuple(cfg.NETWORK.IMAGE_SIZE),
             detach_refpoints=dec.detach_refpoints_cameraprj_firstlayer,
+            feature_update_method=dec.feature_update_method,
+            init_self_attention=dec.init_self_attention,
             open_forward_ffn=dec.open_forward_ffn,
-            # 'linalg'/'batch'/'default' are the reference's SVD variants
-            triangulation_solver=(dec.triangulation_method
-                                  if dec.triangulation_method in
-                                  ("eigh", "jacobi") else "svd"),
+            posembed_mode=dec.projattn_posembed_mode,
+            triangulation_solver=solver,
+            st_bone_lengths=(tuple(tpose_bone_lengths(t_pose))
+                             if solver == "st" else None),
+            bayesian_update=dec.bayesian_update,
             pose_embed_layers=dec.pose_embed_layer,
             tri_grad_clip=cfg.TRAIN.TRI_GRAD_CLIP,
             dtype=self.dtype,
             generator=generator)
+        if dec.init_ref_method in ("query_adapt", "query_adapt_center"):
+            # float32 heads on the pooled features of every view and level;
+            # the input width is fixed here (flax infers it at init)
+            n_levels = len(feature_spatial_shapes(cfg))
+            self.reference_feats = Dense(
+                cfg.DATASET.CAMERA_NUM * n_levels * dec.d_model, dec.d_model,
+                generator=generator)
+            self.reference_points = Dense(dec.d_model, 3,
+                                          generator=generator)
+        self.register_buffer("t_pose", torch.from_numpy(t_pose),
+                             persistent=False)
         self.register_buffer(
             "init_reference", torch.from_numpy(sample_space_reference_points(
-                dec.num_instance, load_tpose(dec.t_pose_dir),
-                cfg.MULTI_PERSON.SPACE_SIZE,
+                dec.num_instance, t_pose, cfg.MULTI_PERSON.SPACE_SIZE,
                 cfg.MULTI_PERSON.SPACE_CENTER)), persistent=False)
         self.to(device)
 
@@ -184,6 +213,54 @@ class MVGFormer(nn.Module):
         """(B, Q*J, 3) absolute-mm initial query poses: the config's
         sample_space grid, no parameters involved."""
         return self.init_reference[None].expand(batch_size, -1, -1)
+
+    def reference_points_init(self, batch: Batch, feats, tgt, query_pos,
+                              generator: Optional[torch.Generator] = None
+                              ) -> torch.Tensor:
+        """(B, Q*J, 3) float32 initial query poses, absolute mm, by
+        DECODER.init_ref_method; feats are the backbone's (V*B, h, w, C)
+        levels, tgt / query_pos the float32 (B, Q*J, C) query halves."""
+        dec = self.cfg.DECODER
+        method = dec.init_ref_method
+        B, V = batch.views.shape[:2]
+        if method == "sample_space":
+            return self.init_reference[None].expand(B, -1, -1)
+        if method == "gt_noise":
+            # the targets plus N(0, std) noise, padded query slots 0;
+            # init_ref_method_value >= 0 (0 included) is the std, else 100
+            v = dec.init_ref_method_value
+            std = float(v) if (v is not None and v >= 0) else 100.0
+            gt = batch.targets.joints_3d.float()  # (B, M, J, 3)
+            noise = torch.randn(gt.shape, generator=generator,
+                                device=gt.device)
+            pad = gt.new_zeros((B, self.num_instance - gt.shape[1])
+                               + tuple(gt.shape[2:]))
+            return torch.cat([gt + std * noise, pad], dim=1).reshape(
+                B, -1, 3)
+        if method in ("query_adapt", "query_adapt_center"):
+            ref_feats = pooled_view_features(feats, B, self.reference_feats)
+            base = (tgt if query_pos is None else query_pos).float()
+            if method == "query_adapt":
+                return self.reference_points(base + ref_feats)
+            centers = self.reference_points(
+                base.reshape(B, self.num_instance, self.num_joints,
+                             -1).mean(dim=2) + ref_feats)  # (B, Q, 3)
+            return (centers[:, :, None, :]
+                    + self.t_pose[None, None]).reshape(B, -1, 3)
+        # voxcel_pose_base: VoxelPose's predicted poses, one slot per query
+        vp = (batch.targets.voxelpose_pred
+              if batch.targets is not None else None)
+        if vp is None:
+            raise ValueError(
+                "voxcel_pose_base needs voxelpose predictions in the batch "
+                "(DATASET.ADD_VOXEL_PRED attaches them)")
+        refs0 = vp[..., :3].float().reshape(B, -1, 3)
+        if refs0.shape[1] != self.num_instance * self.num_joints:
+            raise ValueError(
+                "voxcel_pose_base: DECODER.num_instance (%d) must equal "
+                "MAX_PEOPLE_NUM (%d) so voxelpose slots map 1:1 onto "
+                "queries" % (self.num_instance, vp.shape[1]))
+        return refs0
 
     def forward(self, batch: Batch, query_mask: Optional[torch.Tensor] = None,
                 threshold: float = 0.5, train: bool = False,
@@ -201,7 +278,8 @@ class MVGFormer(nn.Module):
         train: the training forward (dropout drawn from `generator`, the
         corner-table sampler, the (B, Q) gt-match `query_mask`); the window
         plan, top-K and point-top-m are off then. The backbone takes no
-        gradient unless TRAIN.TRAIN_BACKBONE.
+        gradient unless TRAIN.TRAIN_BACKBONE. The 'gt_noise' init draws its
+        noise from `generator` too (the default generator if None).
         """
         dec = self.cfg.DECODER
         if window_plan is not None and dec.init_ref_method != "sample_space":
@@ -228,11 +306,13 @@ class MVGFormer(nn.Module):
         c = dec.d_model
         query_pos = None
         if not dec.close_pose_embedding:
-            query_pos = query_embeds[None, :, :c].expand(
-                B, -1, -1).to(self.dtype)
-        tgt = query_embeds[None, :, c:].expand(B, -1, -1).to(self.dtype)
-        refs0 = self.init_reference[None].expand(B, -1, -1)
-
+            query_pos = query_embeds[None, :, :c].expand(B, -1, -1)
+        tgt = query_embeds[None, :, c:].expand(B, -1, -1)
+        refs0 = self.reference_points_init(batch, feats, tgt, query_pos,
+                                           generator)
+        tgt = tgt.to(self.dtype)
+        if query_pos is not None:
+            query_pos = query_pos.to(self.dtype)
         layer_outputs = self.decoder(
             tgt, query_pos, refs0, feats, spatial_shapes, batch.view_data,
             threshold=threshold,

@@ -14,6 +14,12 @@ and the window kernels instead. In training (`train=True`) it goes through
 the differentiable corner-table sampler `ops.sampling.deform_sample_corner`
 and its table-build and gather-reduce kernels, as JAX's ProjAttn samples
 through `deform_sample_corner` whenever it trains.
+
+`posembed_mode` (DECODER.projattn_posembed_mode, the MvP baseline's):
+'use_rayconv' concatenates each pixel's camera ray direction (3 channels)
+and 'use_2d_coordconv' its normalized 2D coordinates (2 channels) to the
+flattened features before the value projection `rayconv`, which then takes
+d_model + 3 or d_model + 2 inputs; 'ablation_not_use_rayconv' adds nothing.
 """
 
 from __future__ import annotations
@@ -45,6 +51,11 @@ def radial_offsets_bias(n_heads: int, n_levels: int,
     return (grid * scale[None, None, :, None]).reshape(-1)
 
 
+# the channels each posembed_mode adds to the value projection's input
+POSEMBED_CHANNELS = {"ablation_not_use_rayconv": 0, "use_rayconv": 3,
+                     "use_2d_coordconv": 2}
+
+
 def top_indices(x: torch.Tensor, k: int) -> torch.Tensor:
     """Indices of the k largest entries along the last axis, lowest index
     first among ties (the rule of jax.lax.top_k; torch.topk has none)."""
@@ -56,9 +67,14 @@ class ProjAttn(nn.Module):
 
     def __init__(self, d_model: int = 256, n_levels: int = 1,
                  n_heads: int = 8, n_points: int = 8,
+                 posembed_mode: str = "ablation_not_use_rayconv",
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if posembed_mode not in POSEMBED_CHANNELS:
+            raise ValueError(f"unknown projattn_posembed_mode "
+                             f"{posembed_mode!r}")
+        self.pos_channels = POSEMBED_CHANNELS[posembed_mode]
         self.d_model, self.n_levels = d_model, n_levels
         self.n_heads, self.n_points = n_heads, n_points
         self.dtype = dtype
@@ -67,8 +83,8 @@ class ProjAttn(nn.Module):
                                       * 2, dtype=torch.float32, init="zeros")
         self.attention_weights = Dense(d_model, n_heads * n_levels * n_points,
                                        dtype=torch.float32, init="zeros")
-        self.rayconv = Dense(d_model, d_model, dtype=dtype, init="xavier",
-                             generator=generator)
+        self.rayconv = Dense(d_model + self.pos_channels, d_model,
+                             dtype=dtype, init="xavier", generator=generator)
         self.output_proj = Dense(d_model, d_model, dtype=dtype,
                                  init="xavier", generator=generator)
         with torch.no_grad():
@@ -81,7 +97,8 @@ class ProjAttn(nn.Module):
                 window_plan: Optional[WindowPlan] = None,
                 offset_clamp_px: Optional[float] = None,
                 point_topm: Optional[int] = None,
-                train: bool = False
+                train: bool = False,
+                camera_ray_embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """
         Args:
@@ -98,6 +115,9 @@ class ProjAttn(nn.Module):
                               (query, head, level) by attention weight.
             train:            sample through the differentiable corner
                               sampler (no window plan then).
+            camera_ray_embeds: (N, sum hw, 3) ray directions (use_rayconv)
+                              or (N, sum hw, 2) coordinates
+                              (use_2d_coordconv); None otherwise.
         Returns:
             (N, Lq, C) attended features, and the escaped attention mass of
             the windowed sampler (a float32 scalar; None without a plan).
@@ -119,6 +139,19 @@ class ProjAttn(nn.Module):
 
         input_flatten = torch.cat([s.reshape(N, -1, C) for s in src_views],
                                   dim=1)
+        if self.pos_channels:
+            want = tuple(input_flatten.shape[:2]) + (self.pos_channels,)
+            got = (None if camera_ray_embeds is None
+                   else tuple(camera_ray_embeds.shape))
+            if got != want:
+                raise ValueError(f"this ProjAttn takes camera_ray_embeds "
+                                 f"of shape {want}, got {got}")
+            input_flatten = torch.cat(
+                [input_flatten, camera_ray_embeds.to(input_flatten.dtype)],
+                dim=-1)
+        elif camera_ray_embeds is not None:
+            raise ValueError("camera_ray_embeds given to a ProjAttn in mode "
+                             "'ablation_not_use_rayconv'")
         value = self.rayconv(input_flatten)
         Len_in = value.shape[1]
         value = value.reshape(N, Len_in, H, self.d_model // H)

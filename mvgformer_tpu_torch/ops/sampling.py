@@ -22,7 +22,7 @@ both differentiable.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -122,8 +122,7 @@ def deform_sample(value: torch.Tensor,
 def deform_sample_corner(value: torch.Tensor,
                          spatial_shapes: Sequence[Tuple[int, int]],
                          sampling_locations: torch.Tensor,
-                         attention_weights: torch.Tensor,
-                         query_chunks: Optional[int] = None) -> torch.Tensor:
+                         attention_weights: torch.Tensor) -> torch.Tensor:
     """`deform_sample`'s contract through padded 4-corner tables: port of
     `mvgformer_tpu/ops/sampling.py::deform_sample_corner` with the padded
     stride of its Pallas table build.
@@ -139,12 +138,11 @@ def deform_sample_corner(value: torch.Tensor,
 
     JAX groups levels into tables under an 8/16 MB operand cap, a TPU
     gather tuning that changes no result; here every level has its own
-    table. `query_chunks` (TRAIN.SAMPLE_CHUNKS) is not ported.
+    table. JAX's `query_chunks` (TRAIN.SAMPLE_CHUNKS) splits its gather
+    so the backward does not hold every sample's corner rows; this
+    gather-reduce's backward keeps only the tables, indices and weights, so
+    the port runs it unchunked (the same result).
     """
-    if query_chunks is not None and query_chunks > 1:
-        raise NotImplementedError(
-            "query-chunked corner sampling (TRAIN.SAMPLE_CHUNKS > 1) is not "
-            "ported yet")
     N, Len_in, H, D = value.shape
     _, Lq, _, L, P, _ = sampling_locations.shape
     if L != len(spatial_shapes):

@@ -52,8 +52,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     from mvgformer_tpu_torch.data.datasets import get_dataset
     from mvgformer_tpu_torch.data.prefetch import DevicePlacer
     from mvgformer_tpu_torch.device import resolve_device
-    from mvgformer_tpu_torch.models.mvgformer import (
-        MVGFormer, build_layer1_window_plan)
+    from mvgformer_tpu_torch.models import build_model, is_dq
+    from mvgformer_tpu_torch.models.mvgformer import \
+        build_layer1_window_plan
     from mvgformer_tpu_torch.run.validate import load_weights
     from mvgformer_tpu_torch.utils.checkpoint import (
         PreemptionGuard, load_backbone_pretrained, load_checkpoint,
@@ -79,7 +80,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     batch_size = cfg.TRAIN.BATCH_SIZE
     steps_per_epoch = max(len(train_ds) // batch_size, 1)
 
-    model = MVGFormer(cfg, generator=torch.Generator().manual_seed(
+    # cfg.TRANSFORMER: the DQ model or the MvP baseline
+    model = build_model(cfg, generator=torch.Generator().manual_seed(
         cfg.TRAIN.SEED), device=device)
     if cfg.NETWORK.PRETRAINED_BACKBONE:
         model.load_state_dict(load_backbone_pretrained(
@@ -105,7 +107,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     train_step = make_train_step(cfg, model, tx)
     eval_batch = max(cfg.TEST.BATCH_SIZE, 1)
     window_plan = None
-    if cfg.DECODER.layer1_windowed_sampling:
+    # the MvP baseline takes no plan and runs without it, as in JAX
+    if cfg.DECODER.layer1_windowed_sampling and is_dq(cfg):
         window_plan = build_layer1_window_plan(
             cfg, test_ds.load_batch([0], load_images=False).view_data,
             tile=cfg.DECODER.layer1_window_tile,

@@ -13,7 +13,9 @@ prediction cache (TEST.PRED_FILE), the eval loop
 path, DEBUG.LOG_VAL_LOSS, pose NMS and the dataset's metrics, the NMS grid
 (DATASET.NMS_DETAIL / NMS_DETAIL_ALL) and the per-camera-observability
 breakdown (DATASET.CAMERA_DETAIL); then the summary table. `--device`
-defaults to the card and raises without one.
+defaults to the card and raises without one. The model is the one
+cfg.TRANSFORMER selects; the MvP baseline has no debug overlays
+(DEBUG.VISUALIZATION_JUMP_NUM is ignored for it).
 """
 
 from __future__ import annotations
@@ -73,14 +75,18 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                                 predict_dataset)
     from mvgformer_tpu_torch.data.datasets import get_dataset
     from mvgformer_tpu_torch.device import resolve_device
-    from mvgformer_tpu_torch.models.mvgformer import (
-        MVGFormer, build_layer1_window_plan)
+    from mvgformer_tpu_torch.models import build_model, is_dq
+    from mvgformer_tpu_torch.models.mvgformer import \
+        build_layer1_window_plan
     from mvgformer_tpu_torch.utils.logging import create_logger, format_table
 
     args, overrides = parse_args(argv)
     cfg = load_config(args.cfg, overrides)
     device = resolve_device(args.device)
-    if cfg.DEBUG.VISUALIZATION_JUMP_NUM >= 0:
+    # the debug overlays read the DQ model's intermediates; the MvP
+    # baseline has none and validates without them, as in JAX
+    if (cfg.DEBUG.VISUALIZATION_JUMP_NUM >= 0
+            and is_dq(cfg)):
         raise NotImplementedError(
             "DEBUG.VISUALIZATION_JUMP_NUM >= 0: the debug dumps "
             "(utils/visualization.py) are not ported yet")
@@ -89,7 +95,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     test_ds = get_dataset(cfg, cfg.DATASET.TEST_SUBSET, is_train=False)
     logger.info("eval frames: %d", len(test_ds))
-    model = MVGFormer(cfg, generator=torch.Generator().manual_seed(
+    # cfg.TRANSFORMER: the DQ model or the MvP baseline
+    model = build_model(cfg, generator=torch.Generator().manual_seed(
         cfg.TRAIN.SEED), device=device)
     if not args.model_path and cfg.TEST.MODEL_FILE:
         args.model_path = cfg.TEST.MODEL_FILE
@@ -104,8 +111,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     batch_size = max(cfg.TEST.BATCH_SIZE, 1)
 
     window_plan = None
-    if cfg.DECODER.layer1_windowed_sampling:
-        # rig-static: the layer-1 plan from the first frame's cameras, once
+    if cfg.DECODER.layer1_windowed_sampling and is_dq(cfg):
+        # rig-static (the MvP baseline takes no plan and runs without it,
+        # as in JAX): the layer-1 plan from the first frame's cameras, once
         first = test_ds.load_batch([0], load_images=False)
         window_plan = build_layer1_window_plan(
             cfg, first.view_data, tile=cfg.DECODER.layer1_window_tile,

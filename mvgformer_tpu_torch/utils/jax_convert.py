@@ -15,10 +15,24 @@ Layouts:
                                               -> weight/bias/running_mean/
                                                  running_var
     LayerNorm scale/bias                      -> weight/bias
+    MultiHeadDotProductAttention query/key/value kernels (C, heads, C/heads)
+    and biases (heads, C/heads), out kernel (heads, C/heads, C)
+                                              -> in_proj_weight (3C, C),
+                                                 in_proj_bias (3C,),
+                                                 out_proj (torch's
+                                                 nn.MultiheadAttention)
+
+Everything but the backbone is carried by walking the flax tree, the
+module names turned into torch's: `layer_{i}` of the DQ decoder and of the
+MvP model -> `decoder.layers.{i}` (`layer_shared` stays), `layers_{j}` ->
+`layers.{j}`, the MvP heads `class_embed_{i}` / `pose_embed_{i}` ->
+`class_embed.{i}` / `pose_embed.{i}`. This covers both top models
+(TRANSFORMER) and every decoder option.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping
 
 import numpy as np
@@ -48,6 +62,52 @@ def _conv(sd, node, name):
                                            (3, 2, 0, 1)))
 
 
+def _mha(sd, node, name):
+    """flax MultiHeadDotProductAttention -> torch's packed layout."""
+    def flat(x):
+        return np.asarray(x).reshape(np.asarray(x).shape[0], -1)
+
+    sd[name + ".in_proj_weight"] = _t(np.concatenate(
+        [flat(node[k]["kernel"]).T for k in ("query", "key", "value")]))
+    sd[name + ".in_proj_bias"] = _t(np.concatenate(
+        [np.asarray(node[k]["bias"]).reshape(-1)
+         for k in ("query", "key", "value")]))
+    out = np.asarray(node["out"]["kernel"])
+    sd[name + ".out_proj.weight"] = _t(out.reshape(-1, out.shape[-1]).T)
+    sd[name + ".out_proj.bias"] = _t(node["out"]["bias"])
+
+
+def _torch_name(key: str) -> str:
+    """A flax module name -> its torch attribute path."""
+    m = re.fullmatch(r"(layer|layers|class_embed|pose_embed)_(\d+)", key)
+    if m is None:
+        return key
+    return {"layer": "layers"}.get(m.group(1), m.group(1)) + "." + m.group(2)
+
+
+def module_state_dict(node: Mapping, prefix: str = ""
+                      ) -> Dict[str, torch.Tensor]:
+    """The state_dict of one flax module's params subtree (no batch
+    statistics), its names prefixed by `prefix`."""
+    sd: Dict[str, torch.Tensor] = {}
+    for key, child in node.items():
+        _walk(sd, child, prefix + _torch_name(key))
+    return sd
+
+
+def _walk(sd, node, name):
+    """Every Dense, LayerNorm and attention module under `node`."""
+    if {"query", "key", "value", "out"} <= set(node):
+        _mha(sd, node, name)
+    elif "kernel" in node:
+        _dense(sd, node, name)
+    elif "scale" in node:
+        _layernorm(sd, node, name)
+    else:
+        for key, child in node.items():
+            _walk(sd, child, f"{name}.{_torch_name(key)}")
+
+
 def _bn(sd, params, stats, name):
     sd[name + ".weight"] = _t(params["scale"])
     sd[name + ".bias"] = _t(params["bias"])
@@ -58,7 +118,8 @@ def _bn(sd, params, stats, name):
 
 def port_state_dict_from_jax(variables: Mapping,
                              cfg: Config) -> Dict[str, torch.Tensor]:
-    """flax variables {'params', 'batch_stats'} -> MVGFormer state_dict."""
+    """flax variables {'params', 'batch_stats'} -> the state_dict of the
+    top model of cfg.TRANSFORMER."""
     params, stats = variables["params"], variables["batch_stats"]
     sd: Dict[str, torch.Tensor] = {}
 
@@ -84,21 +145,10 @@ def port_state_dict_from_jax(variables: Mapping,
     sd["joint_embedding.weight"] = _t(params["joint_embedding"])
     sd["instance_embedding.weight"] = _t(params["instance_embedding"])
 
-    dec = cfg.DECODER
-    for i in range(dec.num_decoder_layers):
-        lp = params["decoder"][f"layer_{i}"]
-        dst = f"decoder.layers.{i}"
-        for lin in ("sampling_offsets", "attention_weights", "rayconv",
-                    "output_proj"):
-            _dense(sd, lp["proj_attn"][lin], f"{dst}.proj_attn.{lin}")
-        _dense(sd, lp["feature_update_mlp"], f"{dst}.feature_update_mlp")
-        _layernorm(sd, lp["norm2"], f"{dst}.norm2")
-        if dec.open_forward_ffn:
-            _dense(sd, lp["linear1"], f"{dst}.linear1")
-            _dense(sd, lp["linear2"], f"{dst}.linear2")
-            _layernorm(sd, lp["norm3"], f"{dst}.norm3")
-        _dense(sd, lp["class_embed"], f"{dst}.class_embed")
-        for j in range(dec.pose_embed_layer):
-            _dense(sd, lp["pose_embed"]["MLP"][f"layers_{j}"],
-                   f"{dst}.pose_embed.MLP.layers.{j}")
+    for key, node in params.items():
+        if key in ("backbone", "joint_embedding", "instance_embedding"):
+            continue
+        # the MvP model's layers sit at the top of its tree
+        prefix = "decoder." if re.fullmatch(r"layer_\d+", key) else ""
+        sd.update(module_state_dict({key: node}, prefix))
     return sd

@@ -5,10 +5,14 @@ keeps the original parameter names, so converting is a filter: strip the
 'module.' prefix of a DDP checkpoint and keep, as float32, what the port's
 modules hold. Parameters with no live role in the forward are dropped: the
 top-level cloned pose_embed / class_embed lists, reference_points,
-level_embed, the unused per-layer self_attn and the PoseResNet's
-final_layer. BatchNorm's num_batches_tracked is set to 0, as carrying the
-weights through the JAX package's variables gives (the model reads only
-the running statistics).
+level_embed, the per-layer self_attn where no option runs it and the
+PoseResNet's final_layer. The decoder options map as the JAX package's
+loader maps them: self_attn for the attention feature updates, self_attn
+and norm2 copied into init_self_attn and norm_init for
+init_self_attention, bayesian_conf, and the first layer into
+`layer_shared` under share_layer_weights. BatchNorm's num_batches_tracked
+is set to 0, as carrying the weights through the JAX package's variables
+gives (the model reads only the running statistics).
 """
 
 from __future__ import annotations
@@ -34,8 +38,8 @@ def convert_mvgformer_state_dict(state_dict: Mapping, cfg: Config
           for k, v in state_dict.items()}
     out: Dict[str, torch.Tensor] = {}
 
-    def take(name):
-        out[name] = _float(sd[name])
+    def take(name, src=None):
+        out[name] = _float(sd[src or name])
 
     def bn(name):
         for p in _BN:
@@ -43,9 +47,14 @@ def convert_mvgformer_state_dict(state_dict: Mapping, cfg: Config
         out[f"{name}.num_batches_tracked"] = torch.tensor(0,
                                                           dtype=torch.long)
 
-    def linear(name):
-        take(f"{name}.weight")
-        take(f"{name}.bias")
+    def linear(name, src=None):
+        take(f"{name}.weight", f"{src or name}.weight")
+        take(f"{name}.bias", f"{src or name}.bias")
+
+    def attention(name, src):
+        for p in ("in_proj_weight", "in_proj_bias", "out_proj.weight",
+                  "out_proj.bias"):
+            take(f"{name}.{p}", f"{src}.{p}")
 
     take("backbone.conv1.weight")
     bn("backbone.bn1")
@@ -69,20 +78,41 @@ def convert_mvgformer_state_dict(state_dict: Mapping, cfg: Config
     take("joint_embedding.weight")
     take("instance_embedding.weight")
     dec = cfg.DECODER
-    for i in range(dec.num_decoder_layers):
-        layer = f"decoder.layers.{i}"
+    method = dec.feature_update_method
+    # share_layer_weights: the one shared layer from the first one
+    for i in range(1 if dec.share_layer_weights else
+                   dec.num_decoder_layers):
+        src = f"decoder.layers.{i}"
+        dst = "decoder.layer_shared" if dec.share_layer_weights else src
+
+        def layer_linear(name, src_name=None):
+            linear(f"{dst}.{name}", f"{src}.{src_name or name}")
+
         for lin in ("sampling_offsets", "attention_weights", "rayconv",
                     "output_proj"):
-            linear(f"{layer}.proj_attn.{lin}")
-        linear(f"{layer}.feature_update_mlp")
-        linear(f"{layer}.norm2")
+            layer_linear(f"proj_attn.{lin}")
+        if method in ("MLP", "MLP0", "MLPr"):
+            layer_linear("feature_update_mlp")
+        if method == "MLP" or method.startswith("attention"):
+            layer_linear("norm2")
+        if method == "mean":
+            layer_linear("norm1")
+        if method.startswith("attention"):
+            attention(f"{dst}.self_attn", f"{src}.self_attn")
+        if dec.init_self_attention:
+            # the original layer reuses its self_attn and norm2 before
+            # ProjAttn; the port holds copies under their own names
+            attention(f"{dst}.init_self_attn", f"{src}.self_attn")
+            layer_linear("norm_init", "norm2")
         if dec.open_forward_ffn:
-            linear(f"{layer}.linear1")
-            linear(f"{layer}.linear2")
-            linear(f"{layer}.norm3")
-        linear(f"{layer}.class_embed")
+            layer_linear("linear1")
+            layer_linear("linear2")
+            layer_linear("norm3")
+        layer_linear("class_embed")
         for j in range(dec.pose_embed_layer):
-            linear(f"{layer}.pose_embed.MLP.layers.{j}")
+            layer_linear(f"pose_embed.MLP.layers.{j}")
+        if dec.bayesian_update:
+            layer_linear("bayesian_conf")
     return out
 
 

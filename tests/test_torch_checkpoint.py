@@ -11,7 +11,9 @@ tests/test_torch_train_step.py (dropout 0):
     3 straight steps, bit for bit;
   * load_backbone_pretrained and convert_mvgformer_state_dict against the
     JAX package's (its converters, then port_state_dict_from_jax), on
-    random tensors under the original repo's names.
+    random tensors under the original repo's names, also for each decoder
+    option the loaders map (bayesian_update, an attention feature update,
+    init_self_attention, share_layer_weights).
 """
 
 import os
@@ -180,6 +182,72 @@ def test_convert_matches_jax(tmp_path):
     torch.save({"state_dict": sd}, path)
     from_file = load_torch_checkpoint(path, cfg)
     assert all(torch.equal(from_file[k], got[k]) for k in got)
+
+
+OPTIONS = {
+    "bayesian_update": {"bayesian_update": True},
+    "attention_feature_update": {"feature_update_method": "attention_embed"},
+    "init_self_attention": {"init_self_attention": True},
+    "share_layer_weights": {"share_layer_weights": True},
+}
+
+
+@pytest.mark.parametrize("option", list(OPTIONS))
+def test_convert_options_match_jax(option):
+    """Each decoder option's weights from an original-repo state_dict, as
+    the JAX package's loader maps them: bayesian_conf; self_attn for the
+    attention updates; self_attn and norm2 copied into init_self_attn and
+    norm_init; the first layer into layer_shared."""
+    cfg = _cfg()
+    cfg.POSE_RESNET.NUM_LAYERS = 50
+    for key, val in OPTIONS[option].items():
+        setattr(cfg.DECODER, key, val)
+    model = _model(cfg, 0)
+    rng = np.random.RandomState(2)
+    C, L = cfg.DECODER.d_model, cfg.DECODER.num_decoder_layers
+
+    def rand(shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32))
+
+    sd = {}
+    for k, v in model.state_dict().items():
+        if ".init_self_attn." in k or ".norm_init." in k:
+            continue  # the original layer reuses self_attn and norm2
+        names = ([k.replace("layer_shared", f"layers.{i}") for i in range(L)]
+                 if "layer_shared" in k else [k])
+        for name in names:
+            sd["module." + name] = (
+                torch.tensor(int(rng.randint(1, 1000)))
+                if k.endswith("num_batches_tracked") else rand(v.shape))
+    attention = cfg.DECODER.feature_update_method.startswith("attention")
+    for i in range(L):
+        if attention:
+            # the original layer holds feature_update_mlp whatever it runs
+            sd[f"module.decoder.layers.{i}.feature_update_mlp.weight"] = \
+                rand((C, C))
+            sd[f"module.decoder.layers.{i}.feature_update_mlp.bias"] = \
+                rand((C,))
+        if cfg.DECODER.init_self_attention:
+            for p, shape in (("in_proj_weight", (3 * C, C)),
+                             ("in_proj_bias", (3 * C,)),
+                             ("out_proj.weight", (C, C)),
+                             ("out_proj.bias", (C,))):
+                sd[f"module.decoder.layers.{i}.self_attn.{p}"] = rand(shape)
+    want = port_state_dict_from_jax(
+        jconvert.convert_mvgformer_state_dict(sd, cfg), cfg)
+    got = convert_mvgformer_state_dict(sd, cfg)
+    assert set(got) == set(model.state_dict())
+    # JAX's loader also carries feature_update_mlp, which its attention
+    # update never calls; the port keeps only what it runs
+    assert {k for k in set(want) - set(got)
+            if "feature_update_mlp" not in k or not attention} == set()
+    for k in got:
+        assert torch.equal(got[k], want[k]), k
+    model.load_state_dict(got)
+    if option == "init_self_attention":
+        src = sd["module.decoder.layers.1.self_attn.in_proj_weight"]
+        assert torch.equal(
+            got["decoder.layers.1.init_self_attn.in_proj_weight"], src)
 
 
 def test_load_backbone_pretrained_matches_jax(tmp_path):

@@ -18,7 +18,7 @@ For each: every layer's forward output at the golden tolerance classes
 (logits rtol 1e-3 / atol 2e-3, 2D atol 0.5 px, 3D p99 < 2 mm, max < 6 mm);
 one training step's losses at rtol 1e-4 (the port's make_train_step
 metrics against JAX's training forward and criterion on the same
-weights); and check_supported no longer refusing either option.
+weights); and the configs that set them building through build_model.
 """
 
 import os
@@ -39,8 +39,8 @@ from mvgformer_tpu.models.mvgformer import MVGFormer as JMVGFormer  # noqa: E402
 from mvgformer_tpu_torch.config import load_config  # noqa: E402
 from mvgformer_tpu_torch.core import train  # noqa: E402
 from mvgformer_tpu_torch.data.synthetic import batch_from_jax  # noqa: E402
-from mvgformer_tpu_torch.models.mvgformer import (MVGFormer,  # noqa: E402
-                                                  check_supported)
+from mvgformer_tpu_torch.models import build_model  # noqa: E402
+from mvgformer_tpu_torch.models.mvgformer import MVGFormer  # noqa: E402
 from mvgformer_tpu_torch.utils.jax_convert import port_state_dict_from_jax  # noqa: E402
 from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
@@ -172,8 +172,13 @@ def test_train_step_losses_match_jax(case):
                                   "configs/shelf_campus/"
                                   "campus_knn5-lr4-q1024.yaml"])
 def test_check_supported_accepts_the_configs(path):
+    """The configs that set the two options build through build_model
+    (check_supported, which once refused options, is gone)."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     cfg = load_config(os.path.join(root, path))
     assert (cfg.DECODER.clamp_refs_to_space
             or cfg.DECODER.convert_joint_format_indices is not None)
-    check_supported(cfg)
+    model = build_model(cfg, device="cpu")
+    assert isinstance(model, MVGFormer)
+    if cfg.DECODER.clamp_refs_to_space:
+        assert model.decoder.ref_clamp_box is not None

@@ -18,7 +18,9 @@ versions of kernels B3 on the CPU) against JAX's:
     1e-5 times its largest entry where that exceeds 1. The location
     gradients carry a factor of the level's width: entries up to ~1.4e3
     are sums of terms that large, so a small entry inherits their float32
-    rounding (one ulp of 1.4e3 is 1.2e-4).
+    rounding (one ulp of 1.4e3 is 1.2e-4);
+  * the port's sampler (which runs unchunked for every
+    TRAIN.SAMPLE_CHUNKS) against JAX's chunked sampler.
 """
 
 import jax
@@ -168,9 +170,35 @@ def test_corner_sampler_matches_jax(monkeypatch, sampler_inputs, table_impl,
 
 
 def test_query_chunks_not_ported():
-    value = torch.zeros(1, 6, 1, 4)
-    loc = torch.zeros(1, 8, 1, 1, 1, 2)
-    aw = torch.zeros(1, 8, 1, 1, 1)
-    with pytest.raises(NotImplementedError, match="SAMPLE_CHUNKS"):
-        sampling.deform_sample_corner(value, ((2, 3),), loc, aw,
-                                      query_chunks=2)
+    """TRAIN.SAMPLE_CHUNKS (once refused here, hence the name): the port
+    runs its corner sampler unchunked for any chunk count, so it must give
+    what JAX's chunked sampler (query_chunks = 4, a lax.scan over query
+    chunks) gives: forward and the gradients with respect to the value,
+    the locations and the attention weights, at the tolerances of
+    test_corner_sampler_matches_jax."""
+    rng = np.random.RandomState(3)
+    N, Lq, H, D, P, chunks = 2, 96, 2, 8, 4, 4
+    total = sum(h * w for h, w in SAMPLER_SHAPES)
+    value = rng.randn(N, total, H, D).astype(np.float32)
+    locs = rng.uniform(-0.1, 1.1, (N, Lq, H, len(SAMPLER_SHAPES), P,
+                                   2)).astype(np.float32)
+    aw = rng.rand(N, Lq, H, len(SAMPLER_SHAPES), P).astype(np.float32)
+    ct = rng.randn(N, Lq, H * D).astype(np.float32)
+
+    def f(v, lc, a):
+        return jsampling.deform_sample_corner(v, SAMPLER_SHAPES, lc, a,
+                                              query_chunks=chunks)
+
+    out, vjp = jax.vjp(f, jnp.asarray(value), jnp.asarray(locs),
+                       jnp.asarray(aw))
+    want = (np.asarray(out),) + tuple(
+        np.asarray(g) for g in vjp(jnp.asarray(ct)))
+    tv, tl, ta = (torch.from_numpy(x).requires_grad_(True)
+                  for x in (value, locs, aw))
+    got = sampling.deform_sample_corner(tv, SAMPLER_SHAPES, tl, ta)
+    got.backward(torch.from_numpy(ct))
+    np.testing.assert_allclose(got.detach().numpy(), want[0], rtol=0,
+                               atol=1e-5)
+    for g, exp in zip((tv.grad, tl.grad, ta.grad), want[1:]):
+        np.testing.assert_allclose(
+            g.numpy(), exp, rtol=0, atol=1e-5 * max(1.0, np.abs(exp).max()))

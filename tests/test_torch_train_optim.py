@@ -21,7 +21,8 @@ the JAX package can be run the same way:
     PARALLEL.REMAT_DECODER the recomputed layers draw the same masks, so
     the gradients with and without remat are equal at dropout 0.1 for one
     generator seed (the same float32 ops in the same order: bitwise);
-  * check_supported refuses the training options the port does not run.
+  * TRAIN.SAMPLE_CHUNKS and PARALLEL.REMAT_POLICY 'save_sampled' give
+    JAX's losses; SAMPLE_CHUNKS off (None, 0, 1) builds.
 """
 
 import copy
@@ -41,6 +42,7 @@ from mvgformer_tpu_torch.core import train
 from mvgformer_tpu_torch.data.synthetic import make_batch
 from mvgformer_tpu_torch.geometry.triangulate import clip_cotangent
 from mvgformer_tpu_torch.models.mvgformer import MVGFormer
+from torch_parity import check_train_step, make_case
 
 STEPS_PER_EPOCH = 4
 
@@ -320,10 +322,13 @@ def test_remat_reproduces_dropout(toy):
     ("PARALLEL", "REMAT_POLICY", "save_sampled"),
 ])
 def test_unported_training_options_raise(section, key, value):
-    cfg = _toy_cfg()
-    setattr(getattr(cfg, section), key, value)
-    with pytest.raises(NotImplementedError, match=key):
-        MVGFormer(cfg, device="cpu")
+    """Once refused here (hence the name), now run: a make_train_step with
+    the option on, on the toy config of tests/torch_parity.py, against the
+    losses of JAX's training forward and criterion with the same option
+    (rtol 1e-4)."""
+    case = make_case(f"{section}.{key}", {f"{section}.{key}": value})
+    assert getattr(getattr(case["cfg"], section), key) == value
+    check_train_step(case)
 
 
 @pytest.mark.parametrize("chunks", [None, 0, 1])
