@@ -117,6 +117,31 @@ exits non-zero:
      step, steps/s, peak memory.
      Each of these paths runs with the kernel counts set to 0 before it;
      the kernel rows carry the counts as `path_launches`.
+ 20. data parallelism (`mvgformer_tpu_torch.parallel`). 20a: the flagship
+     training step (bf16, dropout 0) on 2 ranks that
+     `parallel.spawn` starts on cuda:0 over gloo (the backend rule: ranks
+     that share a card), one frame each, against one process taking the
+     2-frame global batch: losses within bf16 2e-2, every reduced
+     gradient within 2e-2 of its leaf's largest, the ranks' parameters
+     after the Adam step bit-equal; per rank steps/s over 5 steps, the
+     gradient all-reduce's ms and share of a step (a StageTimer around
+     each), B2 / B3 launches per step (counts set to 0 before the 5
+     steps; the rows' `path_launches`); where 2 or more cards are
+     visible, the same on two cards over NCCL. 20b: the train CLI under
+     `torchrun --standalone --nproc_per_node 2` on
+     configs/synthetic_ap_ablation.yaml, 3 steps: one log, one checkpoint
+     (step 3) that loads with weights_only=True, finite losses. 20c: the
+     validate CLI under torchrun at the flagship width (8 synthetic
+     frames, 4 per rank per batch) against the 1-rank CLI at batches of
+     4: the gathered preds at the golden classes, frames/s of both;
+ 21. the debug dumps: whether matplotlib is there (decided first); the
+     toy width's ProjAttn taps card vs CPU in float32 within 1e-4; with
+     matplotlib the validate CLI with VISUALIZATION_JUMP_NUM 0 and
+     DEBUG.DEBUG on 2 flagship frames, listing its files, else the
+     flagship frame's taps and the epipolar pickle;
+ 22. a StageTimer around the served flagship frame (bf16, top-64,
+     point-top-4, Jacobi): the backbone, each decoder layer and the rest
+     in ms, beside frames/s.
 
 Phase 10 also holds F.embedding_bag, the library call of B3's function,
 against B3's plain versions and times it. The models, batches and window
@@ -134,6 +159,7 @@ orders the kernels for later work (`ranking`).
 """
 
 import contextlib
+import functools
 import importlib
 import json
 import math
@@ -2109,6 +2135,459 @@ def dq_options(card):
     return option_launches, runs
 
 
+# phases 20-22: data parallelism over ranks, the debug dumps, the stage
+# split of a served frame
+DP_RANKS, DP_STEPS = 2, 5
+DP_LOSSES = ("total", "loss_ce", "loss_pose_perjoint",
+             "loss_pose_perprojection_2d", "loss_init")
+TORCHRUN = (sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", str(DP_RANKS))
+DEBUG_VALIDATE = ("DATASET.MAX_DATA_NUM=2", "TEST.BATCH_SIZE=2",
+                  "DEBUG.VISUALIZATION_JUMP_NUM=0", "DEBUG.DEBUG=true")
+STAGE_FRAMES = 4  # the first one warm-up
+
+
+def dp_train_cfg(dtype="bfloat16"):
+    """Phase 13's flagship training config (gt match, Jacobi, remat) in
+    `dtype` with dropout 0: each rank draws its own masks."""
+    from mvgformer_tpu_torch.config import load_config
+
+    cfg = load_config(str(FLAGSHIP_CFG))
+    cfg.DECODER.triangulation_method = "jacobi"
+    cfg.DECODER.dropout = 0.0
+    cfg.PARALLEL.COMPUTE_DTYPE = dtype
+    return cfg
+
+
+def dp_global_batch(cfg, device):
+    from mvgformer_tpu_torch.data.synthetic import make_batch
+
+    return make_batch(cfg, batch_size=DP_RANKS, seed=SEED + 200,
+                      num_people=3, cam_seed=SEED, device=device)
+
+
+def dp_step_worker(dp, cfg, steps, out_dir):
+    """Phase 20a on one rank (spawned by `parallel.spawn`): the model from
+    SEED, rank 0's weights broadcast, this rank's row of the global batch,
+    one `make_train_step(..., dp=)` whose metrics, reduced gradients and
+    updated parameters go to <out_dir>/rank<r>.pt; then (`steps` > 0)
+    `steps` timed steps with the kernel counts set to 0 before them, and
+    a StageTimer around each step and each gradient all-reduce, into
+    rank<r>.json."""
+    from mvgformer_tpu_torch.core import train as core_train
+    from mvgformer_tpu_torch.device import strict_float32
+    from mvgformer_tpu_torch.models.mvgformer import MVGFormer
+    from mvgformer_tpu_torch.parallel import replicated, shard_batch
+    from mvgformer_tpu_torch.utils.profiling import StageTimer
+
+    strict_float32()
+    model = MVGFormer(cfg, generator=torch.Generator().manual_seed(SEED),
+                      device=dp.device)
+    replicated(model, dp)
+    local = shard_batch(dp_global_batch(cfg, dp.device), dp)
+    state, tx = core_train.create_train_state(cfg, model)
+    timer = StageTimer()
+    reduce = core_train.all_reduce_grads
+    core_train.all_reduce_grads = functools.partial(
+        timer.time_fn, "all_reduce", reduce)
+    step = core_train.make_train_step(cfg, model, tx, dp=dp)
+    state, metrics = step(state, local)
+    torch.save({"metrics": {k: v.item() for k, v in metrics.items()},
+                "grads": {k: p.grad.float().cpu()
+                          for k, p in model.named_parameters()
+                          if p.grad is not None},
+                "params": {k: p.detach().cpu()
+                           for k, p in model.named_parameters()}},
+               Path(out_dir) / f"rank{dp.rank}.pt")
+    if not steps:
+        core_train.all_reduce_grads = reduce
+        return None
+    timer = StageTimer()
+    core_train.all_reduce_grads = functools.partial(
+        timer.time_fn, "all_reduce", reduce)
+    count_kernels()
+    for _ in range(steps):
+        with timer.stage("step", dp.device):
+            state, _ = step(state, local)
+    core_train.all_reduce_grads = reduce
+    stats = {"rank": dp.rank, "world": dp.world, "backend": dp.backend,
+             "device": str(dp.device),
+             "steps_per_s": steps / timer.totals["step"],
+             "step_ms": 1e3 * timer.summary()["step"],
+             "all_reduce_ms": 1e3 * timer.summary()["all_reduce"],
+             "all_reduce_share": timer.totals["all_reduce"]
+             / timer.totals["step"],
+             "launches_per_step": {fn.__name__: fn.launches / steps
+                                   for fn in TRAIN_KERNELS},
+             "peak_mem_gib": (torch.cuda.max_memory_allocated(dp.device)
+                              / 2 ** 30 if dp.device.type == "cuda"
+                              else None)}
+    (Path(out_dir) / f"rank{dp.rank}.json").write_text(json.dumps(stats))
+    return stats
+
+
+def grad_gap(got, want):
+    """The worst of max|got - want| / max|want| over the leaves of
+    `want`, and its leaf."""
+    worst, name = 0.0, None
+    for k, w in want.items():
+        if k not in got:
+            fail(f"{k} has no gradient after the reduction")
+        rel = ((got[k] - w).abs().max()
+               / max(w.abs().max().item(), 1e-12)).item()
+        if rel > worst:
+            worst, name = rel, k
+    return worst, name
+
+
+def dp_single(cfg, device):
+    """One process's flagship step on the 2-frame global batch: its loss
+    terms and gradients."""
+    from mvgformer_tpu_torch.core.train import (create_train_state,
+                                                make_train_step)
+    from mvgformer_tpu_torch.models.mvgformer import MVGFormer
+
+    model = MVGFormer(cfg, generator=torch.Generator().manual_seed(SEED),
+                      device=device)
+    state, tx = create_train_state(cfg, model)
+    _, metrics = make_train_step(cfg, model, tx)(
+        state, dp_global_batch(cfg, device))
+    losses = {k: metrics[k].item() for k in DP_LOSSES}
+    grads = {k: p.grad.float() for k, p in model.named_parameters()
+             if p.grad is not None}
+    del model, state
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return losses, grads
+
+
+def dp_train(card, device="cuda", cfgs=None):
+    """Phase 20a: the flagship training step on DP_RANKS ranks, one frame
+    each, against one process taking the same 2-frame global batch on the
+    card. In float32 (TF32 off) the loss terms (the ranks' mean) within
+    rtol 1e-4 and every reduced gradient within 2e-2 of its leaf's
+    largest; in bf16 the loss terms within 2e-2 and the gradients' gaps
+    printed: there the 1-frame and 2-frame shapes round apart, and
+    bilinear sampling's location gradients (sampling_offsets) amplify
+    that past 2e-2. Both: the ranks' gradients and parameters after the
+    Adam step equal bit for bit, B2 / B3 launches per step on each rank;
+    in bf16 steps/s per rank over DP_STEPS steps and the all-reduce's
+    share of a step. Two ranks share cuda:0 over gloo (the backend rule); where the
+    machine shows 2 or more cards, the same again on two cards over NCCL.
+    Returns each bf16 run's per-rank stats. `device` and `cfgs` (dtype ->
+    config) let the phase be rehearsed at a toy size on the CPU."""
+    from mvgformer_tpu_torch.parallel import choose_backend, spawn
+
+    runs = {}
+    cards = torch.cuda.device_count()
+    for dtype, loss_tol, grad_tol, steps in (
+            ("float32", 1e-4, 2e-2, 0),
+            ("bfloat16", 2e-2, None, DP_STEPS)):
+        cfg = (cfgs or {}).get(dtype) or dp_train_cfg(dtype)
+        want_losses, want_grads = dp_single(cfg, device)
+        for name, visible in (("one_card", 1), ("two_cards", 2)):
+            if cards < visible:
+                phase("dp_train", run=name, dtype=dtype,
+                      skipped=f"{cards} card(s) visible", card=card)
+                continue
+            backend = choose_backend("cuda", DP_RANKS, visible)
+            with tempfile.TemporaryDirectory(prefix="dp-",
+                                             dir=REPO / "build") as out, \
+                    visible_devices(visible):
+                t0 = time.perf_counter()
+                spawn(dp_step_worker, DP_RANKS, device, cfg, steps, out)
+                seconds = time.perf_counter() - t0
+                ranks = [torch.load(Path(out) / f"rank{r}.pt")
+                         for r in range(DP_RANKS)]
+                stats = [json.loads((Path(out) / f"rank{r}.json")
+                                    .read_text())
+                         for r in range(DP_RANKS)] if steps else None
+            loss_gap = max(abs(ranks[0]["metrics"][k] - v)
+                           / max(abs(v), 1e-6)
+                           for k, v in want_losses.items())
+            got = {k: g.to(device) for k, g in ranks[0]["grads"].items()}
+            grad_err, worst = grad_gap(got, want_grads)
+            over = sorted(
+                k for k, w in want_grads.items()
+                if ((got[k] - w).abs().max()
+                    / max(w.abs().max().item(), 1e-12)).item() > 2e-2)
+            params_equal = all(torch.equal(p, ranks[1]["params"][k])
+                               for k, p in ranks[0]["params"].items())
+            grads_equal = all(torch.equal(g, ranks[1]["grads"][k])
+                              for k, g in ranks[0]["grads"].items())
+            ok = (loss_gap <= loss_tol and params_equal and grads_equal
+                  and (grad_tol is None or grad_err <= grad_tol))
+            phase("dp_train", run=name, backend=backend, world=DP_RANKS,
+                  cfg=str(FLAGSHIP_CFG.relative_to(REPO)), dtype=dtype,
+                  dropout=0.0, frames_per_rank=1,
+                  loss_max_rel_gap=loss_gap, loss_tol=loss_tol,
+                  grad_max_rel_gap=grad_err, grad_tol=grad_tol,
+                  worst_grad=worst, leaves_over_2e_2=over,
+                  leaves=len(want_grads),
+                  params_equal_on_ranks=params_equal,
+                  grads_equal_on_ranks=grads_equal,
+                  reduced_floats=sum(g.numel() for g in ranks[0]["grads"]
+                                     .values()),
+                  losses={k: ranks[0]["metrics"][k] for k in DP_LOSSES},
+                  single_process_losses=want_losses, per_rank=stats,
+                  seconds=seconds, ok=ok, card=card)
+            if not ok:
+                fail(f"the {DP_RANKS}-rank step ({name}, {backend}, "
+                     f"{dtype}) disagrees with one process")
+            if not steps:
+                continue
+            want = {fn.__name__: n for fn, n in zip(
+                TRAIN_KERNELS, (24, 24, 12))}
+            if any(s["launches_per_step"] != want for s in stats):
+                fail(f"B2 / B3 launches per step per rank "
+                     f"{[s['launches_per_step'] for s in stats]}, "
+                     f"expected {want}")
+            runs[name] = stats
+        del want_grads
+    return runs
+
+
+@contextlib.contextmanager
+def visible_devices(n):
+    """Spawned ranks see the first `n` cards (CUDA_VISIBLE_DEVICES)."""
+    import os
+
+    saved = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = ",".join(str(i) for i in range(n))
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["CUDA_VISIBLE_DEVICES"]
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = saved
+
+
+def torchrun(args, timeout=600):
+    """`python -m torch.distributed.run --standalone --nproc_per_node
+    DP_RANKS` over a module and its arguments, from the checkout's root;
+    fails on a non-zero exit with the end of its output."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([*TORCHRUN, *args], cwd=REPO, capture_output=True,
+                          text=True, timeout=timeout)
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-8000:], flush=True)
+        fail(f"torchrun {' '.join(args[:2])} exited {proc.returncode}")
+    return time.perf_counter() - t0, proc.stderr
+
+
+def dp_cli_train(card, out_dir):
+    """Phase 20b: the train CLI under torchrun, DP_RANKS ranks on the
+    visible cards, on configs/synthetic_ap_ablation.yaml with
+    CLI_TRAIN_ARGS (3 steps over global batches of 2 frames): one log and
+    one checkpoint directory under OUTPUT_DIR, the log names the world and
+    the backend, the epoch's mean losses finite, and the checkpoint
+    (step 3) loads into the model with weights_only=True."""
+    from mvgformer_tpu_torch.config import load_config
+    from mvgformer_tpu_torch.models import build_model
+
+    out = Path(out_dir) / "train"
+    seconds, _ = torchrun(["-m", "mvgformer_tpu_torch.run.train", "--cfg",
+                           str(ABLATION_CFG), *CLI_TRAIN_ARGS,
+                           f"OUTPUT_DIR={out}"])
+    logs = list(out.glob("*/*/*_train.log"))
+    ckpt_dirs = list(out.glob("*/*/checkpoints"))
+    if len(logs) != 1 or len(ckpt_dirs) != 1:
+        fail(f"the torchrun train CLI wrote {len(logs)} logs and "
+             f"{len(ckpt_dirs)} checkpoint directories")
+    log = logs[0].read_text()
+    done = [line for line in log.splitlines() if "epoch 0 done" in line]
+    losses = dict(kv.split("=") for kv in done[-1].split("| ")[-1].split()
+                  if "=" in kv) if done else {}
+    finite = bool(losses) and all(math.isfinite(float(v))
+                                  for v in losses.values())
+    payload = torch.load(ckpt_dirs[0] / "0.pt", weights_only=True)
+    cfg = load_config(str(ABLATION_CFG),
+                      [a for a in CLI_TRAIN_ARGS if "=" in a])
+    model = build_model(cfg, generator=torch.Generator().manual_seed(SEED))
+    model.load_state_dict(payload["model"])
+    backend_line = f"rank 0 of {DP_RANKS}, backend"
+    ok = finite and payload["step"] == 3 and backend_line in log
+    phase("dp_cli_train", launcher=" ".join(TORCHRUN[1:]),
+          cli="mvgformer_tpu_torch.run.train",
+          cfg=str(ABLATION_CFG.relative_to(REPO)), args=list(CLI_TRAIN_ARGS),
+          backend=log.split(backend_line)[1].split()[0].strip(",)")
+          if backend_line in log else None,
+          checkpoint_step=payload["step"], epoch_mean_losses=losses,
+          eval_logged="eval epoch 0 thr" in log, seconds=seconds, ok=ok,
+          card=card)
+    if not ok:
+        fail("the torchrun train CLI's run is not whole")
+
+
+def dp_cli_validate(card, out_dir):
+    """Phase 20c: the validate CLI at the flagship width with
+    FLAGSHIP_VALIDATE (8 synthetic frames, top-64, point-top-4, Jacobi,
+    bf16, random weights) under torchrun on DP_RANKS ranks, each 4 frames
+    per batch of 8, against the 1-rank CLI in this process at batches of
+    4 (the same shapes per rank): the gathered preds at the golden
+    classes (3D p99 < 2 mm, max < 6 mm; the kept flags equal), frames/s
+    of both loops."""
+    from mvgformer_tpu_torch.config import load_config
+    from mvgformer_tpu_torch.run import validate as validate_cli
+
+    fcfg = load_config(str(FLAGSHIP_CFG), list(FLAGSHIP_VALIDATE))
+    thr = fcfg.DECODER.inference_conf_thr[0]
+    preds = {}
+    out = Path(out_dir) / "validate"
+    seconds, _ = torchrun(["-m", "mvgformer_tpu_torch.run.validate",
+                           "--cfg", str(FLAGSHIP_CFG), *FLAGSHIP_VALIDATE,
+                           "TEST.BATCH_SIZE=8", f"OUTPUT_DIR={out / 'two'}"])
+    log = next((out / "two").glob("*/*/*_validate.log")).read_text()
+    loop = [line for line in log.splitlines() if "eval loop:" in line][0]
+    two_fps = float(loop.split("(")[1].split()[0])
+    preds["two"] = np.load(next((out / "two").glob(f"*/*/preds-{thr}.npy")))
+    t0 = time.perf_counter()
+    res = validate_cli.main(["--cfg", str(FLAGSHIP_CFG), *FLAGSHIP_VALIDATE,
+                             "TEST.BATCH_SIZE=4", f"OUTPUT_DIR={out / 'one'}"])
+    one_seconds = time.perf_counter() - t0
+    preds["one"] = np.load(next((out / "one").glob(f"*/*/preds-{thr}.npy")))
+    got, want = preds["two"], preds["one"]
+    err = np.abs(got[..., :3] - want[..., :3])
+    flags_equal = bool(np.array_equal(got[..., 3], want[..., 3]))
+    ok = bool(got.shape == want.shape and flags_equal
+              and np.percentile(err, 99) < 2.0 and err.max() < 6.0)
+    loop_one = res[thr]["loop"]
+    phase("dp_cli_validate", launcher=" ".join(TORCHRUN[1:]),
+          cli="mvgformer_tpu_torch.run.validate",
+          cfg=str(FLAGSHIP_CFG.relative_to(REPO)),
+          args=list(FLAGSHIP_VALIDATE), frames=int(got.shape[0]),
+          two_ranks_frames_per_s=two_fps, two_ranks_seconds=seconds,
+          one_rank_frames_per_s=loop_one["frames"] / loop_one["loop_s"],
+          one_rank_seconds=one_seconds,
+          poses_mm_p99=float(np.percentile(err, 99)),
+          poses_mm_max=float(err.max()),
+          bit_equal=bool(np.array_equal(got, want)),
+          flags_equal=flags_equal, ok=ok, card=card)
+    if not ok:
+        fail("the 2-rank validate CLI's preds differ from the 1-rank CLI's")
+
+
+def debug_dumps(card, out_dir):
+    """Phase 21: the debug dumps on the card. Whether matplotlib is there
+    is printed first. The toy width's taps (sampling locations and
+    weights of every layer), card against CPU in float32 (TF32 off),
+    within 1e-4; then, with matplotlib, the validate CLI with
+    DEBUG_VALIDATE (VISUALIZATION_JUMP_NUM 0, DEBUG.DEBUG, 2 frames) at
+    the flagship width, listing the files it wrote; without it the
+    flagship frame's taps and the epipolar pickle only."""
+    import importlib.util
+
+    from mvgformer_tpu_torch.data.synthetic import make_batch
+    from mvgformer_tpu_torch.models import build_model
+
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    phase("debug_plotting", matplotlib=have_mpl,
+          plan="validate CLI dumps" if have_mpl
+          else "taps and the epipolar pickle only", card=card)
+    cfg = toy_train_cfg()
+    taps = {}
+    for device in ("cuda", "cpu"):
+        model = build_model(cfg, device=device,
+                            generator=torch.Generator().manual_seed(SEED))
+        batch = make_batch(cfg, batch_size=1, seed=SEED, num_people=2,
+                           device=device)
+        with torch.no_grad():
+            _, inter = model(batch, threshold=THRESHOLD,
+                             return_intermediates=True)
+        taps[device] = {(layer, key): vals[0].float().cpu()
+                        for layer, sub in inter["decoder"].items()
+                        for key, vals in sub["proj_attn"].items()}
+    errs = {f"{layer}/{key}": (taps["cuda"][layer, key]
+                               - taps["cpu"][layer, key]).abs().max().item()
+            for layer, key in taps["cpu"]}
+    ok = len(errs) == 2 * cfg.DECODER.num_decoder_layers and max(
+        errs.values()) <= 1e-4
+    phase("debug_taps_card_vs_cpu", dtype="float32", max_abs_err=errs,
+          ok=ok, card=card)
+    if not ok:
+        fail("the card's debug taps disagree with the CPU's")
+
+    out = Path(out_dir) / "debug"
+    t0 = time.perf_counter()
+    if have_mpl:
+        from mvgformer_tpu_torch.run import validate as validate_cli
+
+        validate_cli.main(["--cfg", str(FLAGSHIP_CFG), *FLAGSHIP_VALIDATE,
+                           *DEBUG_VALIDATE, f"OUTPUT_DIR={out}"])
+    else:
+        from mvgformer_tpu_torch.utils.visualization import \
+            save_debug_epipolar_dump
+
+        fcfg = flagship_cfg("bfloat16")
+        model = build_model(fcfg, generator=torch.Generator().manual_seed(
+            SEED))
+        batch = make_batch(fcfg, batch_size=1, seed=SEED + 1, num_people=3,
+                           cam_seed=SEED)
+        with torch.inference_mode():
+            model(batch, threshold=THRESHOLD, return_intermediates=True)
+        save_debug_epipolar_dump(batch.to("cpu"),
+                                 str(out / "vis" / "frame0"))
+        del model
+    files = sorted(str(p.relative_to(out)) for p in out.rglob("*")
+                   if p.is_file() and "vis" in p.parts)
+    want = ({"frame0_epipolar.pkl", "frame1_epipolar.pkl",
+             "0_joints3d.png", "1_joints3d.png"} if have_mpl
+            else {"frame0_epipolar.pkl"})
+    ok = want <= {Path(f).name for f in files}
+    phase("debug_dumps", cfg=str(FLAGSHIP_CFG.relative_to(REPO)),
+          args=list(FLAGSHIP_VALIDATE) + list(DEBUG_VALIDATE)
+          if have_mpl else None, files=files, n_files=len(files),
+          seconds=time.perf_counter() - t0, ok=ok, card=card)
+    if not ok:
+        fail(f"the debug dumps are missing {want}")
+    torch.cuda.empty_cache()
+
+
+def stage_split(card):
+    """Phase 22: a StageTimer around the flagship served frame (bf16,
+    batch 1, top-64, point-top-4, Jacobi, through the gather) and around
+    its backbone and each decoder layer (each stage ends with a
+    synchronize); `rest` is the frame less those stages (the query and
+    reference set-up, the pred assembly). STAGE_FRAMES frames, the first
+    one warm-up."""
+    from mvgformer_tpu_torch.core.infer import make_eval_step
+    from mvgformer_tpu_torch.data.synthetic import make_batch
+    from mvgformer_tpu_torch.models.mvgformer import MVGFormer
+    from mvgformer_tpu_torch.utils.profiling import StageTimer
+
+    cfg = flagship_cfg("bfloat16")
+    model = MVGFormer(cfg, generator=torch.Generator().manual_seed(SEED))
+    frames = [make_batch(cfg, batch_size=1, seed=SEED + 300 + i,
+                         num_people=3, cam_seed=SEED)
+              for i in range(STAGE_FRAMES)]
+    step = make_eval_step(cfg, model, THRESHOLD)
+    timer = StageTimer()
+    stages = [("backbone", model.backbone)] + [
+        (f"layer_{i}", layer) for i, layer in enumerate(model.decoder.stack)]
+    for name, module in stages:
+        module.forward = functools.partial(timer.time_fn, name,
+                                           module.forward)
+    step(frames[0])
+    torch.cuda.synchronize()
+    timer.totals.clear()
+    timer.counts.clear()
+    for batch in frames[1:]:
+        with timer.stage("frame", "cuda"):
+            step(batch)
+    for _, module in stages:
+        del module.forward
+    mean = {k: 1e3 * v for k, v in timer.summary().items()}
+    rest = mean["frame"] - sum(mean[name] for name, _ in stages)
+    phase("stage_split", cfg=str(FLAGSHIP_CFG.relative_to(REPO)),
+          dtype="bfloat16", frames=len(frames) - 1,
+          ms={**{name: mean[name] for name, _ in stages}, "rest": rest},
+          frame_ms=mean["frame"], frames_per_s=1e3 / mean["frame"],
+          card=card)
+    del model
+    torch.cuda.empty_cache()
+
+
 def parent_vs_change(card, parent):
     """B1 at B1_SHAPES, B4 and B5 on the K = 28 plan and B2 on the flagship
     value's level views, bfloat16, timed by this checkout's
@@ -2233,6 +2712,17 @@ def main(argv=None):
     mvp_train_launches, mvp_train_prof = mvp_train(card)
     option_launches, flagship_options = dq_options(card)
     phase("mvp_and_options", seconds=time.perf_counter() - t_new, card=card)
+
+    t_dp = time.perf_counter()
+    dp_runs = dp_train(card)
+    with tempfile.TemporaryDirectory(prefix="dp-cli-", dir=REPO / "build") \
+            as out_dir:
+        dp_cli_train(card, out_dir)
+        dp_cli_validate(card, out_dir)
+        debug_dumps(card, out_dir)
+    stage_split(card)
+    phase("parallel_debug_stages", seconds=time.perf_counter() - t_dp,
+          card=card)
     mvp = {"serve_launches": mvp_serve_launches,
            "b1_device_ms_per_launch":
                mvp_serve_prof["b1_device_ms_per_launch"]}
@@ -2241,7 +2731,10 @@ def main(argv=None):
         "dq_train": train_launches, "mvp_serve": mvp_serve_launches,
         "mvp_train": mvp_train_launches, "dq_options_toy": option_launches,
         **{f"flagship_train_{name}": run["launches_per_step"]
-           for name, run in flagship_options.items()}}
+           for name, run in flagship_options.items()},
+        **{f"dp_train_{name}_rank{s['rank']}_per_step":
+           s["launches_per_step"] for name, stats in dp_runs.items()
+           for s in stats}}
 
     turns = (parent_vs_change(card, Path(args.parent).resolve())
              if args.parent else {})

@@ -10,6 +10,11 @@ sum with the original repository's normalizations:
                                / (num_samples * V * J * 2), 0 when > 1e5
   num_samples                = max(sum(num_person), num_replicas)
 
+or, under data parallelism (`dp`), clamp(mean over ranks of sum(num_person),
+1) on each rank, as the original repository's all-reduce computes it; with
+the gradients averaged over the ranks that gives the global batch's sum over
+max(total, ranks), JAX's form on its global batch.
+
 and per decoder layer, decay-weighted sums of the losses and means of the
 logged rates (LOG_KEYS).
 """
@@ -22,11 +27,13 @@ import torch
 
 from mvgformer_tpu_torch.config import Config
 from mvgformer_tpu_torch.data.meta import Batch
+from mvgformer_tpu_torch.data.synthetic import LIMBS15
 from mvgformer_tpu_torch.geometry.cameras import project_points
 from mvgformer_tpu_torch.geometry.transforms import apply_affine
 from mvgformer_tpu_torch.models.matcher import (MatchResult, hungarian_match,
                                                 knn_match, pose_l1_cost,
                                                 threshold_match)
+from mvgformer_tpu_torch.parallel.mesh import reduce_count
 
 
 def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
@@ -42,11 +49,6 @@ def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
         alpha_t = alpha * targets + (1 - alpha) * (1 - targets)
         loss = alpha_t * loss
     return loss
-
-
-# Panoptic 15-joint limb pairs
-LIMBS15 = ((0, 1), (0, 2), (0, 3), (3, 4), (4, 5), (0, 9), (9, 10),
-           (10, 11), (2, 6), (2, 12), (6, 7), (7, 8), (12, 13), (13, 14))
 
 
 def _gather_pairs(x: torch.Tensor, query_idx: torch.Tensor) -> torch.Tensor:
@@ -222,16 +224,22 @@ def match_outputs(cfg: Config, out: Dict[str, torch.Tensor],
 def compute_losses(cfg: Config, layer_outputs: List[Dict[str, torch.Tensor]],
                    batch: Batch, match: Optional[MatchResult],
                    init_reference: Optional[torch.Tensor] = None,
-                   num_replicas: int = 1) -> Dict[str, torch.Tensor]:
+                   num_replicas: int = 1,
+                   dp=None) -> Dict[str, torch.Tensor]:
     """Decay-weighted per-layer criterion plus 'total', the weighted sum the
     step differentiates. With `match` (gt_match) one fixed match from the
     initial queries serves every layer, else each layer matches its own
     outputs. num_samples = max(sum(num_person), num_replicas): the global
     batch's count, as the original repository's all-reduced count nets out
-    under data parallelism."""
+    under data parallelism. With `dp` (a `parallel.DataParallel` of more
+    than one rank) the batch is this rank's rows, and every count that
+    normalizes a loss is the mean over the ranks, clamped at 1."""
     dec = cfg.DECODER
     num = batch.targets.num_person.sum().float()
-    num_samples = torch.clamp(num, min=float(num_replicas))
+    if dp is not None and dp.distributed:
+        num_samples = torch.clamp(reduce_count(num, dp), min=1.0)
+    else:
+        num_samples = torch.clamp(num, min=float(num_replicas))
 
     def layer_losses(out):
         m = match if match is not None else match_outputs(cfg, out, batch)
@@ -276,7 +284,7 @@ def compute_losses(cfg: Config, layer_outputs: List[Dict[str, torch.Tensor]],
         pv = (init_match.pair_valid if init_match.pair_valid is not None
               else init_match.gt_valid[:, :, None].expand(
                   init_match.query_idx.shape))
-        n_pairs = torch.clamp(pv.float().sum(), min=1.0)
+        n_pairs = torch.clamp(reduce_count(pv.float().sum(), dp), min=1.0)
         init_losses = compute_layer_losses(cfg, init_out, batch, init_match,
                                            n_pairs)
         summed["loss_init"] = init_losses["loss_pose_perjoint"]

@@ -22,6 +22,7 @@ from mvgformer_tpu_torch.data.meta import Batch
 from mvgformer_tpu_torch.data.prefetch import DevicePlacer
 from mvgformer_tpu_torch.models import is_dq
 from mvgformer_tpu_torch.ops.window_sampling import WindowPlan
+from mvgformer_tpu_torch.parallel.mesh import DataParallel, gather_objects
 
 
 def make_eval_step(cfg: Config, model: torch.nn.Module, threshold: float,
@@ -82,19 +83,30 @@ class Predictions:
 
 def predict_dataset(dataset, eval_step: Callable, batch_size: int, device,
                     with_escape_telemetry: bool = False,
-                    loss_step: Optional[Callable] = None) -> Predictions:
+                    loss_step: Optional[Callable] = None,
+                    dp: Optional[DataParallel] = None,
+                    on_batch: Optional[Callable] = None) -> Predictions:
     """Run `eval_step` over every frame of `dataset` in order: batches made
     on the host by `dataset.batches` (the last one padded by repeating its
     last frame), placed on `device` by a Prefetcher, and their preds stored
-    by frame index, so that the padding drops out. With
-    `with_escape_telemetry` the step returns (pred, escaped_mass), as
-    `make_eval_step(..., with_escape_telemetry=True)` makes it; `loss_step`
-    (DEBUG.LOG_VAL_LOSS) is run on each batch too and its terms summed."""
-    preds: List[Optional[np.ndarray]] = [None] * len(dataset)
+    by frame index, so that the padding drops out (a repeated frame keeps
+    its first prediction). With `with_escape_telemetry` the step returns
+    (pred, escaped_mass), as `make_eval_step(..., with_escape_telemetry=
+    True)` makes it; `loss_step` (DEBUG.LOG_VAL_LOSS) is run on each batch
+    too and its terms summed; `on_batch(idx, batch, pred)` is called after
+    each batch's step (the debug dumps).
+
+    Under data parallelism (`dp` of more than one rank) `batch_size` is
+    the global batch: each rank loads and predicts its rows of every
+    batch, and the preds (host numpy, by frame index, in rank order), the
+    escaped mass and the loss sums are gathered to every rank."""
+    rows = dp.rows(batch_size) if dp is not None and dp.distributed else None
+    preds: Dict[int, np.ndarray] = {}
     escaped, loss_sums, loss_batches = 0.0, {}, 0
     t0 = time.perf_counter()
     loader = DevicePlacer(device).prefetch(
-        dataset.batches(batch_size, shuffle=False, drop_last=False))
+        dataset.batches(batch_size, shuffle=False, drop_last=False,
+                        rows=rows))
     for idx, batch in loader:
         out = eval_step(batch)
         if with_escape_telemetry:
@@ -106,8 +118,20 @@ def predict_dataset(dataset, eval_step: Callable, batch_size: int, device,
                 loss_sums[k] = loss_sums.get(k, 0.0) + float(v)
             loss_batches += 1
         for b, frame_idx in enumerate(idx):
-            preds[frame_idx] = pred[b]
-    return Predictions(preds=[p for p in preds if p is not None],
+            preds.setdefault(frame_idx, pred[b])
+        if on_batch is not None:
+            on_batch(idx, batch, pred)
+    if rows is not None:
+        parts = gather_objects((preds, escaped, loss_sums, loss_batches), dp)
+        preds, escaped, loss_sums, loss_batches = {}, 0.0, {}, 0
+        for part_preds, part_esc, part_sums, part_batches in parts:
+            for frame_idx, p in part_preds.items():
+                preds.setdefault(frame_idx, p)
+            escaped += part_esc
+            for k, v in part_sums.items():
+                loss_sums[k] = loss_sums.get(k, 0.0) + v
+            loss_batches += part_batches
+    return Predictions(preds=[preds[i] for i in sorted(preds)],
                        escaped_mass=escaped, loss_sums=loss_sums,
                        loss_batches=loss_batches,
                        loop_s=time.perf_counter() - t0,
@@ -124,8 +148,13 @@ def nms_evaluate(dataset, preds: List[np.ndarray], dist_thr: float = 0.3,
 
 
 def evaluate_dataset(dataset, eval_step: Callable, batch_size: int, device,
-                     **kwargs):
+                     dp: Optional[DataParallel] = None, **kwargs):
     """The eval loop of both CLIs: `predict_dataset`, then `nms_evaluate`
-    at the eval operating point. Returns (metrics, Predictions)."""
-    run = predict_dataset(dataset, eval_step, batch_size, device, **kwargs)
+    at the eval operating point. Returns (metrics, Predictions); under
+    data parallelism the metrics are computed on rank 0 only (None on the
+    others)."""
+    run = predict_dataset(dataset, eval_step, batch_size, device, dp=dp,
+                          **kwargs)
+    if dp is not None and not dp.is_main:
+        return None, run
     return nms_evaluate(dataset, run.preds), run

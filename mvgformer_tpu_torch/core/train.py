@@ -39,6 +39,7 @@ from mvgformer_tpu_torch.core.criterion import compute_losses, match_queries
 from mvgformer_tpu_torch.data.meta import Batch
 from mvgformer_tpu_torch.models import is_dq
 from mvgformer_tpu_torch.ops.window_sampling import WindowPlan
+from mvgformer_tpu_torch.parallel.mesh import DataParallel, all_reduce_grads
 
 MAX_CONSECUTIVE_ERRORS = 100
 
@@ -198,7 +199,8 @@ def create_train_state(cfg: Config, model: torch.nn.Module,
 
 
 def make_train_step(cfg: Config, model: torch.nn.Module, tx: Optimizer,
-                    num_replicas: int = 1) -> Callable:
+                    num_replicas: int = 1,
+                    dp: Optional[DataParallel] = None) -> Callable:
     """train_step(state, batch, generator=None) -> (state, metrics).
 
     The gt match on the initial query grid, the training forward of every
@@ -206,8 +208,17 @@ def make_train_step(cfg: Config, model: torch.nn.Module, tx: Optimizer,
     the clipped Adam update of the model's parameters in place. metrics
     holds every loss term as a scalar tensor, and `notfinite_total` under
     TRAIN.SKIP_NONFINITE. The MvP baseline has no query grid: the
-    criterion matches each of its layers on the layer's own outputs."""
+    criterion matches each of its layers on the layer's own outputs.
+
+    dp: under data parallelism (a `parallel.DataParallel` of more than one
+    rank) the batch is this rank's rows; the criterion normalizes by the
+    ranks' mean sample count, and between the backward and the update the
+    gradients of every trainable parameter and the loss terms are averaged
+    over the ranks in one all-reduce, so every rank clips the same global
+    gradient, takes the same Adam step (and the same SKIP_NONFINITE
+    decision) and returns the global batch's losses."""
     dq = is_dq(cfg)
+    distributed = dp is not None and dp.distributed
     gt_match = cfg.DECODER.gt_match and dq
 
     def train_step(state: TrainState, batch: Batch,
@@ -232,8 +243,15 @@ def make_train_step(cfg: Config, model: torch.nn.Module, tx: Optimizer,
         losses = compute_losses(cfg, outs, batch,
                                 match if gt_match else None,
                                 init_reference=init_refs,
-                                num_replicas=num_replicas)
+                                num_replicas=num_replicas, dp=dp)
         losses["total"].backward()
+        if distributed:
+            labels = tx.labels(params)
+            keys = list(losses)
+            mean = all_reduce_grads(
+                [p for k, p in params.items() if labels[k] != "frozen"], dp,
+                torch.stack([losses[k].detach().float() for k in keys]))
+            losses = dict(zip(keys, mean))
         updates, opt_state = tx.update(
             {k: p.grad for k, p in params.items()}, state.opt_state, params)
         with torch.no_grad():

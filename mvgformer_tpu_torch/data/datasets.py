@@ -310,10 +310,12 @@ class MultiViewDataset:
 
     def batches(self, batch_size: int, shuffle: bool = False,
                 seed: int = 0, load_images: bool = True,
-                drop_last: bool = True):
+                drop_last: bool = True, rows: Optional[slice] = None):
         """Yield (frame indices, Batch); pads the final short batch by
         repeating its last frame so shapes stay static (the caller stores
-        predictions by frame index, which drops the repeats)."""
+        predictions by frame index, which drops the repeats). With `rows`
+        (a data-parallel rank's `DataParallel.rows(batch_size)`), only
+        those rows of each batch are loaded and yielded."""
         order = np.arange(len(self))
         if shuffle:
             np.random.RandomState(seed).shuffle(order)
@@ -325,8 +327,8 @@ class MultiViewDataset:
                     return
                 idx = np.concatenate(
                     [idx, np.full(batch_size - len(idx), idx[-1])])
-            yield [int(i) for i in idx], self.load_batch(
-                [int(i) for i in idx], load_images=load_images)
+            idx = [int(i) for i in idx[rows or slice(None)]]
+            yield idx, self.load_batch(idx, load_images=load_images)
 
 
 class PanopticDataset(MultiViewDataset):

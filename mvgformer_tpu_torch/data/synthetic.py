@@ -22,6 +22,10 @@ from mvgformer_tpu_torch.geometry.transforms import apply_affine
 BLOB_SIGMA, BLOB_BOX = 3.0, 48
 CHANNEL_SCALE = np.array([2.0, 1.0, -1.0], dtype=np.float32)
 
+# the Panoptic 15-joint skeleton's limbs, as joint pairs
+LIMBS15 = ((0, 1), (0, 2), (0, 3), (3, 4), (4, 5), (0, 9), (9, 10),
+           (10, 11), (2, 6), (2, 12), (6, 7), (7, 8), (12, 13), (13, 14))
+
 # A canonical standing pose in mm, root (mid-hip, index 2) at the origin,
 # in the Panoptic 15-joint order.
 T_POSE = np.array(

@@ -265,7 +265,8 @@ class DQDecoderLayer(nn.Module):
                 point_topm: Optional[int] = None,
                 query_mask: Optional[torch.Tensor] = None,
                 train: bool = False,
-                dropout_seed: Optional[int] = None):
+                dropout_seed: Optional[int] = None,
+                taps: Optional[dict] = None):
         """
         Args:
             tgt:              (B, Nq, C) query features, Nq = Q * J.
@@ -284,6 +285,7 @@ class DQDecoderLayer(nn.Module):
             train:            the training forward: dropout, the corner
                               sampler, no top-K.
             dropout_seed:     seed of this layer's dropout masks (train).
+            taps:             ProjAttn's debug taps (`ProjAttn.forward`).
         Returns:
             (tgt_update, new_refs (B, Nq, 3), refined_2d (B, V, Nq, 2),
              projs_2d (B, V, Nq, 2), class_prob (B, Q, 2), escaped mass of
@@ -324,7 +326,7 @@ class DQDecoderLayer(nn.Module):
         attn, escaped = self.proj_attn(
             q_fold, ref_fold, src_views, spatial_shapes,
             window_plan=window_plan, offset_clamp_px=offset_clamp,
-            point_topm=point_topm, train=train)
+            point_topm=point_topm, train=train, taps=taps)
         attn = attn.reshape(V, B, Nq, C)
         # zero features whose projection fell outside the image
         attn = attn * bounds.transpose(0, 1)[..., None].to(attn.dtype)
@@ -469,9 +471,16 @@ class DQDecoder(nn.Module):
                 filter_method="threshold", topk_queries=None,
                 window_plan=None, layer1_offset_clamp=None,
                 point_topm=None, query_mask=None, train=False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                intermediates: Optional[dict] = None):
         """`generator` draws one dropout seed per layer in training (the
-        default generator if None)."""
+        default generator if None). `intermediates`, where given, receives
+        each layer's ProjAttn debug taps under
+        {layer name: {"proj_attn": {...}}}, the layer name `layer_{l}` or,
+        with shared weights, `layer_shared` (every call appended), as JAX
+        sows them; not in training."""
+        if intermediates is not None and train:
+            raise ValueError("the debug taps are for the serving forward")
         J = self.num_joints
         Q = tgt.shape[1] // J
         seeds = [None] * len(self.stack)
@@ -497,6 +506,11 @@ class DQDecoder(nn.Module):
                 offset_clamp=layer1_offset_clamp if lid == 0 else None,
                 point_topm=point_topm, query_mask=query_mask, train=train,
                 dropout_seed=seeds[lid])
+            if intermediates is not None:
+                name = ("layer_shared" if hasattr(self, "layer_shared")
+                        else f"layer_{lid}")
+                kwargs["taps"] = intermediates.setdefault(
+                    name, {}).setdefault("proj_attn", {})
             args = (out, qpos, refs, src_views, spatial_shapes, view_data)
             if not (train and self.remat):
                 res = layer(*args, **kwargs)

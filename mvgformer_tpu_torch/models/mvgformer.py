@@ -265,7 +265,8 @@ class MVGFormer(nn.Module):
     def forward(self, batch: Batch, query_mask: Optional[torch.Tensor] = None,
                 threshold: float = 0.5, train: bool = False,
                 window_plan: Optional[WindowPlan] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                return_intermediates: bool = False):
         """Per decoder layer, a dict of
             pred_logits:        (B, Q, 2) inverse-sigmoid of avg joint prob
             pred_poses:         (B, Q*J, 3) absolute mm
@@ -280,6 +281,11 @@ class MVGFormer(nn.Module):
         plan, top-K and point-top-m are off then. The backbone takes no
         gradient unless TRAIN.TRAIN_BACKBONE. The 'gt_noise' init draws its
         noise from `generator` too (the default generator if None).
+        return_intermediates: return (outputs, intermediates), the debug
+        taps as JAX's `mutable=["intermediates"]` returns them:
+        {"decoder": {"layer_{l}": {"proj_attn": {"sampling_locations":
+        ((V*B, Lq, H, L, P, 2),), "sampling_weights": ((V*B, Lq, H, L,
+        P),)}}}}, views folded view-major (v*B + b). Serving only.
         """
         dec = self.cfg.DECODER
         if window_plan is not None and dec.init_ref_method != "sample_space":
@@ -313,6 +319,7 @@ class MVGFormer(nn.Module):
         tgt = tgt.to(self.dtype)
         if query_pos is not None:
             query_pos = query_pos.to(self.dtype)
+        inter = {"decoder": {}}
         layer_outputs = self.decoder(
             tgt, query_pos, refs0, feats, spatial_shapes, batch.view_data,
             threshold=threshold,
@@ -322,7 +329,8 @@ class MVGFormer(nn.Module):
             window_plan=window_plan,
             layer1_offset_clamp=dec.layer1_offset_clamp,
             point_topm=dec.inference_point_topm,
-            query_mask=query_mask, train=train, generator=generator)
+            query_mask=query_mask, train=train, generator=generator,
+            intermediates=inter["decoder"] if return_intermediates else None)
         cji = dec.convert_joint_format_indices
         J = self.num_joints
         outs = []
@@ -343,7 +351,7 @@ class MVGFormer(nn.Module):
                          "pred_poses_2d_proj": coords_2d_proj})
             if "escaped_mass" in lo:
                 outs[-1]["escaped_mass"] = lo["escaped_mass"]
-        return outs
+        return (outs, inter) if return_intermediates else outs
 
 
 def feature_spatial_shapes(cfg: Config):

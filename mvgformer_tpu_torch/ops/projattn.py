@@ -98,7 +98,8 @@ class ProjAttn(nn.Module):
                 offset_clamp_px: Optional[float] = None,
                 point_topm: Optional[int] = None,
                 train: bool = False,
-                camera_ray_embeds: Optional[torch.Tensor] = None
+                camera_ray_embeds: Optional[torch.Tensor] = None,
+                taps: Optional[dict] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """
         Args:
@@ -118,6 +119,13 @@ class ProjAttn(nn.Module):
             camera_ray_embeds: (N, sum hw, 3) ray directions (use_rayconv)
                               or (N, sum hw, 2) coordinates
                               (use_2d_coordconv); None otherwise.
+            taps:             the debug taps: where given, a dict to which
+                              this call appends its sampling locations
+                              (N, Lq, H, L, P, 2) and softmaxed weights
+                              (N, Lq, H, L, P), after point-top-m, under
+                              'sampling_locations' and 'sampling_weights'
+                              (tuples, one entry per call, as JAX sows
+                              them).
         Returns:
             (N, Lq, C) attended features, and the escaped attention mass of
             the windowed sampler (a float32 scalar; None without a plan).
@@ -184,6 +192,11 @@ class ProjAttn(nn.Module):
             weights = w_sel / torch.clamp(kept, min=1e-6)
             locations = torch.gather(
                 locations, 4, idx[..., None].expand(idx.shape + (2,)))
+
+        if taps is not None:
+            for key, val in (("sampling_locations", locations),
+                             ("sampling_weights", weights)):
+                taps[key] = taps.get(key, ()) + (val.detach(),)
 
         escaped = None
         if train:

@@ -1,8 +1,10 @@
-"""Validation / inference entry point, on one device.
+"""Validation / inference entry point, on every card of the host.
 
     python -m mvgformer_tpu_torch.run.validate --cfg <yaml> \
         [--model_path P] [--model_step S] [--save_preds F] \
         [--device cuda] [KEY.SUBKEY=value ...]
+    torchrun --standalone --nproc_per_node N \
+        -m mvgformer_tpu_torch.run.validate ...
 
 The port of run/validate.py, step for step: the weights from a checkpoint
 of the port's train CLI (a directory), from an original-repo `.pth.tar`,
@@ -10,12 +12,24 @@ or without either from TRAIN.SEED; the window plan of the windowed layer 1
 built once from the first frame's cameras; per confidence threshold the
 prediction cache (TEST.PRED_FILE), the eval loop
 (`core.infer.predict_dataset`), the escaped-mass telemetry of the windowed
-path, DEBUG.LOG_VAL_LOSS, pose NMS and the dataset's metrics, the NMS grid
-(DATASET.NMS_DETAIL / NMS_DETAIL_ALL) and the per-camera-observability
-breakdown (DATASET.CAMERA_DETAIL); then the summary table. `--device`
-defaults to the card and raises without one. The model is the one
-cfg.TRANSFORMER selects; the MvP baseline has no debug overlays
-(DEBUG.VISUALIZATION_JUMP_NUM is ignored for it).
+path, DEBUG.LOG_VAL_LOSS, the debug dumps, pose NMS and the dataset's
+metrics, the NMS grid (DATASET.NMS_DETAIL / NMS_DETAIL_ALL) and the
+per-camera-observability breakdown (DATASET.CAMERA_DETAIL); then the
+summary table. `--device` defaults to the card and raises without one.
+The model is the one cfg.TRANSFORMER selects.
+
+The debug dumps (DEBUG.VISUALIZATION_JUMP_NUM >= 0, the DQ model only, as
+in JAX): every JUMP_NUM-th frame (every frame at 0) gets the debug
+forward, once per batch and without the window plan, and
+`utils.visualization.visualize_frame` (3D pred vs gt, per-layer 2D
+overlays, attention points) into <out>/vis/; under DEBUG.DEBUG also the 3D
+grid, the root cubes and the epipolar pickle.
+
+Data parallelism (PARALLEL.DATA, as in the train CLI): each rank predicts
+its rows of batches of max(TEST.BATCH_SIZE // ranks, 1) * ranks frames,
+the preds are gathered by frame index, and rank 0 alone writes the log,
+the prediction files and the debug dumps (of its own rows) and computes
+the metrics.
 """
 
 from __future__ import annotations
@@ -62,36 +76,96 @@ def load_weights(model, path: str, cfg, step: Optional[int] = None):
     return restored[1]
 
 
+def to_numpy(obj):
+    """Tensors (nested in lists, tuples and dicts) as float numpy arrays
+    on the host."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        t = obj.detach().cpu()
+        return (t.float() if t.is_floating_point() else t).numpy()
+    if isinstance(obj, dict):
+        return {k: to_numpy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_numpy(v) for v in obj)
+    return obj
+
+
+def debug_dumper(cfg, model, threshold: float, vis_dir: str):
+    """The debug dumps of an eval loop, as `predict_dataset`'s on_batch:
+    for the batch's frames whose index is a multiple of
+    DEBUG.VISUALIZATION_JUMP_NUM, the debug forward (once per batch, no
+    window plan) and `visualize_frame`; under DEBUG.DEBUG also
+    `save_debug_3d_images`, `save_debug_3d_cubes` and
+    `save_debug_epipolar_dump` (a frame that the last batch's padding
+    repeats is dumped once)."""
+    import torch
+
+    from mvgformer_tpu_torch.utils.visualization import (
+        save_debug_3d_cubes, save_debug_3d_images, save_debug_epipolar_dump,
+        visualize_frame)
+
+    jump = max(cfg.DEBUG.VISUALIZATION_JUMP_NUM, 1)
+
+    def on_batch(idx, batch, pred):
+        dbg = None
+        for b, frame_idx in enumerate(idx):
+            # the last batch's padding repeats a frame: dump it once
+            if frame_idx % jump or frame_idx in idx[:b]:
+                continue
+            if dbg is None:
+                with torch.inference_mode():
+                    outs, inter = model(batch, threshold=threshold,
+                                        return_intermediates=True)
+                dbg = to_numpy(outs), to_numpy(inter), batch.to("cpu")
+            outs, inter, host = dbg
+            visualize_frame(vis_dir, frame_idx, host, pred[b],
+                            layer_outputs=outs, intermediates=inter,
+                            batch_index=b)
+            if cfg.DEBUG.DEBUG:
+                prefix = os.path.join(vis_dir, f"frame{frame_idx}")
+                save_debug_3d_images(cfg, host, pred, prefix)
+                save_debug_3d_cubes(
+                    cfg, host, pred[:, :, cfg.DATASET.ROOTIDX, :4], prefix)
+                save_debug_epipolar_dump(host, prefix, batch_index=b)
+
+    return on_batch
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
-    """Run the validation; returns per threshold its metrics and the eval
-    loop's frames, seconds, Prefetcher wait and escaped mass (None where
-    the preds came from the cache)."""
+    """Run the validation on the ranks PARALLEL.DATA asks for; returns
+    rank 0's: per threshold its metrics, the eval loop's frames, seconds,
+    Prefetcher wait and escaped mass (None where the preds came from the
+    cache), and the world and backend."""
+    from mvgformer_tpu_torch.config import load_config
+    from mvgformer_tpu_torch.device import resolve_device
+    from mvgformer_tpu_torch.parallel import launch
+
+    args, overrides = parse_args(argv)
+    cfg = load_config(args.cfg, overrides)
+    resolve_device(args.device)
+    return launch(validate, cfg.PARALLEL.DATA, args.device, args, cfg)
+
+
+def validate(dp, args, cfg) -> dict:
+    """The validation on this rank (`dp`, a `parallel.DataParallel`)."""
     import numpy as np
     import torch
 
-    from mvgformer_tpu_torch.config import load_config
     from mvgformer_tpu_torch.core.infer import (make_eval_step,
                                                 nms_evaluate,
                                                 predict_dataset)
     from mvgformer_tpu_torch.data.datasets import get_dataset
-    from mvgformer_tpu_torch.device import resolve_device
     from mvgformer_tpu_torch.models import build_model, is_dq
     from mvgformer_tpu_torch.models.mvgformer import \
         build_layer1_window_plan
     from mvgformer_tpu_torch.utils.logging import create_logger, format_table
 
-    args, overrides = parse_args(argv)
-    cfg = load_config(args.cfg, overrides)
-    device = resolve_device(args.device)
-    # the debug overlays read the DQ model's intermediates; the MvP
-    # baseline has none and validates without them, as in JAX
-    if (cfg.DEBUG.VISUALIZATION_JUMP_NUM >= 0
-            and is_dq(cfg)):
-        raise NotImplementedError(
-            "DEBUG.VISUALIZATION_JUMP_NUM >= 0: the debug dumps "
-            "(utils/visualization.py) are not ported yet")
-    logger, out_dir = create_logger(cfg, args.cfg, phase="validate")
-    logger.info("device: %s", device)
+    device = dp.device
+    logger, out_dir = create_logger(cfg, args.cfg, phase="validate",
+                                    write=dp.is_main)
+    logger.info("device: %s, rank %d of %d%s", device, dp.rank, dp.world,
+                f", backend {dp.backend}" if dp.distributed else "")
 
     test_ds = get_dataset(cfg, cfg.DATASET.TEST_SUBSET, is_train=False)
     logger.info("eval frames: %d", len(test_ds))
@@ -108,7 +182,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     else:
         logger.info("no checkpoint: weights from TRAIN.SEED %d",
                     cfg.TRAIN.SEED)
-    batch_size = max(cfg.TEST.BATCH_SIZE, 1)
+    batch_size = max(cfg.TEST.BATCH_SIZE // dp.world, 1) * dp.world
 
     window_plan = None
     if cfg.DECODER.layer1_windowed_sampling and is_dq(cfg):
@@ -119,6 +193,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             cfg, first.view_data, tile=cfg.DECODER.layer1_window_tile,
             halo=cfg.DECODER.layer1_window_halo, device=device)
 
+    # the debug overlays read the DQ model's taps; the MvP baseline has
+    # none and validates without them, as in JAX
+    debug = (cfg.DEBUG.VISUALIZATION_JUMP_NUM >= 0 and is_dq(cfg)
+             and dp.is_main)
     results, summary_rows = {}, []
     for thr in cfg.DECODER.inference_conf_thr:
         pred_path = os.path.join(
@@ -139,12 +217,16 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
                 loss_step = make_eval_loss_step(cfg, model, threshold=thr,
                                                 window_plan=window_plan)
-            run = predict_dataset(test_ds, eval_step, batch_size, device,
-                                  with_escape_telemetry=telemetry,
-                                  loss_step=loss_step)
+            run = predict_dataset(
+                test_ds, eval_step, batch_size, device,
+                with_escape_telemetry=telemetry, loss_step=loss_step, dp=dp,
+                on_batch=(debug_dumper(cfg, model, thr,
+                                       os.path.join(out_dir, "vis"))
+                          if debug else None))
             preds = run.preds
-            np.save(pred_path, np.stack(preds))
-            logger.info("saved preds to %s", pred_path)
+            if dp.is_main:
+                np.save(pred_path, np.stack(preds))
+                logger.info("saved preds to %s", pred_path)
             logger.info("eval loop: %d frames in %.3f s (%.3f frames/s), "
                         "prefetch wait %.3f s", len(preds), run.loop_s,
                         len(preds) / run.loop_s, run.wait_s)
@@ -162,12 +244,15 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                 logger.info("val loss thr=%s  %s", thr, {
                     k: round(v / run.loss_batches, 5)
                     for k, v in sorted(run.loss_sums.items())})
+        if not dp.is_main:  # rank 0 writes and scores the preds
+            continue
         if args.save_preds:
             root, ext = os.path.splitext(args.save_preds)
             np.save(f"{root}-{thr}{ext or '.npy'}", np.stack(preds))
 
         metrics = nms_evaluate(test_ds, preds)
-        results[thr] = {"metrics": metrics, "loop": loop}
+        results[thr] = {"metrics": metrics, "loop": loop,
+                        "world": dp.world, "backend": dp.backend}
         if isinstance(metrics, dict):
             logger.info("thr=%s  %s", thr,
                         {k: round(v, 4) for k, v in metrics.items()})

@@ -15,25 +15,29 @@ from collections import defaultdict
 from typing import Dict
 
 
-def create_logger(cfg, cfg_name: str, phase: str = "train"):
-    """File + console logger under OUTPUT_DIR/<dataset>/<cfg>/."""
+def create_logger(cfg, cfg_name: str, phase: str = "train",
+                  write: bool = True):
+    """File + console logger under OUTPUT_DIR/<dataset>/<cfg>/. With
+    `write` False (a data-parallel rank other than 0) no log file: the
+    console only, at warning level."""
     root = cfg.OUTPUT_DIR or "output"
     cfg_base = os.path.splitext(os.path.basename(cfg_name))[0]
     out_dir = os.path.join(root, cfg.DATASET.TEST_DATASET, cfg_base)
     os.makedirs(out_dir, exist_ok=True)
 
-    stamp = time.strftime("%Y-%m-%d-%H-%M")
-    log_file = os.path.join(out_dir, f"{cfg_base}_{stamp}_{phase}.log")
     logger = logging.getLogger("mvgformer_tpu_torch")
-    logger.setLevel(logging.INFO)
+    logger.setLevel(logging.INFO if write else logging.WARNING)
     logger.handlers.clear()
     fmt = logging.Formatter("%(asctime)-15s %(message)s")
-    fh = logging.FileHandler(log_file)
-    fh.setFormatter(fmt)
     sh = logging.StreamHandler()
     sh.setFormatter(fmt)
-    logger.addHandler(fh)
     logger.addHandler(sh)
+    if write:
+        stamp = time.strftime("%Y-%m-%d-%H-%M")
+        fh = logging.FileHandler(
+            os.path.join(out_dir, f"{cfg_base}_{stamp}_{phase}.log"))
+        fh.setFormatter(fmt)
+        logger.addHandler(fh)
     return logger, out_dir
 
 

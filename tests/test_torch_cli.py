@@ -5,7 +5,8 @@ eval loop against the JAX package's.
     configs/synthetic_smoke.yaml with --device cpu, in-process through
     main(argv): the logged "eval epoch 0" and mpjpe, the checkpoint, the
     saved preds, the prediction cache; resume; `python -m` in a
-    subprocess; --device cuda without a card and the debug dumps raise.
+    subprocess; --device cuda without a card raises, and so do the debug
+    dumps without matplotlib.
     Template: tests/test_cli_smoke.py;
   * the slice as a whole: core.infer.evaluate_dataset (batches -> eval
     step -> preds by frame index -> pose NMS -> SyntheticDataset.evaluate)
@@ -117,16 +118,23 @@ def test_validate_as_a_module(tmp_path):
     assert "mpjpe" in proc.stderr and "obs>=" in proc.stderr
 
 
-def test_no_card_and_debug_dumps_raise(tmp_path, restore_signals):
+def test_no_card_and_debug_dumps_raise(tmp_path, restore_signals,
+                                       monkeypatch):
+    """Without a card the CLIs raise; the debug dumps
+    (DEBUG.VISUALIZATION_JUMP_NUM >= 0) raise ImportError without
+    matplotlib, as JAX's do, rather than skip the plots."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA card"):
             validate_cli.main(["--cfg", SMOKE, f"OUTPUT_DIR={tmp_path}"])
         with pytest.raises(RuntimeError, match="no CUDA card"):
             train_cli.main(["--cfg", SMOKE, "--device", "cuda",
                             f"OUTPUT_DIR={tmp_path}"])
-    with pytest.raises(NotImplementedError, match="VISUALIZATION"):
+    for name in [m for m in sys.modules if m.split(".")[0] == "matplotlib"]:
+        monkeypatch.delitem(sys.modules, name)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(ImportError):
         validate_cli.main(["--cfg", SMOKE, "--device", "cpu",
-                           f"OUTPUT_DIR={tmp_path}",
+                           f"OUTPUT_DIR={tmp_path}", "DATASET.MAX_DATA_NUM=1",
                            "DEBUG.VISUALIZATION_JUMP_NUM=1"])
 
 

@@ -1,6 +1,7 @@
 """The port imports and runs with jax and flax blocked: in a fresh
 interpreter where importing either raises, import every module of
-mvgformer_tpu_torch (run/ and runtime/ among them) and run a toy forward
+mvgformer_tpu_torch (run/, runtime/, parallel/ and utils/visualization and
+profiling among them) and run a toy forward
 and eval step on the CPU, through the gather and through each windowed
 layer-1 impl, one training step (matcher, criterion, corner sampler,
 optimizer), and the train and validate CLIs on the synthetic smoke config
@@ -27,6 +28,10 @@ SCRIPT = textwrap.dedent("""
                                      "mvgformer_tpu_torch."):
         importlib.import_module(mod.name)
     assert {"mvgformer_tpu_torch.run.train", "mvgformer_tpu_torch.run.validate",
+            "mvgformer_tpu_torch.run.generate_video",
+            "mvgformer_tpu_torch.parallel.mesh",
+            "mvgformer_tpu_torch.utils.visualization",
+            "mvgformer_tpu_torch.utils.profiling",
             "mvgformer_tpu_torch.runtime"} <= set(sys.modules)
     from mvgformer_tpu_torch.config import load_config
     from mvgformer_tpu_torch.core.infer import make_eval_step
