@@ -121,8 +121,10 @@ exits non-zero:
      training step (bf16, dropout 0) on 2 ranks that
      `parallel.spawn` starts on cuda:0 over gloo (the backend rule: ranks
      that share a card), one frame each, against one process taking the
-     2-frame global batch: losses within bf16 2e-2, every reduced
-     gradient within 2e-2 of its leaf's largest, the ranks' parameters
+     2-frame global batch: losses within bf16 2e-2 (float32: 1e-4),
+     every reduced gradient within 2e-2 of its leaf's largest (bf16:
+     `bf16_grad_bounds`, 2x the one process's own bf16 rounding of the
+     leaf where that is larger), the ranks' parameters
      after the Adam step bit-equal; per rank steps/s over 5 steps, the
      gradient all-reduce's ms and share of a step (a StageTimer around
      each), B2 / B3 launches per step (counts set to 0 before the 5
@@ -141,7 +143,27 @@ exits non-zero:
      flagship frame's taps and the epipolar pickle;
  22. a StageTimer around the served flagship frame (bf16, top-64,
      point-top-4, Jacobi): the backbone, each decoder layer and the rest
-     in ms, beside frames/s.
+     in ms, beside frames/s;
+ 23. view parallelism: B1 against its plain version at one view (N 1, Lq
+     15360 and 960, P 4); then one flagship frame's 5 views over the 5
+     ranks of a (1 x 5) grid that `parallel.spawn(..., views=5)` starts
+     on cuda:0 over gloo (NCCL with a card per rank where 5 cards show),
+     against one process on the whole frame. 23a serving (top-64,
+     point-top-4, Jacobi) in float32 with TF32 off: top-K equal on every
+     rank and, as a set, to one process (a near-tie at the K-th score
+     allowed and printed), the last layer's logits and 3D at the golden
+     classes over the queries both keep; in bf16 within BF16_SERVE_BOUND
+     of their largest; per rank frames/s, the view collectives' ms and
+     share of a frame, B1 launches (per Lq) and peak memory. 23b the same
+     with the windowed layer 1 ('pallas_dma'), 23d the MvP baseline
+     ('cat_proj'), both float32. A token whose projection lies on an
+     image edge, inside in one run and outside in the other at a layer's
+     input, is printed and left out (at most VP_MAX_FLIPS of them, each
+     within VP_EDGE_PX of the edge in both runs). 23c one training step
+     in float32 (losses rtol 1e-3, gradients 2e-2 of a leaf's largest)
+     and bf16 (2e-2, `bf16_grad_bounds`), the ranks' parameters
+     bit-equal; per rank steps/s, the collectives' share and 24 / 24 / 12
+     B2 / B3 launches per step.
 
 Phase 10 also holds F.embedding_bag, the library call of B3's function,
 against B3's plain versions and times it. The models, batches and window
@@ -158,6 +180,7 @@ times), the card, and the device, as JSON. The `ranking` phase before them
 orders the kernels for later work (`ranking`).
 """
 
+import collections
 import contextlib
 import functools
 import importlib
@@ -2145,6 +2168,13 @@ TORCHRUN = (sys.executable, "-m", "torch.distributed.run", "--standalone",
 DEBUG_VALIDATE = ("DATASET.MAX_DATA_NUM=2", "TEST.BATCH_SIZE=2",
                   "DEBUG.VISUALIZATION_JUMP_NUM=0", "DEBUG.DEBUG=true")
 STAGE_FRAMES = 4  # the first one warm-up
+F32_GRAD_BOUND = 2e-2
+# the bf16 gradient bound of phases 20a and 23c, per leaf: a split run's
+# bf16 gradient and one process's are each one bf16 rounding from the
+# float32 gradient of the same inputs, so they lie at most twice that
+# rounding apart. The rounding is measured in the same run: the one
+# process's bf16 gradient of the leaf against its float32 one.
+BF16_ROUNDING_MARGIN = 2.0
 
 
 def dp_train_cfg(dtype="bfloat16"):
@@ -2226,18 +2256,38 @@ def dp_step_worker(dp, cfg, steps, out_dir):
     return stats
 
 
-def grad_gap(got, want):
-    """The worst of max|got - want| / max|want| over the leaves of
-    `want`, and its leaf."""
-    worst, name = 0.0, None
-    for k, w in want.items():
-        if k not in got:
-            fail(f"{k} has no gradient after the reduction")
-        rel = ((got[k] - w).abs().max()
-               / max(w.abs().max().item(), 1e-12)).item()
-        if rel > worst:
-            worst, name = rel, k
-    return worst, name
+def leaf_gaps(got, want):
+    """max|got - want| / max|want| of every leaf of `want`."""
+    return {k: ((got[k].to(w.device) - w).abs().max()
+                / max(w.abs().max().item(), 1e-12)).item()
+            for k, w in want.items()}
+
+
+def bf16_grad_bounds(want_bf16, want_f32):
+    """Per leaf of `want_bf16` (one process's bf16 gradients): the larger
+    of F32_GRAD_BOUND and BF16_ROUNDING_MARGIN times the leaf's rounding,
+    its gap from the same process's float32 gradient `want_f32`. Returns
+    ({leaf: bound}, {leaf: rounding})."""
+    rounding = leaf_gaps(want_bf16, want_f32)
+    return ({k: max(F32_GRAD_BOUND, BF16_ROUNDING_MARGIN * r)
+             for k, r in rounding.items()}, rounding)
+
+
+def grad_check(got, want, bounds):
+    """`got` against `want` leaf by leaf, each within its bound (`bounds`
+    a number or {leaf: bound}): (ok, the worst gap, its leaf, the worst
+    gap's share of its bound, the leaves over their bound with gap and
+    bound)."""
+    missing = sorted(set(want) - set(got))
+    if missing:
+        fail(f"{missing} have no gradient after the reduction")
+    gaps = leaf_gaps(got, want)
+    bound = (bounds if isinstance(bounds, dict)
+             else dict.fromkeys(gaps, bounds))
+    over = {k: (g, bound[k]) for k, g in gaps.items() if g > bound[k]}
+    worst = max(gaps, key=gaps.get)
+    share = max(g / bound[k] for k, g in gaps.items())
+    return not over, gaps[worst], worst, share, over
 
 
 def dp_single(cfg, device):
@@ -2266,10 +2316,12 @@ def dp_train(card, device="cuda", cfgs=None):
     each, against one process taking the same 2-frame global batch on the
     card. In float32 (TF32 off) the loss terms (the ranks' mean) within
     rtol 1e-4 and every reduced gradient within 2e-2 of its leaf's
-    largest; in bf16 the loss terms within 2e-2 and the gradients' gaps
-    printed: there the 1-frame and 2-frame shapes round apart, and
-    bilinear sampling's location gradients (sampling_offsets) amplify
-    that past 2e-2. Both: the ranks' gradients and parameters after the
+    largest; in bf16 the loss terms within 2e-2 and every gradient within
+    its `bf16_grad_bounds` of its leaf's largest (the 1-frame and 2-frame
+    shapes round apart, most in layer 1's sampling_offsets, and the
+    bound follows bf16's own rounding of the leaf, which the one process
+    measures from its float32 step). Both: the ranks' gradients and
+    parameters after the
     Adam step equal bit for bit, B2 / B3 launches per step on each rank;
     in bf16 steps/s per rank over DP_STEPS steps and the all-reduce's
     share of a step. Two ranks share cuda:0 over gloo (the backend rule); where the
@@ -2280,11 +2332,16 @@ def dp_train(card, device="cuda", cfgs=None):
 
     runs = {}
     cards = torch.cuda.device_count()
-    for dtype, loss_tol, grad_tol, steps in (
-            ("float32", 1e-4, 2e-2, 0),
-            ("bfloat16", 2e-2, None, DP_STEPS)):
+    f32_grads = None
+    for dtype, loss_tol, steps in (("float32", 1e-4, 0),
+                                   ("bfloat16", 2e-2, DP_STEPS)):
         cfg = (cfgs or {}).get(dtype) or dp_train_cfg(dtype)
         want_losses, want_grads = dp_single(cfg, device)
+        rounding = None
+        if dtype == "float32":
+            f32_grads, grad_tol = want_grads, F32_GRAD_BOUND
+        else:
+            grad_tol, rounding = bf16_grad_bounds(want_grads, f32_grads)
         for name, visible in (("one_card", 1), ("two_cards", 2)):
             if cards < visible:
                 phase("dp_train", run=name, dtype=dtype,
@@ -2306,23 +2363,21 @@ def dp_train(card, device="cuda", cfgs=None):
                            / max(abs(v), 1e-6)
                            for k, v in want_losses.items())
             got = {k: g.to(device) for k, g in ranks[0]["grads"].items()}
-            grad_err, worst = grad_gap(got, want_grads)
-            over = sorted(
-                k for k, w in want_grads.items()
-                if ((got[k] - w).abs().max()
-                    / max(w.abs().max().item(), 1e-12)).item() > 2e-2)
+            grad_ok, grad_err, worst, bound_share, over = grad_check(
+                got, want_grads, grad_tol)
             params_equal = all(torch.equal(p, ranks[1]["params"][k])
                                for k, p in ranks[0]["params"].items())
             grads_equal = all(torch.equal(g, ranks[1]["grads"][k])
                               for k, g in ranks[0]["grads"].items())
             ok = (loss_gap <= loss_tol and params_equal and grads_equal
-                  and (grad_tol is None or grad_err <= grad_tol))
+                  and grad_ok)
             phase("dp_train", run=name, backend=backend, world=DP_RANKS,
                   cfg=str(FLAGSHIP_CFG.relative_to(REPO)), dtype=dtype,
                   dropout=0.0, frames_per_rank=1,
                   loss_max_rel_gap=loss_gap, loss_tol=loss_tol,
-                  grad_max_rel_gap=grad_err, grad_tol=grad_tol,
-                  worst_grad=worst, leaves_over_2e_2=over,
+                  grad_max_rel_gap=grad_err, worst_grad=worst,
+                  **grad_bound_fields(grad_tol, rounding, worst,
+                                      bound_share, over),
                   leaves=len(want_grads),
                   params_equal_on_ranks=params_equal,
                   grads_equal_on_ranks=grads_equal,
@@ -2343,8 +2398,24 @@ def dp_train(card, device="cuda", cfgs=None):
                      f"{[s['launches_per_step'] for s in stats]}, "
                      f"expected {want}")
             runs[name] = stats
-        del want_grads
+    del want_grads, f32_grads
     return runs
+
+
+def grad_bound_fields(grad_tol, rounding, worst, bound_share, over):
+    """The phase line's fields of a gradient gate: the bound of the worst
+    leaf, its bf16 rounding where bf16 (`bf16_grad_bounds`), the largest
+    share of a leaf's bound taken and the leaves over their bound."""
+    bounded = isinstance(grad_tol, dict)
+    fields = {"grad_tol": grad_tol[worst] if bounded else grad_tol,
+              "grad_max_share_of_bound": bound_share,
+              "leaves_over_bound": over}
+    if rounding is not None:
+        top = sorted(rounding, key=rounding.get, reverse=True)[:3]
+        fields.update(worst_grad_bf16_rounding=rounding[worst],
+                      largest_bf16_rounding={k: rounding[k] for k in top},
+                      grad_bound="max(2e-2, 2 x the leaf's bf16 rounding)")
+    return fields
 
 
 @contextlib.contextmanager
@@ -2588,6 +2659,622 @@ def stage_split(card):
     torch.cuda.empty_cache()
 
 
+# phase 23: view parallelism, one flagship frame's 5 views over the
+# ranks of a (1 x VP_VIEWS) grid
+VP_VIEWS = 5
+VP_FRAMES, VP_WARMUP = 6, 2  # timed bf16 frames per rank, warm-up first
+VP_STEPS = 3                 # timed bf16 training steps per rank
+VP_TIE = 1e-6                # a near-tie at the K-th score, relative
+# a token whose projection the two runs put on either side of an image
+# edge (`bounds_flips`) is left out of the comparison: at most
+# VP_MAX_FLIPS of them per served config and rank, each within VP_EDGE_PX
+# of the edge in both runs (the one such token of 23d, on an NVIDIA H100
+# 80GB HBM3, lay 0.004-0.014 px from the edge; tests/vp_card_diagnosis.py)
+VP_MAX_FLIPS, VP_EDGE_PX = 1, 0.1
+# 23a's bf16 served frame against one process, relative to the largest
+# logit and the largest 3D coordinate: this phase's reading on an NVIDIA
+# H100 80GB HBM3 at 700 W (logits 2.18e-3, 3D 1.31e-4, 0.45 mm) times a
+# margin of 4
+BF16_SERVE_BOUND = {"logits_rel": 4 * 2.18e-3, "poses_rel": 4 * 1.31e-4}
+
+
+def vp_serve_cfgs():
+    """23a-23b, 23d: the served configs, name -> config."""
+    windowed = flagship_cfg("float32")
+    windowed.DECODER.layer1_windowed_sampling = True
+    windowed.DECODER.layer1_window_impl = "pallas_dma"
+    return {"dq_f32": flagship_cfg("float32"),
+            "dq_bf16": flagship_cfg("bfloat16"),
+            "dq_windowed_f32": windowed,
+            "mvp_f32": mvp_cfg("float32")}
+
+
+def vp_frame(cfg, device, batch_size=1):
+    from mvgformer_tpu_torch.data.synthetic import make_batch
+
+    return make_batch(cfg, batch_size=batch_size, seed=SEED + 500,
+                      num_people=3, cam_seed=SEED, device=device)
+
+
+def timed_collectives(timer, device):
+    """Time every collective of `parallel/collectives.py` under the stage
+    'collectives' of `timer`: a synchronize before (so that the work
+    queued before it is not counted) and after each. Returns the undo."""
+    from mvgformer_tpu_torch.parallel import collectives
+    from mvgformer_tpu_torch.utils.profiling import synchronize
+
+    saved = {k: getattr(collectives, k) for k in
+             ("all_reduce_sum", "all_reduce_max", "all_gather")}
+
+    def wrap(fn):
+        def timed(*args, **kwargs):
+            synchronize(device)
+            return timer.time_fn("collectives", fn, *args, **kwargs)
+        return timed
+
+    for k, fn in saved.items():
+        setattr(collectives, k, wrap(fn))
+
+    def undo():
+        for k, fn in saved.items():
+            setattr(collectives, k, fn)
+    return undo
+
+
+def recorded_selections():
+    """Record every `top_indices` of the DQ decoder: (scores, selection)
+    pairs on the host; returns (list, undo)."""
+    from mvgformer_tpu_torch.models import decoder
+
+    taken, original = [], decoder.top_indices
+
+    def recording(scores, k):
+        sel = original(scores, k)
+        taken.append((scores.float().cpu(), sel.cpu()))
+        return sel
+
+    decoder.top_indices = recording
+
+    def undo():
+        decoder.top_indices = original
+    return taken, undo
+
+
+def b1_launches_by_lq():
+    """B1's launches per Lq (the queries of each call) while a path runs:
+    ({Lq: launches}, undo). Each call adds what it added to the wrapper's
+    own count, `deform_sample.launches`."""
+    from mvgformer_tpu_torch.ops import projattn
+
+    by_lq, original = collections.Counter(), projattn.deform_sample
+
+    def counted(value, spatial_shapes, sampling_locations, *args):
+        before = deform_attn.deform_sample.launches
+        out = original(value, spatial_shapes, sampling_locations, *args)
+        by_lq[sampling_locations.shape[1]] += (
+            deform_attn.deform_sample.launches - before)
+        return out
+
+    projattn.deform_sample = counted
+
+    def undo():
+        projattn.deform_sample = original
+    return by_lq, undo
+
+
+def vp_serve_run(cfg, model, batch, plan, grid, device, timed):
+    """One served frame of `model` on `batch` (this rank's views under
+    `grid`): the last layer's logits and 3D, the top-K selections and the
+    kernel launches (B1's also per Lq); with `timed`, VP_FRAMES frames
+    through the eval step (VP_WARMUP warm-up) with the view collectives
+    timed."""
+    from mvgformer_tpu_torch.core.infer import make_eval_step
+    from mvgformer_tpu_torch.models import is_dq
+    from mvgformer_tpu_torch.parallel import collectives
+    from mvgformer_tpu_torch.utils.profiling import StageTimer, synchronize
+
+    taken, undo = recorded_selections()
+    by_lq, undo_b1 = b1_launches_by_lq()
+    count_kernels()
+    try:
+        with torch.inference_mode():
+            outs = (model(batch, threshold=THRESHOLD, window_plan=plan,
+                          grid=grid) if is_dq(cfg) else
+                    model(batch, grid=grid))
+        synchronize(device)
+    finally:
+        undo_b1()
+        undo()
+    out = {"logits": outs[-1]["pred_logits"].float().cpu(),
+           "poses": outs[-1]["pred_poses"].float().cpu(),
+           "layer_poses": [o["pred_poses"].float().cpu() for o in outs],
+           "selections": taken,
+           "launches": {fn.__name__: fn.launches for fn in ALL_KERNELS},
+           "b1_by_lq": dict(by_lq)}
+    if not timed:
+        return out
+    step = make_eval_step(cfg, model, THRESHOLD, window_plan=plan, dp=grid)
+    for _ in range(VP_WARMUP):
+        step(batch)
+    synchronize(device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    timer = StageTimer()
+    undo = timed_collectives(timer, device)
+    count_kernels()
+    collectives.reset_counts()
+    try:
+        for _ in range(VP_FRAMES - VP_WARMUP):
+            with timer.stage("frame", device):
+                step(batch)
+    finally:
+        undo()
+    frames = VP_FRAMES - VP_WARMUP
+    out["timing"] = {
+        "frames_per_s": frames / timer.totals["frame"],
+        "frame_ms": 1e3 * timer.totals["frame"] / frames,
+        "collectives_ms_per_frame":
+            1e3 * timer.totals["collectives"] / frames,
+        "collectives_per_frame": sum(collectives.COUNTS.values()) / frames,
+        "collectives_share": timer.totals["collectives"]
+        / timer.totals["frame"],
+        "b1_launches_per_frame": deform_attn.deform_sample.launches / frames,
+        "peak_mem_gib": peak_gib(device)}
+    return out
+
+
+def peak_gib(device):
+    """The peak memory allocated on the card (None on the CPU)."""
+    if torch.device(device).type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated(device) / 2 ** 30
+
+
+def empty_cache(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def vp_serve_worker(dp, cfgs, out_dir):
+    """Phase 23a, 23b and 23d on one rank: each served config's model
+    (`cfgs`, name -> config) from SEED, the frame cut to this rank's
+    views, `vp_serve_run`; the results to <out_dir>/rank<r>.pt."""
+    from mvgformer_tpu_torch.device import strict_float32
+    from mvgformer_tpu_torch.models import build_model
+    from mvgformer_tpu_torch.models.mvgformer import build_layer1_window_plan
+    from mvgformer_tpu_torch.parallel import shard_batch
+
+    strict_float32()
+    results = {}
+    for name, cfg in cfgs.items():
+        model = build_model(cfg, generator=torch.Generator().manual_seed(
+            SEED), device=dp.device)
+        frame = vp_frame(cfg, dp.device)
+        plan = (build_layer1_window_plan(cfg, frame.view_data,
+                                         device=dp.device)
+                if cfg.DECODER.layer1_windowed_sampling else None)
+        results[name] = vp_serve_run(cfg, model, shard_batch(frame, dp),
+                                     plan, dp, dp.device,
+                                     timed=name == "dq_bf16")
+        del model
+        empty_cache(dp.device)
+    torch.save(results, Path(out_dir) / f"rank{dp.rank}.pt")
+    return None
+
+
+def vp_train_worker(dp, cfgs, out_dir):
+    """Phase 23c on one rank: the flagship training step (`cfgs`, dtype ->
+    config: gt match, Jacobi, remat, dropout 0) on this rank's views of
+    one frame, in float32 and bf16 (its metrics, reduced gradients and
+    updated parameters), then VP_STEPS timed bf16 steps with the view
+    collectives and the gradient all-reduce timed; to
+    <out_dir>/rank<r>.pt."""
+    from mvgformer_tpu_torch.core import train as core_train
+    from mvgformer_tpu_torch.device import strict_float32
+    from mvgformer_tpu_torch.models.mvgformer import MVGFormer
+    from mvgformer_tpu_torch.parallel import shard_batch
+    from mvgformer_tpu_torch.utils.profiling import StageTimer
+
+    strict_float32()
+    out = {}
+    for dtype, cfg in cfgs.items():
+        model = MVGFormer(cfg, generator=torch.Generator().manual_seed(SEED),
+                          device=dp.device)
+        local = shard_batch(vp_frame(cfg, dp.device), dp)
+        state, tx = core_train.create_train_state(cfg, model)
+        step = core_train.make_train_step(cfg, model, tx, dp=dp)
+        # the ranks of a data row draw the same dropout masks
+        gen = torch.Generator(device=dp.device).manual_seed(
+            cfg.TRAIN.SEED + dp.data_rank)
+        state, metrics = step(state, local, gen)
+        out[dtype] = {
+            "metrics": {k: v.item() for k, v in metrics.items()},
+            "grads": {k: p.grad.float().cpu()
+                      for k, p in model.named_parameters()
+                      if p.grad is not None},
+            "params": {k: p.detach().cpu()
+                       for k, p in model.named_parameters()}}
+        if dtype == "bfloat16":
+            timer = StageTimer()
+            undo = timed_collectives(timer, dp.device)
+            reduce = core_train.all_reduce_grads
+            core_train.all_reduce_grads = functools.partial(
+                timer.time_fn, "collectives", reduce)
+            count_kernels()
+            try:
+                for _ in range(VP_STEPS):
+                    with timer.stage("step", dp.device):
+                        state, _ = step(state, local, gen)
+            finally:
+                core_train.all_reduce_grads = reduce
+                undo()
+            out["timing"] = {
+                "steps_per_s": VP_STEPS / timer.totals["step"],
+                "step_ms": 1e3 * timer.totals["step"] / VP_STEPS,
+                "collectives_ms_per_step":
+                    1e3 * timer.totals["collectives"] / VP_STEPS,
+                "collectives_share": timer.totals["collectives"]
+                / timer.totals["step"],
+                "launches_per_step": {fn.__name__: fn.launches / VP_STEPS
+                                      for fn in TRAIN_KERNELS},
+                "peak_mem_gib": peak_gib(dp.device)}
+        del model, state
+        empty_cache(dp.device)
+    torch.save(out, Path(out_dir) / f"rank{dp.rank}.pt")
+    return None
+
+
+def vp_single_train(cfg, device):
+    """One process's training step of `cfg` on the whole frame: its loss
+    terms and gradients."""
+    from mvgformer_tpu_torch.core.train import (create_train_state,
+                                                make_train_step)
+    from mvgformer_tpu_torch.models.mvgformer import MVGFormer
+
+    model = MVGFormer(cfg, generator=torch.Generator().manual_seed(SEED),
+                      device=device)
+    state, tx = create_train_state(cfg, model)
+    _, metrics = make_train_step(cfg, model, tx)(state,
+                                                 vp_frame(cfg, device))
+    losses = {k: metrics[k].item() for k in DP_LOSSES}
+    grads = {k: p.grad.float() for k, p in model.named_parameters()
+             if p.grad is not None}
+    del model, state
+    empty_cache(device)
+    return losses, grads
+
+
+def compare_selections(name, ranks, want):
+    """The top-K selections: equal on every rank (a hard gate) and, as
+    sets, to one process, where the one allowed difference is a near-tie
+    at the K-th score (within VP_TIE relative) that another sum order
+    flips. Returns
+    (equal to one process, the near-ties, the queries both keep or None
+    for all)."""
+    first = ranks[0]["selections"]
+    for r, res in enumerate(ranks[1:], 1):
+        if len(res["selections"]) != len(first) or not all(
+                torch.equal(a[1], b[1]) for a, b in
+                zip(res["selections"], first)):
+            fail(f"{name}: rank {r} selected other top-K queries than "
+                 f"rank 0")
+    if len(first) != len(want["selections"]):
+        fail(f"{name}: {len(first)} compactions, one process "
+             f"{len(want['selections'])}")
+    if not first:
+        return True, [], None
+    ties = []
+    for (scores, sel), (w_scores, w_sel) in zip(first, want["selections"]):
+        # the same queries; their order follows the scores' last bits
+        if torch.equal(torch.sort(sel).values, torch.sort(w_sel).values):
+            continue
+        k = sel.shape[1]
+        top = torch.sort(w_scores, dim=1, descending=True).values
+        kth, nxt = top[:, k - 1], top[:, k]
+        rel = ((kth - nxt).abs() / kth.abs().clamp(min=1e-12)).max().item()
+        ties.append({"kth_gap_rel": rel,
+                     "differ": int((torch.sort(sel).values
+                                    != torch.sort(w_sel).values).sum())})
+    # the queries both runs keep after the last compaction
+    sel, w_sel = first[-1][1], want["selections"][-1][1]
+    keep = [sorted(set(a.tolist()) & set(b.tolist()))
+            for a, b in zip(sel, w_sel)]
+    return not ties, ties, keep
+
+
+def bounds_flips(got, want, view_data):
+    """The tokens whose projection into some view lies in the image in
+    one run and outside it in the other, at the input of a layer after
+    the first (the previous layer's 3D, `layer_poses`). The bounds mask
+    that zeroes a view's features is a discrete branch there, which the
+    runs' last bits can take apart. Returns ((B, Q*J) bool, a list of
+    {batch, token, layer, view, edge_px}): edge_px is the distance in
+    pixels of the token's projection from the nearest image edge in each
+    run (float64), the witness that the token lies on the edge."""
+    from mvgformer_tpu_torch.data.meta import map_tensors
+    from mvgformer_tpu_torch.geometry.cameras import project_points
+
+    wh = view_data.centers.cpu() * 2.0  # (B, V, 2)
+    V = wh.shape[1]
+
+    def project(poses, dtype):
+        cams = map_tensors(view_data.cameras, lambda t: t.to(dtype).cpu())
+        B, N, _ = poses.shape
+        return project_points(poses.to(dtype)[:, None].expand(B, V, N, 3),
+                              cams)
+
+    def inside(pix):
+        w = wh.to(pix.dtype)
+        return ((pix[..., 0] >= 0) & (pix[..., 1] >= 0)
+                & (pix[..., 0] < w[..., 0:1]) & (pix[..., 1] < w[..., 1:2]))
+
+    def edge_px(pix):
+        w = wh.to(pix.dtype)
+        return torch.stack([pix[..., 0].abs(), pix[..., 1].abs(),
+                            (pix[..., 0] - w[..., 0:1]).abs(),
+                            (pix[..., 1] - w[..., 1:2]).abs()]).amin(dim=0)
+
+    flips = torch.zeros(want[0].shape[:2], dtype=torch.bool)
+    where = []
+    for layer, (g, w) in enumerate(zip(got[:-1], want[:-1]), start=1):
+        flip = inside(project(g, torch.float32)) != inside(
+            project(w, torch.float32))  # (B, V, N)
+        dg, dw = (edge_px(project(x, torch.float64)) for x in (g, w))
+        for b, v, n in flip.nonzero().tolist():
+            where.append({"batch": b, "token": n, "layer": layer, "view": v,
+                          "edge_px": [dg[b, v, n].item(),
+                                      dw[b, v, n].item()]})
+        flips |= flip.any(dim=1)
+    return flips, where
+
+
+def compare_served(name, ranks, want, view_data, rel_bound, card,
+                   **fields):
+    """A served frame on the grid's ranks against one process: top-K
+    (`compare_selections`), and over the queries both keep the last
+    layer's logits and 3D: in float32 (rel_bound None) at the golden
+    classes (logits rtol 1e-3 / atol 2e-3, 3D p99 < 2 mm, max < 6 mm);
+    in bf16 (rel_bound, BF16_SERVE_BOUND) within its bounds of the
+    largest logit and the largest 3D coordinate. Tokens where the two
+    runs' bounds masks part (`bounds_flips`: at most VP_MAX_FLIPS per
+    rank, each within VP_EDGE_PX of the edge in both runs) are printed
+    with their gap and left out, and so are their queries' logits."""
+    equal, ties, keep = compare_selections(name, ranks, want)
+    if ties and (rel_bound is None and any(
+            t["kth_gap_rel"] > VP_TIE for t in ties)):
+        fail(f"{name}: top-K differs from one process without a near-tie "
+             f"at the K-th score: {ties}")
+    Q = want["logits"].shape[1]
+    J = want["poses"].shape[1] // Q
+    worst = {"logits_max_abs_err": 0.0, "poses_mm_p99": 0.0,
+             "poses_mm_max": 0.0, "logits_rel": 0.0, "poses_rel": 0.0}
+    flipped, flip_sites = [], []
+    ok = True
+    for r, res in enumerate(ranks):
+        flips, where = bounds_flips(res["layer_poses"], want["layer_poses"],
+                                    view_data)
+        flips = flips.reshape(-1, Q, J)
+        ok &= (int(flips.sum()) <= VP_MAX_FLIPS
+               and all(max(f["edge_px"]) <= VP_EDGE_PX for f in where))
+        if r == 0:
+            flip_sites = where
+        for b in range(want["logits"].shape[0]):
+            q = (torch.arange(Q) if keep is None
+                 else torch.tensor(keep[b], dtype=torch.long))
+            pg = res["poses"][b].reshape(Q, J, 3)[q]
+            pw = want["poses"][b].reshape(Q, J, 3)[q]
+            flip = flips[b, q]
+            if r == 0:
+                flipped += [{"query": int(q[i]), "joint": int(j),
+                             "mm": (pg[i, j] - pw[i, j]).abs().max().item()}
+                            for i, j in flip.nonzero().tolist()]
+            q_same = ~flip.any(dim=1)
+            lg, lw = res["logits"][b, q][q_same], want["logits"][b, q][q_same]
+            err3d = (pg - pw).abs()[~flip]
+            p99 = float(np.percentile(err3d.numpy(), 99))
+            lerr = (lg - lw).abs().max().item()
+            worst["logits_max_abs_err"] = max(worst["logits_max_abs_err"],
+                                              lerr)
+            worst["poses_mm_p99"] = max(worst["poses_mm_p99"], p99)
+            worst["poses_mm_max"] = max(worst["poses_mm_max"],
+                                        err3d.max().item())
+            worst["logits_rel"] = max(worst["logits_rel"], lerr / max(
+                lw.abs().max().item(), 1e-12))
+            worst["poses_rel"] = max(worst["poses_rel"], err3d.max().item()
+                                     / max(pw.abs().max().item(), 1e-12))
+            finite = bool(torch.isfinite(lg).all() and
+                          torch.isfinite(pg).all())
+            if rel_bound is None:
+                ok &= bool(torch.allclose(lg, lw, rtol=1e-3, atol=2e-3)
+                           and p99 < 2.0 and err3d.max().item() < 6.0
+                           and finite)
+            else:
+                ok &= (worst["logits_rel"] <= rel_bound["logits_rel"]
+                       and worst["poses_rel"] <= rel_bound["poses_rel"]
+                       and finite)
+    phase("vp_serve", run=name, ranks=len(ranks),
+          topk_equal_to_one_process=equal, near_ties=ties,
+          bounds_flips=flipped, bounds_flip_sites=flip_sites,
+          compared_queries=None if keep is None else [len(k) for k in keep],
+          rel_bound=rel_bound, ok=ok, card=card, **worst, **fields)
+    if not ok:
+        fail(f"{name}: the {len(ranks)} view ranks disagree with one "
+             f"process")
+
+
+def view_parallel(card, device="cuda", serve_cfgs=None, train_cfgs=None):
+    """Phase 23: view parallelism on a (1 x VP_VIEWS) grid, each rank one
+    of the flagship frame's 5 views, the ranks sharing cuda:0 over gloo
+    (the backend rule; where the machine shows VP_VIEWS cards, the same
+    again with a card per rank over NCCL). Against one process on the
+    whole frame: 23a the served frame (top-64, point-top-4, Jacobi) in
+    float32 (TF32 off) and in bf16, 23b with the windowed layer 1 (impl
+    'pallas_dma'), 23d the MvP baseline ('cat_proj'), 23c one training
+    step in float32 and bf16 (`vp_train_worker`). Per rank: frames/s,
+    the view collectives' ms and share of a frame, B1 launches per frame
+    and peak memory (23a bf16); steps/s, the collectives' share and
+    B2 / B3 launches per step (23c). Returns {run: {path: per-rank
+    launches}}. `device` and the configs (`vp_serve_cfgs`'s names;
+    dtype -> training config) let the phase be rehearsed at a toy size on
+    the CPU."""
+    from mvgformer_tpu_torch.device import strict_float32
+    from mvgformer_tpu_torch.models import build_model
+    from mvgformer_tpu_torch.models.mvgformer import build_layer1_window_plan
+    from mvgformer_tpu_torch.parallel import choose_backend, spawn
+
+    strict_float32()
+    serve_cfgs = serve_cfgs or vp_serve_cfgs()
+    train_cfgs = train_cfgs or {dtype: dp_train_cfg(dtype)
+                                for dtype in ("float32", "bfloat16")}
+    single, view_data = {}, {}
+    for name, cfg in serve_cfgs.items():
+        model = build_model(cfg, generator=torch.Generator().manual_seed(
+            SEED), device=device)
+        frame = vp_frame(cfg, device)
+        view_data[name] = frame.view_data
+        plan = (build_layer1_window_plan(cfg, frame.view_data,
+                                         device=device)
+                if cfg.DECODER.layer1_windowed_sampling else None)
+        single[name] = vp_serve_run(cfg, model, frame, plan, None, device,
+                                    timed=name == "dq_bf16")
+        del model
+        empty_cache(device)
+    single_train = {dtype: vp_single_train(cfg, device)
+                    for dtype, cfg in train_cfgs.items()}
+    phase("vp_one_process", dtype="bfloat16", **single["dq_bf16"]["timing"],
+          card=card)
+    launches = {}
+    cards = torch.cuda.device_count()
+    runs = ((("one_card", 1), ("five_cards", VP_VIEWS))
+            if torch.device(device).type == "cuda" else (("cpu", 0),))
+    for run, visible in runs:
+        if cards < visible:
+            phase("vp", run=run, skipped=f"NCCL skipped: {cards} card(s) "
+                  f"visible, {VP_VIEWS} needed", card=card)
+            continue
+        backend = choose_backend(torch.device(device).type, VP_VIEWS,
+                                 visible)
+        with visible_devices(visible):
+            t0 = time.perf_counter()
+            with tempfile.TemporaryDirectory(prefix="vp-",
+                                             dir=REPO / "build") as out:
+                spawn(vp_serve_worker, VP_VIEWS, device, serve_cfgs, out,
+                      views=VP_VIEWS)
+                served = [torch.load(Path(out) / f"rank{r}.pt")
+                          for r in range(VP_VIEWS)]
+            serve_s = time.perf_counter() - t0
+            with tempfile.TemporaryDirectory(prefix="vp-",
+                                             dir=REPO / "build") as out:
+                spawn(vp_train_worker, VP_VIEWS, device, train_cfgs, out,
+                      views=VP_VIEWS)
+                trained = [torch.load(Path(out) / f"rank{r}.pt")
+                           for r in range(VP_VIEWS)]
+            train_s = time.perf_counter() - t0 - serve_s
+        for name in serve_cfgs:
+            compare_served(
+                name, [res[name] for res in served], single[name],
+                view_data[name],
+                BF16_SERVE_BOUND if "bf16" in name else None, card,
+                grid=f"1x{VP_VIEWS}", backend=backend, run_on=run,
+                launches_per_rank=[res[name]["launches"] for res in served])
+        on_card = torch.device(device).type == "cuda"
+        for name, kernel in (("dq_f32", deform_attn.deform_sample),
+                             ("dq_windowed_f32", window_dma.window_block_dma),
+                             ("mvp_f32", deform_attn.deform_sample)):
+            if on_card and any(res[name]["launches"][kernel.__name__] == 0
+                   for res in served):
+                fail(f"{name}: a view rank never launched {kernel.__name__}")
+        phase("vp_serve_timing", run=run, backend=backend, dtype="bfloat16",
+              per_rank=[res["dq_bf16"]["timing"] for res in served],
+              group_frames_per_s=min(res["dq_bf16"]["timing"]["frames_per_s"]
+                                     for res in served),
+              one_process=single["dq_bf16"]["timing"], seconds=serve_s,
+              card=card)
+        for dtype, loss_tol in (("float32", 1e-3), ("bfloat16", 2e-2)):
+            want_losses, want_grads = single_train[dtype]
+            grad_tol, rounding = ((F32_GRAD_BOUND, None)
+                                  if dtype == "float32" else
+                                  bf16_grad_bounds(
+                                      want_grads,
+                                      single_train["float32"][1]))
+            ranks = [t[dtype] for t in trained]
+            loss_gap = max(abs(ranks[0]["metrics"][k] - v)
+                           / max(abs(v), 1e-6)
+                           for k, v in want_losses.items())
+            got = {k: g.to(device) for k, g in ranks[0]["grads"].items()}
+            grad_ok, grad_err, worst, bound_share, over = grad_check(
+                got, want_grads, grad_tol)
+            params_equal = all(
+                torch.equal(p, other["params"][k]) for other in ranks[1:]
+                for k, p in ranks[0]["params"].items())
+            ok = loss_gap <= loss_tol and grad_ok and params_equal
+            phase("vp_train", run=run, backend=backend, dtype=dtype,
+                  grid=f"1x{VP_VIEWS}", loss_max_rel_gap=loss_gap,
+                  loss_tol=loss_tol, grad_max_rel_gap=grad_err,
+                  worst_grad=worst,
+                  **grad_bound_fields(grad_tol, rounding, worst,
+                                      bound_share, over),
+                  params_equal_on_ranks=params_equal,
+                  losses={k: ranks[0]["metrics"][k] for k in DP_LOSSES},
+                  single_process_losses=want_losses, ok=ok, card=card)
+            if not ok:
+                fail(f"the {VP_VIEWS} view ranks' training step ({dtype}, "
+                     f"{run}) disagrees with one process")
+        want = {fn.__name__: n for fn, n in zip(TRAIN_KERNELS, (24, 24, 12))}
+        timing = [t["timing"] for t in trained]
+        if on_card and any(t["launches_per_step"] != want for t in timing):
+            fail(f"B2 / B3 launches per step per view rank "
+                 f"{[t['launches_per_step'] for t in timing]}, expected "
+                 f"{want}")
+        phase("vp_train_timing", run=run, backend=backend, dtype="bfloat16",
+              per_rank=timing, seconds=train_s, card=card)
+        launches[run] = {
+            "serve": [res["dq_bf16"]["launches"] for res in served],
+            "serve_b1_by_lq": [res["dq_bf16"]["b1_by_lq"]
+                               for res in served],
+            "serve_windowed": [res["dq_windowed_f32"]["launches"]
+                               for res in served],
+            "mvp_serve": [res["mvp_f32"]["launches"] for res in served],
+            "train_per_step": [t["launches_per_step"] for t in timing]}
+    return launches
+
+
+def check_kernel_one_view(card):
+    """B1 at the view-local shapes of phase 23 (one view and one frame per
+    rank: N 1, Lq 15360 and 960, P 4), bfloat16 and float32, against its
+    plain version on the card. Returns, per Lq in bfloat16, ms, device_ms,
+    plain ms and the compulsory work."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    timed = {}
+    for Lq in (15360, 960):
+        for dtype in (torch.float32, torch.bfloat16):
+            value, loc, aw = sampling_inputs(Lq, 4, dtype, gen, views=1)
+            out = deform_attn.deform_sample(value, SPATIAL_SHAPES, loc, aw)
+            ref = sampling.deform_sample(value.float(), SPATIAL_SHAPES, loc,
+                                         aw.float())
+            err = (out.float() - ref).abs().max().item()
+            ok = (err <= 1e-4 if dtype == torch.float32 else
+                  torch.allclose(out.float(), ref, atol=2e-2, rtol=2e-2))
+            phase("kernel_vs_plain_one_view", N=1, Lq=Lq, H=HEADS,
+                  D=HEAD_DIM, L=len(SPATIAL_SHAPES), P=4, dtype=str(dtype),
+                  max_abs_err=err, ok=bool(ok), card=card)
+            if not ok:
+                fail(f"B1 disagrees with its plain version at one view: "
+                     f"Lq={Lq} {dtype} max abs err {err}")
+            if dtype == torch.bfloat16:
+                def kernel():
+                    return deform_attn.deform_sample(value, SPATIAL_SHAPES,
+                                                     loc, aw)
+
+                timed[Lq] = {
+                    "ms": cuda_ms(kernel), "device_ms": device_ms(kernel)[0],
+                    "plain_ms": cuda_ms(lambda: sampling.deform_sample(
+                        value, SPATIAL_SHAPES, loc, aw)),
+                    "work": bounds.deform_sample(value, SPATIAL_SHAPES, loc,
+                                                 aw)}
+    return timed
+
+
 def parent_vs_change(card, parent):
     """B1 at B1_SHAPES, B4 and B5 on the K = 28 plan and B2 on the flagship
     value's level views, bfloat16, timed by this checkout's
@@ -2662,8 +3349,13 @@ def main(argv=None):
     n = max(SERVE_FRAMES, WINDOW_FRAMES)
     frames = [make_batch(cfg, batch_size=1, seed=SEED + 1 + i,
                          num_people=3, cam_seed=SEED) for i in range(n)]
-    launches = {"deform_sample": serve(card, cfg, model,
-                                       frames[:SERVE_FRAMES])["deform_sample"]}
+    # B1's launches per Lq: dense layer 1 and the top-64 layers
+    b1_by_lq, undo = b1_launches_by_lq()
+    try:
+        launches = {"deform_sample": serve(
+            card, cfg, model, frames[:SERVE_FRAMES])["deform_sample"]}
+    finally:
+        undo()
     for impl, kernel in IMPL_KERNEL.items():
         counts = serve(card, cfg, model, frames[:WINDOW_FRAMES], impl)
         launches[kernel.__name__] = counts[kernel.__name__]
@@ -2723,6 +3415,14 @@ def main(argv=None):
     stage_split(card)
     phase("parallel_debug_stages", seconds=time.perf_counter() - t_dp,
           card=card)
+    t_vp = time.perf_counter()
+    one_view = check_kernel_one_view(card)
+    vp_runs = view_parallel(card)
+    # B1's launches per Lq on each view rank's served bf16 frame (ranks
+    # sharing one card)
+    vp_by_lq = {run: paths.pop("serve_b1_by_lq")
+                for run, paths in vp_runs.items()}["one_card"]
+    phase("view_parallelism", seconds=time.perf_counter() - t_vp, card=card)
     mvp = {"serve_launches": mvp_serve_launches,
            "b1_device_ms_per_launch":
                mvp_serve_prof["b1_device_ms_per_launch"]}
@@ -2734,20 +3434,19 @@ def main(argv=None):
            for name, run in flagship_options.items()},
         **{f"dp_train_{name}_rank{s['rank']}_per_step":
            s["launches_per_step"] for name, stats in dp_runs.items()
-           for s in stats}}
+           for s in stats},
+        # phase 23: each path on each view rank, counts set to 0 before it
+        **{f"vp_{path}_{run}_rank{r}": counts
+           for run, paths in vp_runs.items()
+           for path, per_rank in paths.items()
+           for r, counts in enumerate(per_rank)}}
 
     turns = (parent_vs_change(card, Path(args.parent).resolve())
              if args.parent else {})
     flagship = "bfloat16 NH=40 S=122880 D=32 per level, the 3 flagship " \
         "levels summed (one training layer)"
-    # a served frame launches B1 once at dense layer 1 and once per
-    # later layer at the top-64 shape
-    layers = cfg.DECODER.num_decoder_layers
-    b1_frames = launches["deform_sample"] // layers
-    b1_launches = {15360: b1_frames, 960: launches["deform_sample"]
-                   - b1_frames}
     by_shape = [{"at": f"bfloat16 N=5 Lq={Lq} H=8 D=32 L=3 P={P}",
-                 "launches": b1_launches[Lq],
+                 "launches": b1_by_lq.get(Lq, 0),
                  "ms": b1_shapes[(Lq, P)]["ms"],
                  "device_ms": b1_shapes[(Lq, P)]["device_ms"],
                  "plain_ms": b1_shapes[(Lq, P)]["plain_ms"],
@@ -2764,6 +3463,17 @@ def main(argv=None):
         "plain_ms": mvp_shape["plain_ms"],
         "bound_ms": mvp_shape["work"].bound_ms,
         "in_step_device_ms_per_launch": mvp["b1_device_ms_per_launch"]})
+    # phase 23: each view rank's served bf16 frame, layer 1 at Lq 15360
+    # and the later layers at 960, one view per rank
+    for Lq in (15360, 960):
+        st = one_view[Lq]
+        by_shape.append({
+            "at": f"bfloat16 N=1 Lq={Lq} H=8 D=32 L=3 P=4 (one view per "
+                  f"rank, phase 23a)",
+            "launches": sum(r.get(Lq, 0) for r in vp_by_lq),
+            "ms": st["ms"],
+            "device_ms": st["device_ms"], "plain_ms": st["plain_ms"],
+            "bound_ms": st["work"].bound_ms})
     dense = b1_shapes[B1_SHAPES[0]]
     kernels = [
         kernel_row(deform_attn.deform_sample, "deform_sample.cu",

@@ -17,6 +17,13 @@ max(total, ranks), JAX's form on its global batch.
 
 and per decoder layer, decay-weighted sums of the losses and means of the
 logged rates (LOG_KEYS).
+
+Under view parallelism (`dp` with a view world above 1) the batch's
+view_data and the outputs' pred_poses_2d hold this rank's views: the two
+reprojection terms sum over them and one sum all-reduce over the view
+group adds the other views' sums (through its backward, every rank's
+views get their gradient); the normalizers keep the frame's view count.
+Every other term reads the targets and the replicated outputs.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from mvgformer_tpu_torch.geometry.transforms import apply_affine
 from mvgformer_tpu_torch.models.matcher import (MatchResult, hungarian_match,
                                                 knn_match, pose_l1_cost,
                                                 threshold_match)
+from mvgformer_tpu_torch.parallel import collectives
 from mvgformer_tpu_torch.parallel.mesh import reduce_count
 
 
@@ -63,10 +71,12 @@ def _gather_pairs(x: torch.Tensor, query_idx: torch.Tensor) -> torch.Tensor:
 def compute_layer_losses(cfg: Config, out: Dict[str, torch.Tensor],
                          batch: Batch, match: MatchResult,
                          num_samples: torch.Tensor,
-                         match_ce: Optional[MatchResult] = None
-                         ) -> Dict[str, torch.Tensor]:
+                         match_ce: Optional[MatchResult] = None,
+                         dp=None) -> Dict[str, torch.Tensor]:
     """Losses of one decoder layer's outputs. match_ce, when given, replaces
-    the assignment of the classification loss only (use_ce_match)."""
+    the assignment of the classification loss only (use_ce_match). Under a
+    view split (`dp`) the reprojection terms' view sums are reduced over
+    the view group."""
     dec = cfg.DECODER
     targets = batch.targets
     vd = batch.view_data
@@ -75,7 +85,8 @@ def compute_layer_losses(cfg: Config, out: Dict[str, torch.Tensor],
     B, Q, _ = logits.shape
     gt = targets.joints_3d.float()  # (B, M, J, 3) absolute mm
     _, M, J, _ = gt.shape
-    V = vd.num_views
+    V = vd.num_views  # this rank's views
+    V_all = V * collectives.axis_size(dp)  # the frame's
 
     # threshold matching fills a variable number of the K slots
     if match.pair_valid is not None:
@@ -154,8 +165,9 @@ def compute_layer_losses(cfg: Config, out: Dict[str, torch.Tensor],
             B, V, M, 1, J, 2)
         wp = (vd.joints_vis_2d[:, :, :, None, :, None]
               * pair_w[:, None, :, :, None, None])
-        loss_pp = ((proj_src - proj_gt3).abs() * wp).sum() / (
-            num_samples * V * J * 2)
+        loss_pp = collectives.all_reduce_sum(
+            ((proj_src - proj_gt3).abs() * wp).sum(), dp) / (
+            num_samples * V_all * J * 2)
         losses["loss_pose_perprojection"] = torch.where(
             loss_pp > 1e5, torch.zeros_like(loss_pp), loss_pp)
 
@@ -170,8 +182,9 @@ def compute_layer_losses(cfg: Config, out: Dict[str, torch.Tensor],
         proj_gt = proj_gt.permute(0, 2, 1, 3, 4)  # (B, M, V, J, 2)
         vis2d = vd.joints_vis_2d.permute(0, 2, 1, 3)  # (B, M, V, J)
         w2 = vis2d[:, :, None, :, :, None] * pair_w[..., None, None, None]
-        loss2d = ((src2d - proj_gt[:, :, None]).abs() * w2).sum() / (
-            num_samples * V * J * 2)
+        loss2d = collectives.all_reduce_sum(
+            ((src2d - proj_gt[:, :, None]).abs() * w2).sum(), dp) / (
+            num_samples * V_all * J * 2)
         # the original repository's kill switch
         losses["loss_pose_perprojection_2d"] = torch.where(
             loss2d > 1e5, torch.zeros_like(loss2d), loss2d)
@@ -233,7 +246,8 @@ def compute_losses(cfg: Config, layer_outputs: List[Dict[str, torch.Tensor]],
     batch's count, as the original repository's all-reduced count nets out
     under data parallelism. With `dp` (a `parallel.DataParallel` of more
     than one rank) the batch is this rank's rows, and every count that
-    normalizes a loss is the mean over the ranks, clamped at 1."""
+    normalizes a loss is the mean over the ranks, clamped at 1; under a
+    view split the batch holds this rank's views (the module docstring)."""
     dec = cfg.DECODER
     num = batch.targets.num_person.sum().float()
     if dp is not None and dp.distributed:
@@ -253,8 +267,8 @@ def compute_losses(cfg: Config, layer_outputs: List[Dict[str, torch.Tensor]],
             cost = pose_l1_cost(pred, batch.targets.joints_3d.float())
             m_ce = hungarian_match(cost, batch.targets.num_person)
             return compute_layer_losses(cfg, out, batch, m, num_samples,
-                                        match_ce=m_ce)
-        return compute_layer_losses(cfg, out, batch, m, num_samples)
+                                        match_ce=m_ce, dp=dp)
+        return compute_layer_losses(cfg, out, batch, m, num_samples, dp=dp)
 
     per_layer = [layer_losses(out) for out in layer_outputs]
     weights = layer_decay_weights(dec.decay_method, len(per_layer),

@@ -22,12 +22,14 @@ from mvgformer_tpu_torch.data.meta import Batch
 from mvgformer_tpu_torch.data.prefetch import DevicePlacer
 from mvgformer_tpu_torch.models import is_dq
 from mvgformer_tpu_torch.ops.window_sampling import WindowPlan
-from mvgformer_tpu_torch.parallel.mesh import DataParallel, gather_objects
+from mvgformer_tpu_torch.parallel.mesh import (DataParallel, gather_objects,
+                                               shard_views)
 
 
 def make_eval_step(cfg: Config, model: torch.nn.Module, threshold: float,
                    window_plan: Optional[WindowPlan] = None,
-                   with_escape_telemetry: bool = False) -> Callable:
+                   with_escape_telemetry: bool = False,
+                   dp: Optional[DataParallel] = None) -> Callable:
     """An inference step returning the reference's pred array
     (B, Q, J, 5) = xyz | (score > threshold) - 1 | score, from the last
     decoder layer. The batch must be on the model's device.
@@ -37,7 +39,12 @@ def make_eval_step(cfg: Config, model: torch.nn.Module, threshold: float,
     with_escape_telemetry: return (pred, escaped_mass) instead, the
     attention mass that escaped the windows of layer 1 as a float32 scalar
     tensor (0 without a plan). The MvP baseline takes no plan: passing
-    one raises."""
+    one raises.
+    dp: the (data x view) grid under data or view parallelism; the batch
+    is this rank's shard (`parallel.shard_batch`) and every rank calls the
+    step in turn. Under a view split the pred is the frame's, the same
+    bits on every rank of a data row, and a plan of the rig's views is cut
+    to the rank's."""
     model.eval()
     dq = is_dq(cfg)
     if window_plan is not None and not dq:
@@ -48,8 +55,9 @@ def make_eval_step(cfg: Config, model: torch.nn.Module, threshold: float,
     def eval_step(batch: Batch):
         # the MvP baseline filters no queries: the threshold only sets the
         # flag channel
-        outs = (model(batch, threshold=threshold, window_plan=window_plan)
-                if dq else model(batch))
+        outs = (model(batch, threshold=threshold, window_plan=window_plan,
+                      grid=dp)
+                if dq else model(batch, grid=dp))
         out = outs[-1]
         B, Q = out["pred_logits"].shape[:2]
         poses = out["pred_poses"].reshape(B, Q, -1, 3)
@@ -99,7 +107,11 @@ def predict_dataset(dataset, eval_step: Callable, batch_size: int, device,
     Under data parallelism (`dp` of more than one rank) `batch_size` is
     the global batch: each rank loads and predicts its rows of every
     batch, and the preds (host numpy, by frame index, in rank order), the
-    escaped mass and the loss sums are gathered to every rank."""
+    escaped mass and the loss sums are gathered to every rank. Under a
+    view split each rank keeps its views of the rows it loads, the steps
+    must take the same `dp`, and only view rank 0 of each data row
+    contributes its preds and sums (the row's other ranks hold the same
+    ones)."""
     rows = dp.rows(batch_size) if dp is not None and dp.distributed else None
     preds: Dict[int, np.ndarray] = {}
     escaped, loss_sums, loss_batches = 0.0, {}, 0
@@ -108,6 +120,8 @@ def predict_dataset(dataset, eval_step: Callable, batch_size: int, device,
         dataset.batches(batch_size, shuffle=False, drop_last=False,
                         rows=rows))
     for idx, batch in loader:
+        if dp is not None:
+            batch = shard_views(batch, dp)
         out = eval_step(batch)
         if with_escape_telemetry:
             out, esc = out
@@ -122,6 +136,8 @@ def predict_dataset(dataset, eval_step: Callable, batch_size: int, device,
         if on_batch is not None:
             on_batch(idx, batch, pred)
     if rows is not None:
+        if dp.view_rank:
+            preds, escaped, loss_sums, loss_batches = {}, 0.0, {}, 0
         parts = gather_objects((preds, escaped, loss_sums, loss_batches), dp)
         preds, escaped, loss_sums, loss_batches = {}, 0.0, {}, 0
         for part_preds, part_esc, part_sums, part_batches in parts:

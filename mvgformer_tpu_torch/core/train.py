@@ -216,7 +216,15 @@ def make_train_step(cfg: Config, model: torch.nn.Module, tx: Optimizer,
     gradients of every trainable parameter and the loss terms are averaged
     over the ranks in one all-reduce, so every rank clips the same global
     gradient, takes the same Adam step (and the same SKIP_NONFINITE
-    decision) and returns the global batch's losses."""
+    decision) and returns the global batch's losses. Under a view split
+    (`dp.views` > 1) the batch holds this rank's views too: the forward
+    and the criterion reduce over the view group (`parallel/
+    collectives.py`), every rank of a data row computes the row's full
+    loss, and the same one all-reduce over the whole grid gives the
+    gradient of one process per data row (the derivation is in that
+    module). Dropout must draw the same masks on the ranks of a data row:
+    seed `generator` by data row (TRAIN.SEED + dp.data_rank), not by
+    rank."""
     dq = is_dq(cfg)
     distributed = dp is not None and dp.distributed
     gt_match = cfg.DECODER.gt_match and dq
@@ -236,10 +244,10 @@ def make_train_step(cfg: Config, model: torch.nn.Module, tx: Optimizer,
             match = match_queries(cfg, init_refs, batch)
             outs = mdl(batch,
                        query_mask=match.query_mask if gt_match else None,
-                       train=True, generator=generator)
+                       train=True, generator=generator, grid=dp)
         else:
             init_refs = match = None
-            outs = mdl(batch, train=True, generator=generator)
+            outs = mdl(batch, train=True, generator=generator, grid=dp)
         losses = compute_losses(cfg, outs, batch,
                                 match if gt_match else None,
                                 init_reference=init_refs,
@@ -268,12 +276,13 @@ def make_train_step(cfg: Config, model: torch.nn.Module, tx: Optimizer,
 
 
 def make_eval_loss_step(cfg: Config, model: torch.nn.Module, threshold: float,
-                        window_plan: Optional[WindowPlan] = None
-                        ) -> Callable:
+                        window_plan: Optional[WindowPlan] = None,
+                        dp: Optional[DataParallel] = None) -> Callable:
     """The loss dict on eval batches (DEBUG.LOG_VAL_LOSS): the serving
     forward (threshold filtering, no gt match) with the criterion matching
     each layer's own outputs. The MvP baseline takes no window plan: passing
-    one raises."""
+    one raises. dp: the grid under data or view parallelism (the batch is
+    this rank's shard), as `make_train_step` takes it."""
     dq = is_dq(cfg)
     if window_plan is not None and not dq:
         raise ValueError("the window plan is for the DQ model's layer 1; "
@@ -284,9 +293,9 @@ def make_eval_loss_step(cfg: Config, model: torch.nn.Module, threshold: float,
         model.eval()
         if dq:
             outs = model(batch, threshold=threshold,
-                         window_plan=window_plan)
+                         window_plan=window_plan, grid=dp)
         else:
-            outs = model(batch)
-        return compute_losses(cfg, outs, batch, None)
+            outs = model(batch, grid=dp)
+        return compute_losses(cfg, outs, batch, None, dp=dp)
 
     return loss_step

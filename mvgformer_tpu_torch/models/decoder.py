@@ -20,6 +20,22 @@ Dropout draws its masks from generators seeded per layer and step, so a
 layer recomputed for the backward draws the same masks; which layers drop
 out is decided by the `train` argument, as in JAX, not by nn.Module.train().
 
+Under view parallelism (`grid`, a `parallel.DataParallel` whose view
+world is above 1) each rank holds its own views of the frame; the layer's
+per-view stages (1, 3, 7, 8) run on them and the cross-view points are
+collectives over the view group (`parallel/collectives.py`), per layer:
+one sum all-reduce for the mean over views (4) and one all-gather of the
+undistorted 2D points with the confidence logits for the softmax over
+views and the triangulation (9), one more sum all-reduce with
+bayesian_update; per frame, one all-gather of the projection matrices
+and, with the windowed layer 1, one sum all-reduce of its escaped mass.
+Everything from the mean over views on is replicated: every rank of a
+data row holds the same bits and selects the same top-K queries. The 2D
+outputs (refs_2d, projs_2d) stay the rank's own views. Under a data split
+the per-view clamp of the projections is the max over the global batch,
+one max all-reduce over the data group per frame, as JAX's program
+computes it on its global batch.
+
 Per layer:
   1. project each query's 3D joints into every view, bounds-mask, clamp,
      map to network-image coordinates;
@@ -56,30 +72,43 @@ from mvgformer_tpu_torch.models.attention import MultiheadAttention
 from mvgformer_tpu_torch.models.mlp import Dense, OffsetNet
 from mvgformer_tpu_torch.ops.projattn import ProjAttn, top_indices
 from mvgformer_tpu_torch.ops.window_sampling import WindowPlan
+from mvgformer_tpu_torch.parallel import collectives
 
 # flax's nn.LayerNorm default; torch's is 1e-5
 LN_EPS = 1e-6
 
 
 class LayerNorm(nn.LayerNorm):
-    """nn.LayerNorm with flax's epsilon, computing in `dtype`."""
+    """nn.LayerNorm with flax's epsilon and flax's precision: the
+    statistics, the scale and the bias in float32 with the float32
+    parameters, the result in `dtype`. (torch's bfloat16 layer_norm on the
+    CPU sums the scale and bias gradients over the rows in bfloat16: 5% of
+    the largest off at 15,360 rows, where flax's are float32 sums.)"""
 
     def __init__(self, d: int, dtype: torch.dtype = torch.float32):
         super().__init__(d, eps=LN_EPS)
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.to(self.dtype), self.normalized_shape,
-                            self.weight.to(self.dtype),
-                            self.bias.to(self.dtype), self.eps)
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps).to(self.dtype)
+
+
+def projection_clamp(view_data: ViewData, grid=None) -> torch.Tensor:
+    """(V,) the per-view clamp of the projections: the largest width or
+    height of each view over the batch, and under a data split over the
+    global batch (a max all-reduce over the data group)."""
+    hi = (view_data.centers * 2.0).amax(dim=(0, 2))
+    return collectives.all_reduce_max(hi, grid, axis="data")
 
 
 def project_reference_points(reference_points: torch.Tensor,
                              view_data: ViewData, spatial_shapes, img_size,
-                             detach: bool = True):
+                             hi: torch.Tensor, detach: bool = True):
     """3D refs (B, Nq, 3) mm -> per-view normalized net-image points; with
     `detach` (DECODER.detach_refpoints_cameraprj_firstlayer) no gradient
-    flows back into the refs.
+    flows back into the refs. `hi` is the (V,) clamp of the pixels
+    (`projection_clamp`).
 
     Returns (ref2d_norm (B, V, Nq, 2), ref2d_lvl (B, V, Nq, L, 2), bounds
     (B, V, Nq) bool)."""
@@ -94,7 +123,6 @@ def project_reference_points(reference_points: torch.Tensor,
     bounds = ((pix[..., 0] >= 0) & (pix[..., 1] >= 0)
               & (pix[..., 0] < wh[..., 0:1]) & (pix[..., 1] < wh[..., 1:2]))
     # per-view scalar clamp: hi = max of wh over (batch, 2)
-    hi = wh.amax(dim=(0, 2))  # (V,)
     pix = torch.minimum(torch.clamp(pix, min=-1.0), hi[None, :, None, None])
 
     net = apply_affine(pix, view_data.affine)
@@ -257,7 +285,8 @@ class DQDecoderLayer(nn.Module):
     def forward(self, tgt: torch.Tensor, query_pos: Optional[torch.Tensor],
                 reference_points: torch.Tensor,
                 src_views: Sequence[torch.Tensor], spatial_shapes,
-                view_data: ViewData, threshold: float = 0.5,
+                view_data: ViewData, proj_mats: torch.Tensor,
+                clamp_hi: torch.Tensor, threshold: float = 0.5,
                 filter_method: str = "threshold",
                 triangulate_topk: Optional[int] = None,
                 window_plan: Optional[WindowPlan] = None,
@@ -266,7 +295,8 @@ class DQDecoderLayer(nn.Module):
                 query_mask: Optional[torch.Tensor] = None,
                 train: bool = False,
                 dropout_seed: Optional[int] = None,
-                taps: Optional[dict] = None):
+                taps: Optional[dict] = None,
+                grid=None):
         """
         Args:
             tgt:              (B, Nq, C) query features, Nq = Q * J.
@@ -275,6 +305,11 @@ class DQDecoderLayer(nn.Module):
             src_views:        list of (V*B, h, w, C) maps (view-major
                               fold), finest first.
             view_data:        cameras and crops, fields (B, V, ...).
+            proj_mats:        (B, V, 3, 4) every view's projection
+                              matrices, computed and (under a view split)
+                              gathered once per frame by DQDecoder.
+            clamp_hi:         (V,) the projection clamp
+                              (`projection_clamp`), once per frame.
             window_plan:      rig-static plan of the windowed sampler
                               (layer 1 only).
             offset_clamp:     clamp of the learned sampling offsets, px
@@ -286,13 +321,17 @@ class DQDecoderLayer(nn.Module):
                               sampler, no top-K.
             dropout_seed:     seed of this layer's dropout masks (train).
             taps:             ProjAttn's debug taps (`ProjAttn.forward`).
+            grid:             the (data x view) grid under view
+                              parallelism (view_data and src_views then
+                              hold this rank's views), or None.
         Returns:
             (tgt_update, new_refs (B, Nq, 3), refined_2d (B, V, Nq, 2),
              projs_2d (B, V, Nq, 2), class_prob (B, Q, 2), escaped mass of
              the windowed sampler or None)
         """
         B, Nq, C = tgt.shape
-        V = view_data.num_views
+        V = view_data.num_views  # this rank's views
+        split = collectives.axis_size(grid) > 1
         J = self.num_joints
         Q = Nq // J
         img_wh = torch.tensor(self.img_size, dtype=torch.float32,
@@ -307,7 +346,7 @@ class DQDecoderLayer(nn.Module):
         # (1) project the query joints into every view
         ref_norm, ref_lvl, bounds = project_reference_points(
             reference_points, view_data, spatial_shapes, self.img_size,
-            detach=self.detach_refpoints)
+            clamp_hi, detach=self.detach_refpoints)
 
         # (2) the optional self-attention over the queries; its result
         # feeds ProjAttn only, update_feature's residual stays tgt
@@ -332,9 +371,11 @@ class DQDecoderLayer(nn.Module):
         attn = attn * bounds.transpose(0, 1)[..., None].to(attn.dtype)
 
         # (4) fuse the view mean into the query features, then the FFN
-        # (dropout after the ReLU and after linear2)
-        tgt_update = self.update_feature(tgt, attn.mean(dim=0), query_pos,
-                                         drop)
+        # (dropout after the ReLU and after linear2); under a view split
+        # the mean is a float32 sum all-reduce, rounded to attn's dtype
+        # once, as the single process's mean is
+        tgt_update = self.update_feature(
+            tgt, collectives.view_mean(attn, grid), query_pos, drop)
         if self.open_forward_ffn:
             x = self.linear2(drop(F.relu(self.linear1(tgt_update))))
             tgt_update = self.norm3(tgt_update + drop(x))
@@ -371,7 +412,7 @@ class DQDecoderLayer(nn.Module):
         ref_norm_v = ref_norm.transpose(0, 1)  # (V, B, Nqc, 2)
         refined_abs = (ref_norm_v + out2d.float() / img_wh) * img_wh
         projs_abs = ref_norm_v * img_wh
-        conf = torch.softmax(conf_logits.float(), dim=0)
+        conf_logits = conf_logits.float()
 
         # (8) masked-out queries triangulate the image centre, a safe
         # stand-in, before the inverse affine and undistortion
@@ -379,7 +420,16 @@ class DQDecoderLayer(nn.Module):
                              img_wh * 0.5)
         orig = apply_affine(tri_in.transpose(0, 1), view_data.inv_affine)
         orig_undist = undistort_points(orig, view_data.cameras, iter_num=5)
-        proj_mats = projection_matrices(view_data.cameras, inv_trans=True)
+        if split:
+            # the softmax over views and the solve need every view: one
+            # all-gather of the points and the logits, in view order
+            packed = collectives.all_gather(torch.cat(
+                [orig_undist, conf_logits.transpose(0, 1)[..., None]],
+                dim=-1), grid, dim=1)  # (B, V, Nqc, 3)
+            orig_undist = packed[..., :2]
+            conf_logits = packed[..., 2].transpose(0, 1)
+            V = packed.shape[1]
+        conf = torch.softmax(conf_logits, dim=0)
 
         # (9) triangulate, then the masked dense update
         if self.triangulation_solver == "st":
@@ -409,8 +459,8 @@ class DQDecoderLayer(nn.Module):
                                        solver=self.triangulation_solver)
         if hasattr(self, "bayesian_conf"):
             # blend with the layer's input pose by a learned confidence
-            bconf = torch.sigmoid(self.bayesian_conf(attn)).mean(
-                dim=0).float()  # (B, Nqc, 1)
+            bconf = collectives.view_mean(torch.sigmoid(
+                self.bayesian_conf(attn)), grid).float()  # (B, Nqc, 1)
             new_refs = (bconf * new_refs
                         + (1 - bconf) * reference_points.float())
         new_refs = torch.where(mask_nq[..., None], new_refs, 0.0)
@@ -440,6 +490,11 @@ class DQDecoder(nn.Module):
     torch.utils.checkpoint and is recomputed in the backward.
 
     share_layer_weights: one `layer_shared` layer runs num_layers times.
+
+    grid: under view parallelism the layers run on this rank's views
+    (the module docstring's collectives); the projection matrices of every
+    view are gathered once per frame, and the projection clamp is reduced
+    over the data group once per frame under a data split.
 
     ref_clamp_box: an optional (x_lo, y_lo, z_lo, x_hi, y_hi, z_hi) mm box
     (DECODER.clamp_refs_to_space) into which each layer's reference points
@@ -472,7 +527,7 @@ class DQDecoder(nn.Module):
                 window_plan=None, layer1_offset_clamp=None,
                 point_topm=None, query_mask=None, train=False,
                 generator: Optional[torch.Generator] = None,
-                intermediates: Optional[dict] = None):
+                intermediates: Optional[dict] = None, grid=None):
         """`generator` draws one dropout seed per layer in training (the
         default generator if None). `intermediates`, where given, receives
         each layer's ProjAttn debug taps under
@@ -498,6 +553,12 @@ class DQDecoder(nn.Module):
         if box is not None:
             lo = torch.tensor(box[:3], dtype=torch.float32, device=tgt.device)
             hi = torch.tensor(box[3:], dtype=torch.float32, device=tgt.device)
+        # once per frame: the clamp over the global batch, every view's
+        # projection matrices
+        clamp_hi = projection_clamp(view_data, grid)
+        proj_mats = collectives.all_gather(
+            projection_matrices(view_data.cameras, inv_trans=True), grid,
+            dim=1)
         for lid, layer in enumerate(self.stack):
             kwargs = dict(
                 threshold=threshold, filter_method=filter_method,
@@ -505,13 +566,14 @@ class DQDecoder(nn.Module):
                 window_plan=window_plan if lid == 0 else None,
                 offset_clamp=layer1_offset_clamp if lid == 0 else None,
                 point_topm=point_topm, query_mask=query_mask, train=train,
-                dropout_seed=seeds[lid])
+                dropout_seed=seeds[lid], grid=grid)
             if intermediates is not None:
                 name = ("layer_shared" if hasattr(self, "layer_shared")
                         else f"layer_{lid}")
                 kwargs["taps"] = intermediates.setdefault(
                     name, {}).setdefault("proj_attn", {})
-            args = (out, qpos, refs, src_views, spatial_shapes, view_data)
+            args = (out, qpos, refs, src_views, spatial_shapes, view_data,
+                    proj_mats, clamp_hi)
             if not (train and self.remat):
                 res = layer(*args, **kwargs)
             else:
@@ -522,7 +584,8 @@ class DQDecoder(nn.Module):
                                 "projs_2d": projs2d,
                                 "class_prob": class_prob})
                 if escaped is not None:
-                    outputs[-1]["escaped_mass"] = escaped
+                    outputs[-1]["escaped_mass"] = \
+                        collectives.all_reduce_sum(escaped, grid)
             else:
                 outputs.append({
                     "hs": _scatter_queries(out, sel, Q, J, 1),

@@ -22,7 +22,17 @@ Port of `mvgformer_tpu/models/mvgformer.py`:
   * the windowed layer-1 serving path (DECODER.layer1_windowed_sampling):
     `build_layer1_window_plan` buckets the static layer-1 centers once per
     rig, and `forward(..., window_plan=plan)` samples layer 1 through the
-    window kernels.
+    window kernels;
+  * view parallelism (`forward(..., grid=)`, a `parallel.DataParallel`
+    whose view world is above 1, the batch holding this rank's views as
+    `parallel.shard_batch` cuts them): the backbone and the decoder's
+    per-view stages run on the rank's views (models/decoder.py). Of the
+    reference inits, 'query_adapt' and 'query_adapt_center' all-gather
+    the pooled features of every view (one all-gather per frame);
+    'sample_space', 'gt_noise' and 'voxcel_pose_base' read no view and
+    need no collective ('gt_noise' draws the same noise on every rank of
+    a data row from the same generator). A window plan of every view is
+    cut to the rank's views.
 
 Parameter names follow the original torch model, so
 `mvgformer_tpu.utils.torch_convert.convert_mvgformer_state_dict` reads this
@@ -46,11 +56,13 @@ from mvgformer_tpu_torch.data.synthetic import T_POSE
 from mvgformer_tpu_torch.device import compute_dtype, resolve_device
 from mvgformer_tpu_torch.geometry.structural import HumanTree
 from mvgformer_tpu_torch.models.decoder import (DQDecoder,
-                                                project_reference_points)
+                                                project_reference_points,
+                                                projection_clamp)
 from mvgformer_tpu_torch.models.mlp import Dense
 from mvgformer_tpu_torch.models.pose_resnet import PoseResNet
 from mvgformer_tpu_torch.ops.window_sampling import (WindowPlan,
                                                      build_window_plan)
+from mvgformer_tpu_torch.parallel import collectives
 
 # the T-pose asset is shared with the JAX package
 _TPOSE_ASSET = (Path(__file__).resolve().parents[2] / "mvgformer_tpu"
@@ -101,14 +113,17 @@ def tpose_bone_lengths(t_pose: np.ndarray) -> np.ndarray:
         t_pose[None]).reshape(-1).astype(np.float32)
 
 
-def pooled_view_features(feats, batch_size: int,
-                         head: nn.Module) -> torch.Tensor:
+def pooled_view_features(feats, batch_size: int, head: nn.Module,
+                         grid=None) -> torch.Tensor:
     """(B, 1, C) float32 `head` of every view's and level's mean feature:
     the backbone's (V*B, h, w, C) view-major levels pooled, regrouped per
     batch item and flattened to V x levels x C, the input width the head
     was built for (DATASET.CAMERA_NUM x levels x d_model); another view
-    count raises."""
+    count raises. Under a view split the levels hold this rank's views
+    and the pooled vectors of every view are all-gathered in view order
+    before the head."""
     pooled = torch.cat([f.mean(dim=(1, 2)) for f in feats], dim=-1)
+    pooled = collectives.all_gather(pooled, grid, dim=0)
     pooled = pooled.reshape(-1, batch_size, pooled.shape[-1]).transpose(
         0, 1).reshape(batch_size, -1).float()
     if pooled.shape[1] != head.in_features:
@@ -215,8 +230,8 @@ class MVGFormer(nn.Module):
         return self.init_reference[None].expand(batch_size, -1, -1)
 
     def reference_points_init(self, batch: Batch, feats, tgt, query_pos,
-                              generator: Optional[torch.Generator] = None
-                              ) -> torch.Tensor:
+                              generator: Optional[torch.Generator] = None,
+                              grid=None) -> torch.Tensor:
         """(B, Q*J, 3) float32 initial query poses, absolute mm, by
         DECODER.init_ref_method; feats are the backbone's (V*B, h, w, C)
         levels, tgt / query_pos the float32 (B, Q*J, C) query halves."""
@@ -238,7 +253,8 @@ class MVGFormer(nn.Module):
             return torch.cat([gt + std * noise, pad], dim=1).reshape(
                 B, -1, 3)
         if method in ("query_adapt", "query_adapt_center"):
-            ref_feats = pooled_view_features(feats, B, self.reference_feats)
+            ref_feats = pooled_view_features(feats, B, self.reference_feats,
+                                             grid)
             base = (tgt if query_pos is None else query_pos).float()
             if method == "query_adapt":
                 return self.reference_points(base + ref_feats)
@@ -266,7 +282,7 @@ class MVGFormer(nn.Module):
                 threshold: float = 0.5, train: bool = False,
                 window_plan: Optional[WindowPlan] = None,
                 generator: Optional[torch.Generator] = None,
-                return_intermediates: bool = False):
+                return_intermediates: bool = False, grid=None):
         """Per decoder layer, a dict of
             pred_logits:        (B, Q, 2) inverse-sigmoid of avg joint prob
             pred_poses:         (B, Q*J, 3) absolute mm
@@ -286,6 +302,11 @@ class MVGFormer(nn.Module):
         {"decoder": {"layer_{l}": {"proj_attn": {"sampling_locations":
         ((V*B, Lq, H, L, P, 2),), "sampling_weights": ((V*B, Lq, H, L,
         P),)}}}}, views folded view-major (v*B + b). Serving only.
+        grid: the (data x view) grid (`parallel.DataParallel`) under data
+        or view parallelism, None in one process. Under a view split the
+        batch holds this rank's views; pred_logits and pred_poses are the
+        frame's, the same bits on every rank of a data row, while
+        pred_poses_2d / _proj are (B, V_local, Q*J, 2), the rank's views.
         """
         dec = self.cfg.DECODER
         if window_plan is not None and dec.init_ref_method != "sample_space":
@@ -294,6 +315,9 @@ class MVGFormer(nn.Module):
                 "'sample_space' reference init (got %r)"
                 % dec.init_ref_method)
         B, V = batch.views.shape[:2]
+        if window_plan is not None and collectives.axis_size(grid) > 1:
+            window_plan = window_plan.select_views(
+                grid.view_slice(V * grid.views), V)
 
         # backbone on the view-major fold, levels finest-first; frozen
         # unless TRAIN.TRAIN_BACKBONE (JAX's stop_gradient)
@@ -315,7 +339,7 @@ class MVGFormer(nn.Module):
             query_pos = query_embeds[None, :, :c].expand(B, -1, -1)
         tgt = query_embeds[None, :, c:].expand(B, -1, -1)
         refs0 = self.reference_points_init(batch, feats, tgt, query_pos,
-                                           generator)
+                                           generator, grid)
         tgt = tgt.to(self.dtype)
         if query_pos is not None:
             query_pos = query_pos.to(self.dtype)
@@ -330,7 +354,8 @@ class MVGFormer(nn.Module):
             layer1_offset_clamp=dec.layer1_offset_clamp,
             point_topm=dec.inference_point_topm,
             query_mask=query_mask, train=train, generator=generator,
-            intermediates=inter["decoder"] if return_intermediates else None)
+            intermediates=inter["decoder"] if return_intermediates else None,
+            grid=grid)
         cji = dec.convert_joint_format_indices
         J = self.num_joints
         outs = []
@@ -378,7 +403,7 @@ def layer1_centers_px(cfg: Config, view_data: ViewData) -> np.ndarray:
     with torch.no_grad():
         _, lvl, _ = project_reference_points(
             torch.from_numpy(refs)[None], vd0, shapes,
-            cfg.NETWORK.IMAGE_SIZE)
+            cfg.NETWORK.IMAGE_SIZE, projection_clamp(vd0))
     lvl = lvl[0].numpy()  # (V, Nq, L, 2) normalized per level
     centers_px = np.empty_like(lvl)
     for li, (h, w) in enumerate(shapes):

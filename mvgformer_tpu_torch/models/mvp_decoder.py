@@ -20,6 +20,26 @@ fuse_view_feats:
   * 'attn_fuse_subtract': views weighted by `attn_proj` of their
                           difference from the query.
 
+Under view parallelism (`grid`, a `parallel.DataParallel` whose view
+world is above 1) each rank projects into, attends over and embeds the
+rays of its own views; the fusion crosses views per layer
+(`parallel/collectives.py`): 'mean' and 'sum_proj' are one float32 sum
+all-reduce of the local sums; 'attn_fuse_subtract' one of the local
+weighted sums; 'attn_fuse_dot_prod' all-gathers the (V, B, Nq) logits
+for the softmax over views, then sums the local weighted views; and
+'cat_proj' splits `fuse_view_projection` by view: each rank multiplies
+its views' features by its views' columns of the weight, one sum
+all-reduce adds the partial products and the bias is added once after
+it. That moves one (B, Nq, C) buffer per layer where an all-gather of the
+views would move V of them, and the matmul splits with the views. The
+clip of the projections stays the largest width or height of the rank's
+own frames and views, where JAX's program takes it over the global batch
+and every view: it moves only projections that lie outside their image,
+whose features the bounds mask zeroes, so either clip gives the same
+output. The query-adaptation head all-gathers the pooled features once
+per frame.
+Everything after the fusion is replicated over a data row.
+
 DECODER.projattn_posembed_mode 'use_rayconv' (camera rays) and
 'use_2d_coordconv' (2D coordinates) build their per-pixel embeddings once
 per frame, for every layer. DECODER.query_adaptation adds a head on the
@@ -51,6 +71,7 @@ from mvgformer_tpu_torch.models.position_encoding import (crop_intrinsics,
                                                           get_2d_coords,
                                                           get_rays)
 from mvgformer_tpu_torch.ops.projattn import ProjAttn
+from mvgformer_tpu_torch.parallel import collectives
 
 FUSE_VIEW_FEATS = ("mean", "cat_proj", "sum_proj", "attn_fuse_dot_prod",
                    "attn_fuse_subtract")
@@ -104,16 +125,20 @@ class MvPDecoderLayer(nn.Module):
                 view_data: ViewData,
                 camera_ray_embeds: Optional[torch.Tensor] = None,
                 train: bool = False,
-                dropout_seed: Optional[int] = None) -> torch.Tensor:
+                dropout_seed: Optional[int] = None, grid=None
+                ) -> torch.Tensor:
         """tgt / query_pos (B, Nq, C); reference_points_norm (B, Nq, 3) in
         the normalized [0, 1] capture space; src_views per-level
         (V*B, h, w, C) view-major; camera_ray_embeds (V*B, sum hw, 3 or 2)
-        where the posembed mode takes them. Returns (B, Nq, C)."""
+        where the posembed mode takes them. Under a view split (`grid`)
+        view_data, src_views and the rays hold this rank's views. Returns
+        (B, Nq, C)."""
         B, Nq, C = tgt.shape
-        V = view_data.num_views
-        if V != self.n_views and self.fuse_view_feats == "cat_proj":
+        n = collectives.axis_size(grid)
+        V = view_data.num_views  # this rank's views
+        if V * n != self.n_views and self.fuse_view_feats == "cat_proj":
             raise ValueError(f"cat_proj fuses DATASET.CAMERA_NUM = "
-                             f"{self.n_views} views, the batch has {V}")
+                             f"{self.n_views} views, the batch has {V * n}")
         img_wh = torch.tensor(self.img_size, dtype=torch.float32,
                               device=tgt.device)
         drop = _drop_fn(self.dropout, dropout_seed if train
@@ -156,24 +181,44 @@ class MvPDecoderLayer(nn.Module):
         # fuse the views
         mode = self.fuse_view_feats
         if mode == "mean":
-            fused = tgt2.mean(dim=0)
+            fused = collectives.view_mean(tgt2, grid)
+        elif mode == "cat_proj" and n > 1:
+            fused = self.split_cat_proj(tgt2, grid)
         elif mode == "cat_proj":
             fused = self.fuse_view_projection(
                 tgt2.permute(1, 2, 0, 3).reshape(B, Nq, V * C))
         elif mode == "sum_proj":
-            fused = self.fuse_view_projection(tgt2.sum(dim=0))
+            fused = self.fuse_view_projection(
+                collectives.view_sum(tgt2, grid))
         elif mode == "attn_fuse_dot_prod":
             logits = torch.einsum("vbnc,bnc->vbn", tgt2.float(), tgt.float())
+            logits = collectives.all_gather(logits, grid, dim=0)
             aw = torch.softmax(logits, dim=0)[..., None]
-            fused = (tgt2 * aw.to(tgt2.dtype)).sum(dim=0)
+            if n > 1:
+                aw = aw[grid.view_slice(aw.shape[0])]
+            fused = collectives.view_sum(tgt2 * aw.to(tgt2.dtype), grid)
         else:  # attn_fuse_subtract
             aw = self.attn_proj(tgt2 - tgt[None])
-            fused = (tgt2 * aw).sum(dim=0)
+            fused = collectives.view_sum(tgt2 * aw, grid)
         tgt = self.norm1(tgt + drop(fused))
 
         # FFN
         x = self.linear2(drop(F.relu(self.linear1(tgt))))
         return self.norm3(tgt + drop(x))
+
+    def split_cat_proj(self, tgt2: torch.Tensor, grid) -> torch.Tensor:
+        """'cat_proj' under a view split: this rank's views (V_local, B,
+        Nq, C) times their columns of `fuse_view_projection`'s weight, the
+        partial products summed over the view group in float32, then the
+        bias, in the layer's dtype."""
+        proj = self.fuse_view_projection
+        Vl, B, Nq, C = tgt2.shape
+        cols = grid.view_slice(self.n_views)
+        w = proj.weight[:, cols.start * C:cols.stop * C]
+        part = F.linear(tgt2.permute(1, 2, 0, 3).reshape(B, Nq, Vl * C)
+                        .to(proj.dtype), w.to(proj.dtype))
+        total = collectives.all_reduce_sum(part.float(), grid)
+        return (total + proj.bias.float()).to(proj.dtype)
 
 
 class MvPDecoder(nn.Module):
@@ -269,10 +314,12 @@ class MvPTransformer(nn.Module):
         self.to(device)
 
     def forward(self, batch: Batch, train: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, grid=None):
         """train: the training forward (dropout drawn from `generator`,
         the corner-table sampler); the backbone takes no gradient unless
-        TRAIN.TRAIN_BACKBONE."""
+        TRAIN.TRAIN_BACKBONE. grid: the (data x view) grid
+        (`parallel.DataParallel`), None in one process; under a view
+        split the batch holds this rank's views."""
         cfg, dec = self.cfg, self.cfg.DECODER
         B, V = batch.views.shape[:2]
         imgs = batch.views.transpose(0, 1).reshape(
@@ -297,7 +344,7 @@ class MvPTransformer(nn.Module):
         base = query_pos.float()
         if dec.query_adaptation:
             base = base + pooled_view_features(feats, B,
-                                               self.reference_feats)
+                                               self.reference_feats, grid)
         reference = torch.sigmoid(self.reference_points(base))
 
         layers = self.decoder.layers
@@ -312,7 +359,7 @@ class MvPTransformer(nn.Module):
         for lid, layer in enumerate(layers):
             out = layer(out, query_pos, reference, feats, spatial_shapes,
                         batch.view_data, camera_ray_embeds=rays, train=train,
-                        dropout_seed=seeds[lid])
+                        dropout_seed=seeds[lid], grid=grid)
             # iterative refinement in inverse-sigmoid space
             delta = self.pose_embed[lid](out).float()
             reference_new = torch.sigmoid(delta + inverse_sigmoid(reference))

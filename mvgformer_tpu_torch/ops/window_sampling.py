@@ -77,6 +77,17 @@ class WindowPlan(NamedTuple):
             lp._replace(**{n: move(getattr(lp, n), n) for n in _ARRAYS})
             for lp in self.levels))
 
+    def select_views(self, views: slice, num_views: int) -> "WindowPlan":
+        """The plan of `views` (a slice of the rig's views) under view
+        parallelism; the plan itself where it already holds `num_views`
+        views. The rows keep the rig's padding, so each view's rows are
+        the ones the rig's plan gives it."""
+        if self.levels[0].row_query.shape[0] == num_views:
+            return self
+        return self._replace(levels=tuple(
+            lp._replace(**{n: getattr(lp, n)[views] for n in _ARRAYS})
+            for lp in self.levels))
+
 
 def _dma_width(block_tile: np.ndarray, K: int, tile: int, ntx: int) -> int:
     """The 'pallas_dma' window width: each block's x origin is aligned down

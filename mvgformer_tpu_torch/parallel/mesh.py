@@ -1,31 +1,44 @@
-"""Data parallelism over the cards of one host (or over CPU processes).
+"""Data and view parallelism over the cards of one host (or over CPU
+processes).
 
 The port's counterpart of `mvgformer_tpu/parallel/mesh.py`. JAX runs one
-program over a mesh and lets XLA insert the gradient all-reduce; here each
-rank is a process that holds a full replica of the model, takes its rows
-of the global batch and averages the gradients with the other ranks by an
-explicit all-reduce after the backward (`all_reduce_grads`).
+program over a mesh and lets XLA insert the collectives; here each rank is
+a process that holds a full replica of the model and the collectives are
+written out.
+
+The grid is JAX's (data x view) mesh (`make_mesh_2d(data, view)`): rank
+r = data_rank * views + view_rank, in JAX's mesh order. The ranks of one
+data row (a view group) take the same frames and split their views; the
+ranks of one view slot (a data group) take other frames. A view world of
+1 is the 1-D data mesh (`make_mesh(data)`) and runs the single-device
+model path unchanged.
 
   * `data_world(num, device)`: PARALLEL.DATA capped at the visible cards,
     -1 (or 0) meaning all of them; on the CPU -1 means 1 process.
-  * `init_data_parallel(num, device)`: this process's `DataParallel`
-    (rank, world, device, process group). Under torchrun (RANK,
-    WORLD_SIZE and LOCAL_RANK set) it joins torchrun's group; a launcher
-    of its own passes rank, world and an init_method (`launch`).
+  * `init_data_parallel(num, device, views=1)`: this process's
+    `DataParallel` (rank, world, device, the world's process group, and
+    under a view split the group of its data row and of its view slot).
+    Under torchrun (RANK, WORLD_SIZE and LOCAL_RANK set) it joins
+    torchrun's group; a launcher of its own passes rank, world and an
+    init_method (`launch`).
   * The backend rule: NCCL where every rank has a card of its own, gloo
     on the CPU and where two ranks share a card (NCCL refuses that).
-  * `shard_batch(batch, dp)`: this rank's rows [rank*B, (rank+1)*B) of a
-    global batch, the rows JAX's `shard_batch` places on device `rank`.
+  * `shard_batch(batch, dp)`: this rank's rows [data_rank*B,
+    (data_rank+1)*B) of a global batch and, under a view split, its
+    contiguous slice of the view axis of `views` and `view_data`; the
+    `targets` keep every view. These are the shards JAX's
+    `shard_batch(..., view_axis="view")` places on device `rank`.
   * `replicated(model, dp)`: rank 0's parameters and buffers on every rank.
-  * `all_reduce_grads(params, dp, extras)`: the mean over ranks of the
-    gradients and of the loss terms, in one flat float32 buffer, once per
-    step.
-  * `launch(fn, num, device, *args)`: run fn(dp, *args) on the world
-    PARALLEL.DATA (`num`) asks for, in spawned processes (one per card,
-    `spawn`) or under torchrun, and return rank 0's result.
+  * `all_reduce_grads(params, dp, extras)`: the mean over every rank of
+    the grid of the gradients and of the loss terms, in one flat float32
+    buffer, once per step (`parallel/collectives.py` shows why the mean
+    over the whole grid is exact under a view split).
+  * `launch(fn, num, device, *args, views=1)`: run fn(dp, *args) on the
+    grid of `num` data rows x `views` view ranks, in spawned processes
+    (`spawn`) or under torchrun, and return rank 0's result.
 
-View parallelism (JAX's `make_mesh_2d` and `shard_batch(view_axis=...)`)
-is not ported.
+The collectives inside the model's forward (the mean over views, the
+triangulation's gather, ...) are in `parallel/collectives.py`.
 """
 
 from __future__ import annotations
@@ -47,14 +60,23 @@ TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK")
 
 @dataclasses.dataclass(frozen=True)
 class DataParallel:
-    """This process's place in the data-parallel world. A world of 1 has
-    no process group and runs the single-device path unchanged."""
+    """This process's place in the (data x view) grid. A world of 1 has
+    no process group and runs the single-device path unchanged; a view
+    world (`views`) of 1 is plain data parallelism."""
 
     rank: int = 0
     world: int = 1
     device: torch.device = torch.device("cpu")
-    group: Any = None            # the process group; None for a world of 1
+    group: Any = None            # the world's group; None for a world of 1
     backend: Optional[str] = None
+    views: int = 1               # the ranks of a data row (the view world)
+    view_group: Any = None       # this data row's ranks; None for 1 view
+    data_group: Any = None       # this view slot's ranks; None for 1 row
+
+    def __post_init__(self):
+        if self.views < 1 or self.world % self.views:
+            raise ValueError(f"a world of {self.world} ranks does not form "
+                             f"a grid with {self.views} views per row")
 
     @property
     def distributed(self) -> bool:
@@ -64,13 +86,33 @@ class DataParallel:
     def is_main(self) -> bool:
         return self.rank == 0
 
+    @property
+    def data_world(self) -> int:
+        return self.world // self.views
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.views
+
+    @property
+    def view_rank(self) -> int:
+        return self.rank % self.views
+
     def rows(self, global_batch: int) -> slice:
         """This rank's rows of a global batch of `global_batch` frames."""
-        if global_batch % self.world:
+        if global_batch % self.data_world:
             raise ValueError(f"a global batch of {global_batch} does not "
-                             f"split over {self.world} ranks")
-        per = global_batch // self.world
-        return slice(self.rank * per, (self.rank + 1) * per)
+                             f"split over {self.data_world} ranks")
+        per = global_batch // self.data_world
+        return slice(self.data_rank * per, (self.data_rank + 1) * per)
+
+    def view_slice(self, num_views: int) -> slice:
+        """This rank's contiguous views of a frame's `num_views`."""
+        if num_views % self.views:
+            raise ValueError(f"{num_views} views do not split over "
+                             f"{self.views} view ranks")
+        per = num_views // self.views
+        return slice(self.view_rank * per, (self.view_rank + 1) * per)
 
 
 def under_torchrun() -> bool:
@@ -105,23 +147,26 @@ def choose_backend(device_type: str, world: int, cards: int) -> str:
 def init_data_parallel(num: int = -1, device="cuda",
                        rank: Optional[int] = None,
                        world: Optional[int] = None,
-                       init_method: Optional[str] = None) -> DataParallel:
-    """Join (or make) the data-parallel process group of this process.
+                       init_method: Optional[str] = None,
+                       views: int = 1) -> DataParallel:
+    """Join (or make) the process group of this process, and under a view
+    split (`views` > 1) the groups of its data row and its view slot.
 
     Under torchrun the world is torchrun's, and a PARALLEL.DATA (`num`)
-    other than -1 or that world raises. Otherwise `rank`, `world` and
-    `init_method` come from the launcher (`launch`); without them the
-    world must be 1. The device is cuda:(local rank % visible cards), or
-    the CPU. A world of 1 makes no process group."""
+    other than -1 or the world's data rows raises. Otherwise `rank`,
+    `world` and `init_method` come from the launcher (`launch`); without
+    them the world must be 1. The device is cuda:(local rank % visible
+    cards), or the CPU. A world of 1 makes no process group."""
     device_type = torch.device(device).type
     local_rank = rank
     if under_torchrun():
         rank = int(os.environ["RANK"])
         world = int(os.environ["WORLD_SIZE"])
         local_rank = int(os.environ["LOCAL_RANK"])
-        if num > 0 and num != world:
+        if num > 0 and num * views != world:
             raise ValueError(f"PARALLEL.DATA={num} under torchrun with a "
-                             f"world of {world}: set -1 or {world}")
+                             f"world of {world}: set -1 or "
+                             f"{world // views}")
         init_method = "env://"
     elif rank is None:
         world = data_world(num, device)
@@ -139,19 +184,48 @@ def init_data_parallel(num: int = -1, device="cuda",
         torch.cuda.set_device(dev)
     else:
         cards, dev = 0, torch.device("cpu")
+    if world % views:
+        raise ValueError(f"a world of {world} ranks does not form a grid "
+                         f"with {views} views per row")
     if world == 1:
         return DataParallel(device=dev)
     backend = choose_backend(device_type, world, cards)
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world)
+    view_group, data_group = _grid_groups(rank, world, views)
     dp = DataParallel(rank=rank, world=world, device=dev,
-                      group=dist.group.WORLD, backend=backend)
+                      group=dist.group.WORLD, backend=backend, views=views,
+                      view_group=view_group, data_group=data_group)
     if dp.is_main:
-        logger.info("data parallel: %d ranks, backend %s (%s)", world,
-                    backend, "a card per rank" if backend == "nccl" else
+        logger.info("data parallel: %d ranks (%d data x %d views), backend "
+                    "%s (%s)", world, dp.data_world, views, backend,
+                    "a card per rank" if backend == "nccl" else
                     "the CPU" if device_type == "cpu" else
                     f"{world} ranks on {cards} card(s)")
     return dp
+
+
+def _grid_groups(rank: int, world: int, views: int):
+    """(this rank's view group, its data group): the ranks of its data
+    row and of its view slot, in JAX's mesh order (rank = data_rank *
+    views + view_rank). Every rank makes every group, as
+    `dist.new_group` requires. A view world of 1 has no view group and
+    the world's group as its data group; a single data row has no data
+    group."""
+    data = world // views
+    if views == 1:
+        return None, dist.group.WORLD
+    view_group = data_group = None
+    for d in range(data):
+        g = dist.new_group([d * views + v for v in range(views)])
+        if rank // views == d:
+            view_group = g
+    if data > 1:
+        for v in range(views):
+            g = dist.new_group([d * views + v for d in range(data)])
+            if rank % views == v:
+                data_group = g
+    return view_group, data_group
 
 
 def close(dp: DataParallel) -> None:
@@ -160,24 +234,45 @@ def close(dp: DataParallel) -> None:
         dist.destroy_process_group()
 
 
-def shard_batch(batch, dp: DataParallel):
-    """This rank's rows of a global Batch: every leaf under `views`,
-    `view_data` and `targets` is laid out (B, ...) and is cut to rows
-    [rank*B, (rank+1)*B) of its leading axis. A Batch field with no rule
-    here raises rather than inherit a wrong placement."""
+def _place(batch, rows: slice, views: slice):
+    """`batch` with every leaf cut to `rows` of its batch axis, and the
+    leaves under `views` and `view_data`, laid out (B, V, ...), to `views`
+    of their view axis; `targets` (B, M, ...) keep every view. A Batch
+    field with no rule here raises rather than inherit a wrong
+    placement."""
     from mvgformer_tpu_torch.data.meta import map_tensors
 
-    rows = dp.rows(int(batch.views.shape[0]))
     placed = {}
     for f in dataclasses.fields(batch):
         value = getattr(batch, f.name)
-        if f.name in ("views", "view_data", "targets"):
+        if f.name in ("views", "view_data"):
+            placed[f.name] = map_tensors(value, lambda t: t[rows, views])
+        elif f.name == "targets":
             placed[f.name] = map_tensors(value, lambda t: t[rows])
         else:
             raise ValueError(
                 f"shard_batch: unplaced Batch field {f.name!r}: add an "
                 f"explicit placement rule for it in parallel/mesh.py")
     return dataclasses.replace(batch, **placed)
+
+
+def shard_batch(batch, dp: DataParallel):
+    """This rank's shard of a global Batch: rows [data_rank*B,
+    (data_rank+1)*B) of every leaf and, under a view split, this rank's
+    contiguous views of `views` and `view_data` (`shard_views`). A view
+    count that the view world does not divide raises."""
+    rows = dp.rows(int(batch.views.shape[0]))
+    return _place(batch, rows, dp.view_slice(int(batch.views.shape[1])))
+
+
+def shard_views(batch, dp: DataParallel):
+    """This rank's views of a batch that already holds its rows (every
+    view of them), as a data loader gives it: the batch itself without a
+    view split."""
+    if dp.views == 1:
+        return batch
+    return _place(batch, slice(None),
+                  dp.view_slice(int(batch.views.shape[1])))
 
 
 def _flat(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -235,7 +330,8 @@ def all_reduce_grads(params: Iterable[torch.nn.Parameter], dp: DataParallel,
 def reduce_count(num: torch.Tensor, dp: Optional[DataParallel]
                  ) -> torch.Tensor:
     """The mean of a count over the ranks (the count itself without data
-    parallelism)."""
+    parallelism). The ranks of a data row hold the same targets, so the
+    mean over the whole grid is the mean over its data rows."""
     if dp is None or not dp.distributed:
         return num
     total = num.detach().clone()
@@ -271,12 +367,12 @@ def broadcast_object(obj, dp: DataParallel):
 
 
 def _worker(rank: int, fn: Callable, world: int, device: str,
-            store: str, result_path: str, args: tuple) -> None:
+            store: str, result_path: str, args: tuple, views: int) -> None:
     if torch.device(device).type == "cpu":
         # the ranks share the host's cores
         torch.set_num_threads(max(1, torch.get_num_threads() // world))
-    dp = init_data_parallel(world, device, rank=rank, world=world,
-                            init_method=f"file://{store}")
+    dp = init_data_parallel(world // views, device, rank=rank, world=world,
+                            init_method=f"file://{store}", views=views)
     try:
         result = fn(dp, *args)
         if dp.is_main:
@@ -286,34 +382,42 @@ def _worker(rank: int, fn: Callable, world: int, device: str,
         close(dp)
 
 
-def spawn(fn: Callable, world: int, device, *args):
+def spawn(fn: Callable, world: int, device, *args, views: int = 1):
     """Run `fn(dp, *args)` on `world` ranks in spawned processes that meet
-    at a file store in a temporary directory, and return rank 0's result.
-    On the card rank r takes cuda:(r % visible cards), so ranks may share
-    a card (over gloo). `fn` must be importable (spawn pickles it by name)
-    and its result picklable."""
+    at a file store in a temporary directory, and return rank 0's result;
+    with `views` > 1 the ranks form a (world / views) x views grid. On the
+    card rank r takes cuda:(r % visible cards), so ranks may share a card
+    (over gloo). `fn` must be importable (spawn pickles it by name) and
+    its result picklable."""
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory(prefix="mvg-dp-") as tmp:
         store = os.path.join(tmp, "store")
         result_path = os.path.join(tmp, "result.pkl")
         mp.start_processes(_worker, args=(fn, world, str(device), store,
-                                          result_path, args),
+                                          result_path, args, views),
                            nprocs=world, join=True, start_method="spawn")
         with open(result_path, "rb") as f:
             return pickle.load(f)
 
 
-def launch(fn: Callable, num: int, device, *args):
-    """Run `fn(dp, *args)` on every rank of the world PARALLEL.DATA
-    (`num`) asks for, and return rank 0's result: in this process for a
-    world of 1 or under torchrun (joining its group), else in
-    `data_world(num, device)` spawned processes (`spawn`)."""
+def launch(fn: Callable, num: int, device, *args, views: int = 1):
+    """Run `fn(dp, *args)` on every rank of the grid, `num` data rows (as
+    PARALLEL.DATA asks) x `views` view ranks, and return rank 0's result:
+    in this process for a world of 1 or under torchrun (joining its
+    group), else in spawned processes (`spawn`). The data rows are
+    `data_world(num, device)`; under a view split `num` rows exactly (-1
+    or 0: one), their ranks sharing the visible cards."""
     device = str(device)
-    world = 1 if under_torchrun() else data_world(num, device)
+    if under_torchrun():
+        world = 1
+    elif views > 1:
+        world = max(num, 1) * views
+    else:
+        world = data_world(num, device)
     if world > 1:
-        return spawn(fn, world, device, *args)
-    dp = init_data_parallel(num, device)
+        return spawn(fn, world, device, *args, views=views)
+    dp = init_data_parallel(num, device, views=views)
     try:
         return fn(dp, *args)
     finally:

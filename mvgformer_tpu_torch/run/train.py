@@ -9,7 +9,7 @@ The port of run/train.py, step for step: the train and test datasets; the
 model's weights from TRAIN.SEED, then NETWORK.PRETRAINED_BACKBONE and
 TRAIN.FINETUNE_MODEL; TRAIN.RESUME from the latest checkpoint; per epoch
 the training loop over a Prefetcher (dropout from a generator on the
-device seeded with TRAIN.SEED + rank, the per-step metrics logged through
+device seeded with TRAIN.SEED + data rank, the per-step metrics logged through
 a MetricLogger every PRINT_FREQ steps, preemption checkpoints), the
 device's memory, the eval at each confidence threshold (`core.infer.
 evaluate_dataset`; DEBUG.LOG_VAL_LOSS on the first), best-precision
@@ -143,18 +143,19 @@ def train(dp, args, cfg) -> dict:
             tile=cfg.DECODER.layer1_window_tile,
             halo=cfg.DECODER.layer1_window_halo, device=device)
     eval_steps = {thr: make_eval_step(cfg, model, threshold=thr,
-                                      window_plan=window_plan)
+                                      window_plan=window_plan, dp=dp)
                   for thr in cfg.DECODER.inference_conf_thr}
     eval_loss_step = None
     if cfg.DEBUG.LOG_VAL_LOSS:
         eval_loss_step = make_eval_loss_step(
             cfg, model, threshold=cfg.DECODER.inference_conf_thr[0],
-            window_plan=window_plan)
+            window_plan=window_plan, dp=dp)
 
     placer = DevicePlacer(device)
-    # each rank draws its own dropout masks
+    # each data row draws its own dropout masks (the ranks of a row, under
+    # a view split, the same ones)
     generator = torch.Generator(device=device).manual_seed(
-        cfg.TRAIN.SEED + dp.rank)
+        cfg.TRAIN.SEED + dp.data_rank)
     guard = PreemptionGuard()
     total_steps = 0
     result = {"steps": 0, "step_losses": [], "step_s": [],

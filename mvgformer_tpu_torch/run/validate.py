@@ -209,14 +209,16 @@ def validate(dp, args, cfg) -> dict:
             telemetry = cfg.DECODER.layer1_windowed_sampling
             eval_step = make_eval_step(cfg, model, threshold=thr,
                                        window_plan=window_plan,
-                                       with_escape_telemetry=telemetry)
+                                       with_escape_telemetry=telemetry,
+                                       dp=dp)
             loss_step = None
             if cfg.DEBUG.LOG_VAL_LOSS:
                 from mvgformer_tpu_torch.core.train import \
                     make_eval_loss_step
 
                 loss_step = make_eval_loss_step(cfg, model, threshold=thr,
-                                                window_plan=window_plan)
+                                                window_plan=window_plan,
+                                                dp=dp)
             run = predict_dataset(
                 test_ds, eval_step, batch_size, device,
                 with_escape_telemetry=telemetry, loss_step=loss_step, dp=dp,
