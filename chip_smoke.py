@@ -45,9 +45,10 @@ exits non-zero:
      versions at one training layer's shape (40 pairs, 122,880 samples per
      level, rows from random locations with border and missing samples),
      float32 and bfloat16, the backward launched twice and compared bit
-     for bit, untouched gradient rows exactly 0; both timed, the backward
-     also in its parts (the sort of its wrapper, the bare flattened and
-     per-pair sorts, the kernels alone on sorted samples), and the peak
+     for bit, untouched gradient rows exactly 0; both timed (`ms`, and
+     `device_ms` on the device alone), the backward also in its parts
+     (the sort of its wrapper, the bare flattened and per-pair sorts,
+     the kernels alone on sorted samples), and the peak
      memory of one layer's forward and backward through the kernels and
      through plain autograd;
  11. the corner sampler (B2 + B3) against the deformable-sampling kernel
@@ -56,7 +57,7 @@ exits non-zero:
      the card against the plain path on the CPU: every loss term and every
      gradient;
  13. train: the flagship training config (bfloat16, batch 1, gt match,
-     Jacobi DLT, remat, dropout 0.1), 2 warm-up and 5 timed steps through
+     Jacobi DLT, remat, dropout 0.1), 2 warm-up and 3 timed steps through
      core.train.make_train_step on batches made before the clock starts;
      finite losses, the backbone unchanged, non-zero sampler gradients,
      the launch counts the design predicts, steps/s and peak memory; then
@@ -100,7 +101,7 @@ exits non-zero:
      CPU, float32 with TF32 off, every layer at the golden classes. 18b:
      serve in bfloat16, batch 1, 1024 queries: B1 once per layer and frame
      at its L 3 / P 8 instance and nothing else, frames/s, latency, peak
-     memory. 18c: train in bfloat16, 2 warm-up and 5 timed steps through
+     memory. 18c: train in bfloat16, 2 warm-up and 3 timed steps through
      make_train_step: finite losses, 12 / 12 / 12 B2 / B3 launches per
      step, non-zero sampler gradients, steps/s, peak memory. 18d:
      torch.profiler over 2 frames and over 2 steps: the device's idle
@@ -125,7 +126,7 @@ exits non-zero:
      every reduced gradient within 2e-2 of its leaf's largest (bf16:
      `bf16_grad_bounds`, 2x the one process's own bf16 rounding of the
      leaf where that is larger), the ranks' parameters
-     after the Adam step bit-equal; per rank steps/s over 5 steps, the
+     after the Adam step bit-equal; per rank steps/s over 3 steps, the
      gradient all-reduce's ms and share of a step (a StageTimer around
      each), B2 / B3 launches per step (counts set to 0 before the 5
      steps; the rows' `path_launches`); where 2 or more cards are
@@ -163,7 +164,28 @@ exits non-zero:
      in float32 (losses rtol 1e-3, gradients 2e-2 of a leaf's largest)
      and bf16 (2e-2, `bf16_grad_bounds`), the ranks' parameters
      bit-equal; per rank steps/s, the collectives' share and 24 / 24 / 12
-     B2 / B3 launches per step.
+     B2 / B3 launches per step;
+ 24. tools: configs/synthetic_ap_ablation.yaml's widths (head dim 16, 8
+     points, levels 64x120 / 32x60 / 16x30) and the tools of
+     mvgformer_tpu_torch/tools/ that the root tools/ had. 24a: B1 (Lq
+     15360 at P 8 and 4, 1920 and 960 at P 8, 960 at P 4), B2, B3 forward
+     and backward (one dense training layer) and B4 / B5 (the rig's
+     layer-1 plan under clamp 4, P 8 and 4) against their plain versions
+     at those shapes, float32 and bfloat16, the tolerances of phases 3, 4,
+     9 and 10, each launched twice for the same bits, the vector instances
+     required, bfloat16 timed (`ablation_d16` in the kernel rows). 24b:
+     ap_train_fast on 8 frames for 2 epochs (16 steps), every step under
+     the sync debug mode: no synchronization after a run's first step;
+     24 / 24 / 12 B2 / B3 launches per step; the epoch lines, steps/s,
+     peak memory; then --resume to epoch 3, which starts at 2. 24c:
+     ap_ablation's rows jacobi_dense, jacobi_k64_ptop4,
+     jacobi_k128_clamp4_windowed and the same with 'pallas_dma' through
+     the validate CLI on the card (8 frames), each with its frames/s and
+     the CLI's kernel counts, then ap_spread_report on them. 24d:
+     extract_bone_lengths. 24e: verify_checkpoint on a Panoptic tree the
+     phase writes and a flagship checkpoint of random weights: the gate
+     fails, non-zero. 24f: bench_host_pipeline at 8 frames and 1 and 2
+     threads where cv2 imports, else a line saying it is absent.
 
 Phase 10 also holds F.embedding_bag, the library call of B3's function,
 against B3's plain versions and times it. The models, batches and window
@@ -215,8 +237,8 @@ TRAIN_LQ, TRAIN_P = 1024 * 15, 8  # dense training layer: Q*J queries
 SEED = 0
 THRESHOLD = 0.1
 SERVE_FRAMES, SERVE_WARMUP = 6, 2
-WINDOW_FRAMES = 10  # distinct frames per windowed impl, 2 of them warm-up
-TRAIN_STEPS, TRAIN_WARMUP = 7, 2
+WINDOW_FRAMES = 6  # distinct frames per windowed impl, 2 of them warm-up
+TRAIN_STEPS, TRAIN_WARMUP = 5, 2
 SOURCES = ("deform_sample.cu", "window_block.cu", "window_dma.cu",
            "table_build.cu", "table_gather.cu", "gather_forms.cu")
 IMPL_KERNEL = {"pallas": window_block.window_block_matmul,
@@ -236,7 +258,7 @@ WINDOW_CLAMPS = {28: None, 20: 4.0}
 PROBES = ("probe_pallas_gather", "probe_pallas_gather2",
           "probe_mosaic_gather_forms", "probe_onehot_parts",
           "probe_sorted_gather_parts", "probe_table_kernel_forms")
-PROBE_RUNS = ("--runs", "3", "--warmup", "1")
+PROBE_RUNS = ("--runs", "2", "--warmup", "1")
 # the CLI phases: the train CLI on the from-scratch ablation config, the
 # validate CLI on it and at the flagship width with synthetic frames
 ABLATION_CFG = REPO / "configs" / "synthetic_ap_ablation.yaml"
@@ -450,14 +472,14 @@ def check_kernel(card):
     return worst_f32, serving
 
 
-def window_setup(clamp):
-    """The flagship rig's layer-1 plan (on the card) and static centers
-    (on the host)."""
+def window_setup(clamp, cfg=None):
+    """The layer-1 plan (on the card) and static centers (on the host) of
+    the flagship rig, or of `cfg`'s."""
     from mvgformer_tpu_torch.data.synthetic import make_batch
     from mvgformer_tpu_torch.models.mvgformer import (
         build_layer1_window_plan, layer1_centers_px)
 
-    cfg = flagship_cfg("float32")
+    cfg = cfg or flagship_cfg("float32")
     cfg.DECODER.layer1_offset_clamp = clamp
     batch = make_batch(cfg, batch_size=1, seed=SEED, num_people=3,
                        cam_seed=SEED)
@@ -756,12 +778,14 @@ def check_table_build(card):
     return stats[torch.bfloat16]
 
 
-def training_layer_inputs(dtype, gen):
+def training_layer_inputs(dtype, gen, levels=SPATIAL_SHAPES,
+                          head_dim=HEAD_DIM):
     """value, locations and weights of one dense training layer (Lq = 1024
     queries x 15 joints, P = 8) with border and far-outside locations; the
     non-finite ones of `sampling_inputs` are made far-outside, since only
     finite locations reach the table rows."""
-    value, loc, aw = sampling_inputs(TRAIN_LQ, TRAIN_P, dtype, gen)
+    value, loc, aw = sampling_inputs(TRAIN_LQ, TRAIN_P, dtype, gen,
+                                     levels=levels, head_dim=head_dim)
     loc = torch.nan_to_num(loc, nan=5.0, posinf=50.0, neginf=-50.0)
     return value, loc, aw
 
@@ -818,6 +842,11 @@ def check_table_gather(card):
                 runs=5, warmup=1) for a in zip(tables, *zip(*samples))),
             "bwd_ms": sum(cuda_ms(lambda a=a: bwd(*a)) for a in zip(
                 tables, *zip(*samples), cts)),
+            # the device alone (device_ms: 50 calls behind a held stream)
+            "fwd_device_ms": sum(device_ms(lambda a=a: fwd(*a))[0]
+                                 for a in zip(tables, *zip(*samples))),
+            "bwd_device_ms": sum(device_ms(lambda a=a: bwd(*a))[0]
+                                 for a in zip(tables, *zip(*samples), cts)),
             "plain_bwd_ms": sum(cuda_ms(
                 lambda a=a: table_gather.gather_reduce_backward_plain(*a),
                 runs=5, warmup=1) for a in zip(tables, *zip(*samples), cts)),
@@ -854,10 +883,12 @@ def check_table_gather(card):
                               library_ms_f32=library["library_bwd_ms"])
         else:
             stats[fwd].update(ms=times["fwd_ms"],
+                              device_ms=times["fwd_device_ms"],
                               plain_ms=times["plain_fwd_ms"],
                               library_ms=library["library_fwd_ms"],
                               work=work[fwd])
             stats[bwd].update(ms=times["bwd_ms"],
+                              device_ms=times["bwd_device_ms"],
                               plain_ms=times["plain_bwd_ms"],
                               library_ms=library["library_bwd_ms"],
                               work=work[bwd], sort_ms=times["sort_ms"],
@@ -1093,7 +1124,7 @@ def train(card):
                for i in range(TRAIN_STEPS)]
     state, tx = create_train_state(cfg, model)
     step = make_train_step(cfg, model, tx)
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    gen = torch.Generator().manual_seed(SEED)
     backbone = {k: v.clone() for k, v in model.state_dict().items()
                 if k.startswith("backbone.")}
     # launches per step: per layer and level one table build and one
@@ -1961,7 +1992,7 @@ def mvp_serve(card):
 
 def mvp_train(card):
     """Phases 18c and 18d: train the MvP baseline in bfloat16, batch 1, 2
-    warm-up and 5 timed steps through make_train_step (no remat, as JAX's
+    warm-up and 3 timed steps through make_train_step (no remat, as JAX's
     MvP model): finite losses, B2 / B3 launches per step (4 layers x 3
     levels each, no B1), non-zero sampler gradients, steps/s, peak memory;
     then a profiler window over 2 steps."""
@@ -1979,7 +2010,7 @@ def mvp_train(card):
                for i in range(TRAIN_STEPS)]
     state, tx = create_train_state(cfg, model)
     step = make_train_step(cfg, model, tx)
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    gen = torch.Generator().manual_seed(SEED)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times, metrics = [], None
@@ -2069,7 +2100,7 @@ def flagship_train_once(cfg, batches):
     model = build_model(cfg, generator=torch.Generator().manual_seed(SEED))
     state, tx = create_train_state(cfg, model)
     step = make_train_step(cfg, model, tx)
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    gen = torch.Generator().manual_seed(SEED)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     (state, first), counts = count_launches(
@@ -2160,7 +2191,7 @@ def dq_options(card):
 
 # phases 20-22: data parallelism over ranks, the debug dumps, the stage
 # split of a served frame
-DP_RANKS, DP_STEPS = 2, 5
+DP_RANKS, DP_STEPS = 2, 3
 DP_LOSSES = ("total", "loss_ce", "loss_pose_perjoint",
              "loss_pose_perprojection_2d", "loss_init")
 TORCHRUN = (sys.executable, "-m", "torch.distributed.run", "--standalone",
@@ -2662,8 +2693,8 @@ def stage_split(card):
 # phase 23: view parallelism, one flagship frame's 5 views over the
 # ranks of a (1 x VP_VIEWS) grid
 VP_VIEWS = 5
-VP_FRAMES, VP_WARMUP = 6, 2  # timed bf16 frames per rank, warm-up first
-VP_STEPS = 3                 # timed bf16 training steps per rank
+VP_FRAMES, VP_WARMUP = 4, 2  # timed bf16 frames per rank, warm-up first
+VP_STEPS = 2                 # timed bf16 training steps per rank
 VP_TIE = 1e-6                # a near-tie at the K-th score, relative
 # a token whose projection the two runs put on either side of an image
 # edge (`bounds_flips`) is left out of the comparison: at most
@@ -2884,8 +2915,7 @@ def vp_train_worker(dp, cfgs, out_dir):
         state, tx = core_train.create_train_state(cfg, model)
         step = core_train.make_train_step(cfg, model, tx, dp=dp)
         # the ranks of a data row draw the same dropout masks
-        gen = torch.Generator(device=dp.device).manual_seed(
-            cfg.TRAIN.SEED + dp.data_rank)
+        gen = torch.Generator().manual_seed(cfg.TRAIN.SEED + dp.data_rank)
         state, metrics = step(state, local, gen)
         out[dtype] = {
             "metrics": {k: v.item() for k, v in metrics.items()},
@@ -3275,6 +3305,544 @@ def check_kernel_one_view(card):
     return timed
 
 
+# phase 24: configs/synthetic_ap_ablation.yaml's widths (d_model 128 over
+# 8 heads: head dim 16; 8 points; 480x256 images, levels 64x120, 32x60,
+# 16x30) and the root tools the port carries (mvgformer_tpu_torch/tools/)
+ABL_LEVELS = ((64, 120), (32, 60), (16, 30))
+ABL_HEAD_DIM = 16
+# B1 in the eval rows: dense layers (Lq 1024 x 15) at P 8 and under
+# point-top-4, the layers after top-K 128 and 64 at P 8 and 4
+ABL_B1_SHAPES = ((15360, 8), (15360, 4), (1920, 8), (960, 8), (960, 4))
+ABL_WINDOW_CLAMP = 4.0  # the windowed rows' layer1_offset_clamp
+ABLATION_AT = {
+    "build_corner_table": "bfloat16 N=5 H=8 D=16, the 3 ablation levels "
+                          "summed",
+    "gather_reduce_forward": "bfloat16 NH=40 S=122880 D=16 per level, the "
+                             "3 ablation levels summed",
+    "gather_reduce_backward": "bfloat16 NH=40 S=122880 D=16 per level, the "
+                              "3 ablation levels summed",
+    "window_block_matmul": "bfloat16 layer-1 plan of the ablation rig, "
+                           "clamp 4, H=8 D=16 P=8, the 3 levels summed",
+    "window_block_dma": "bfloat16 layer-1 plan of the ablation rig, clamp "
+                        "4, H=8 D=16 P=8, the 3 levels summed"}
+TOOL_FRAMES = 8
+TOOL_TRAIN_ARGS = (f"DATASET.MAX_DATA_NUM={TOOL_FRAMES}", "TRAIN.END_EPOCH=2")
+TOOL_EVAL_ROWS = (("jacobi_dense", "jacobi_dense", ()),
+                  ("jacobi_k64_ptop4", "jacobi_k64_ptop4", ()),
+                  ("jacobi_k128_clamp4_windowed",
+                   "jacobi_k128_clamp4_windowed", ()),
+                  ("jacobi_k128_clamp4_windowed_dma",
+                   "jacobi_k128_clamp4_windowed",
+                   ("DECODER.layer1_window_impl=pallas_dma",)))
+PANOPTIC_FILES = 13  # validation interval 12: frames 0 and 12
+
+
+def ablation_cfg(*overrides):
+    from mvgformer_tpu_torch.config import load_config
+
+    return load_config(str(ABLATION_CFG), list(overrides))
+
+
+def ablation_b1(card, gen):
+    """24a, B1 at ABL_B1_SHAPES: float32 within 1e-4 and bfloat16 within
+    2e-2 of the plain version, two launches the same bits, the vector
+    instance; bfloat16 timed. Returns {(Lq, P): stats}."""
+    out_stats = {}
+    for Lq, P in ABL_B1_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            value, loc, aw = sampling_inputs(Lq, P, dtype, gen,
+                                             levels=ABL_LEVELS,
+                                             head_dim=ABL_HEAD_DIM)
+
+            def kernel():
+                return deform_attn.deform_sample(value, ABL_LEVELS, loc, aw)
+
+            out = kernel()
+            same = torch.equal(out, kernel())
+            ref = sampling.deform_sample(value.float(), ABL_LEVELS, loc,
+                                         aw.float())
+            err = (out.float() - ref).abs().max().item()
+            ok = (err <= 1e-4 if dtype == torch.float32 else
+                  torch.allclose(out.float(), ref, atol=2e-2, rtol=2e-2))
+            vec = _build.vector_width(ABL_HEAD_DIM, value.element_size(),
+                                      value, loc, aw, out)
+            fields = {}
+            if dtype == torch.bfloat16:
+                dev_ms, host_us = device_ms(kernel)
+                fields = {"ms": cuda_ms(kernel), "device_ms": dev_ms,
+                          "host_us": host_us,
+                          "plain_ms": cuda_ms(lambda: sampling.deform_sample(
+                              value, ABL_LEVELS, loc, aw), runs=5, warmup=1),
+                          "bound_ms": bounds.deform_sample(
+                              value, ABL_LEVELS, loc, aw).bound_ms}
+                out_stats[(Lq, P)] = fields
+            phase("ablation_kernel_vs_plain", kernel="deform_sample", N=5,
+                  Lq=Lq, H=HEADS, D=ABL_HEAD_DIM, levels=ABL_LEVELS, P=P,
+                  dtype=str(dtype), max_abs_err=err, ok=bool(ok),
+                  bit_identical=same, elements_per_thread=vec,
+                  vector_instance=vec > 1, **fields, card=card)
+            if not (ok and same) or vec == 1:
+                fail(f"B1 at D {ABL_HEAD_DIM} Lq {Lq} P {P} {dtype}: err "
+                     f"{err}, bit-identical {same}, elements/thread {vec}")
+    return out_stats
+
+
+def ablation_b2(card, gen):
+    """24a, B2 on the ablation value's three level views: bit for bit
+    against the plain version and between two launches; bfloat16 timed
+    (summed over the levels)."""
+    len_in = sum(h * w for h, w in ABL_LEVELS)
+    for dtype in (torch.float32, torch.bfloat16):
+        value = torch.randn(N_VIEWS, len_in, HEADS, ABL_HEAD_DIM,
+                            device="cuda", generator=gen).to(dtype)
+        views = level_views(value, ABL_LEVELS)
+        equal = all(torch.equal(table_build.build_corner_table(v),
+                                table_build.build_corner_table_plain(v))
+                    for v in views)
+        same = all(torch.equal(table_build.build_corner_table(v),
+                               table_build.build_corner_table(v))
+                   for v in views)
+        stats = {
+            "ms": sum(cuda_ms(lambda v=v: table_build.build_corner_table(v))
+                      for v in views),
+            "device_ms": sum(device_ms(
+                lambda v=v: table_build.build_corner_table(v))[0]
+                for v in views),
+            "plain_ms": sum(cuda_ms(
+                lambda v=v: table_build.build_corner_table_plain(v),
+                runs=5, warmup=1) for v in views),
+            "bound_ms": bounds.total([
+                bounds.table_build(N_VIEWS * HEADS, h, w, ABL_HEAD_DIM,
+                                   value.element_size())
+                for h, w in ABL_LEVELS]).bound_ms}
+        phase("ablation_kernel_vs_plain", kernel="build_corner_table",
+              N=N_VIEWS, H=HEADS, D=ABL_HEAD_DIM, levels=ABL_LEVELS,
+              dtype=str(dtype), bitwise_equal=equal, bit_identical=same,
+              **stats, card=card)
+        if not (equal and same):
+            fail(f"B2 at D {ABL_HEAD_DIM} {dtype}: equal {equal}, "
+                 f"bit-identical {same}")
+    return stats
+
+
+def ablation_b3(card, gen):
+    """24a, B3 forward and backward at one dense training layer of the
+    ablation config (40 pairs x 122,880 samples per level, D 16) against
+    the plain versions as in phase 10 (check_gather_level), the backward
+    twice the same bits; bfloat16 timed. Returns per kernel its stats."""
+    fwd, bwd = (table_gather.gather_reduce_forward,
+                table_gather.gather_reduce_backward)
+    stats = {fwd: {"max_abs_err": 0.0}, bwd: {"max_abs_err": 0.0}}
+    for dtype in (torch.float32, torch.bfloat16):
+        value, loc, aw = training_layer_inputs(dtype, gen, ABL_LEVELS,
+                                               ABL_HEAD_DIM)
+        with torch.no_grad():
+            tables, _ = table_build.build_corner_tables(
+                value.transpose(1, 2), ABL_LEVELS)
+            samples = sampling.corner_samples(ABL_LEVELS, loc, aw, dtype)
+        cts = [torch.randn(idx.shape + (ABL_HEAD_DIM,), device="cuda",
+                           generator=gen).to(dtype) for idx, _ in samples]
+        ok, same, errs = True, True, {fwd: 0.0, bwd: 0.0, "bwd_rel": 0.0}
+        for tbl, (idx, w4), ct in zip(tables, samples, cts):
+            level_ok, level_errs, level_same = check_gather_level(
+                tbl, idx, w4, ct)
+            ok &= level_ok
+            same &= level_same
+            for k, v in level_errs.items():
+                errs[k] = max(errs[k], v)
+        fwd_args = list(zip(tables, *zip(*samples)))
+        bwd_args = list(zip(tables, *zip(*samples), cts))
+        vec = table_gather.vector_bytes(tables[0], cts[0])
+        timed = {}
+        if dtype == torch.bfloat16:
+            timed = {
+                "fwd_ms": sum(cuda_ms(lambda a=a: fwd(*a)) for a in fwd_args),
+                "fwd_device_ms": sum(device_ms(lambda a=a: fwd(*a))[0]
+                                     for a in fwd_args),
+                "fwd_plain_ms": sum(cuda_ms(
+                    lambda a=a: table_gather.deform_gather_reduce_plain(*a),
+                    runs=5, warmup=1) for a in fwd_args),
+                "fwd_bound_ms": bounds.total([
+                    bounds.table_gather_forward(t, i)
+                    for t, (i, _) in zip(tables, samples)]).bound_ms,
+                "bwd_ms": sum(cuda_ms(lambda a=a: bwd(*a)) for a in bwd_args),
+                "bwd_device_ms": sum(device_ms(lambda a=a: bwd(*a))[0]
+                                     for a in bwd_args),
+                "bwd_plain_ms": sum(cuda_ms(
+                    lambda a=a: table_gather.gather_reduce_backward_plain(
+                        *a), runs=5, warmup=1) for a in bwd_args),
+                "bwd_bound_ms": bounds.total([
+                    bounds.table_gather_backward(t, i)
+                    for t, (i, _) in zip(tables, samples)]).bound_ms}
+            for fn, key in ((fwd, "fwd"), (bwd, "bwd")):
+                stats[fn].update({k[len(key) + 1:]: v for k, v in
+                                  timed.items() if k.startswith(key)})
+        else:
+            stats[fwd]["max_abs_err"] = errs[fwd]
+            stats[bwd]["max_abs_err"] = errs[bwd]
+        phase("ablation_kernel_vs_plain", kernel="gather_reduce",
+              NH=N_VIEWS * HEADS, S_per_level=TRAIN_LQ * TRAIN_P,
+              D=ABL_HEAD_DIM, table_rows=[t.shape[1] for t in tables],
+              dtype=str(dtype), fwd_max_abs_err=errs[fwd],
+              bwd_max_abs_err=errs[bwd],
+              bwd_max_err_per_max_grad=errs["bwd_rel"],
+              bwd_bit_identical=same, vector_bytes=vec, ok=bool(ok),
+              **timed, card=card)
+        if not (ok and same):
+            fail(f"B3 at D {ABL_HEAD_DIM} {dtype}: ok {ok}, backward "
+                 f"bit-identical {same}")
+        del tables, samples, cts, value, loc, aw
+        torch.cuda.empty_cache()
+    return stats
+
+
+def ablation_window(card, gen):
+    """24a, B4 and B5 on the level operands of the ablation rig's layer-1
+    plan under layer1_offset_clamp 4 (the windowed eval rows), P 8 and 4,
+    float32 and bfloat16, each level launched twice for the same bits and
+    held to its plain version (check_window_level, which also requires the
+    vector instance); bfloat16 P 8 timed, summed over the levels."""
+    cfg = ablation_cfg("PARALLEL.COMPUTE_DTYPE=float32")
+    plan, centers_px = window_setup(ABL_WINDOW_CLAMP, cfg)
+    stats = {fn: {"max_abs_err": 0.0} for fn in PLAIN}
+    for P in (8, 4):
+        for dtype in (torch.float32, torch.bfloat16):
+            value, loc, aw = window_inputs(centers_px, plan.halo, P, dtype,
+                                           gen, escape=True,
+                                           levels=ABL_LEVELS, heads=HEADS,
+                                           head_dim=ABL_HEAD_DIM)
+            lines = {}
+            for impl, kernel in IMPL_KERNEL.items():
+                calls = window_sampling.level_calls(value, ABL_LEVELS, loc,
+                                                    aw, plan, impl=impl)
+                levels = [check_window_level(kernel, call, dtype)
+                          for call in calls]
+                lines[kernel.__name__] = levels
+                if not all(lv["ok"] for lv in levels):
+                    fail(f"{kernel.__name__} at D {ABL_HEAD_DIM} P {P} "
+                         f"{dtype} disagrees: {levels}")
+                if dtype == torch.float32:
+                    stats[kernel]["max_abs_err"] = max(
+                        stats[kernel]["max_abs_err"],
+                        *(lv["max_abs_err"] for lv in levels))
+                elif P == 8:
+                    stats[kernel].update(
+                        ms=sum(lv["ms"] for lv in levels),
+                        device_ms=sum(lv["device_ms"] for lv in levels),
+                        plain_ms=sum(lv["plain_ms"] for lv in levels),
+                        bound_ms=bounds.total([
+                            WINDOW_WORK[kernel](*c.args, **c.kwargs)
+                            for c in calls]).bound_ms)
+            phase("ablation_kernel_vs_plain", kernel="window", K=plan.levels[
+                0].K, Kx=plan.levels[0].Kx, halo=plan.halo, P=P,
+                  D=ABL_HEAD_DIM, dtype=str(dtype), kernels=lines,
+                  vector_instance=True, card=card)
+    return stats
+
+
+def ablation_kernels(card):
+    """Phase 24a: every kernel of the ablation config's paths held against
+    its plain version on the card at its shapes (D 16)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    stats = {"deform_sample": ablation_b1(card, gen),
+             "build_corner_table": ablation_b2(card, gen)}
+    for fn, st in ablation_b3(card, gen).items():
+        stats[fn.__name__] = st
+    for fn, st in ablation_window(card, gen).items():
+        stats[fn.__name__] = st
+    torch.cuda.empty_cache()
+    return stats
+
+
+@contextlib.contextmanager
+def counted_syncs(into):
+    """core.train.make_train_step wrapped so that each step runs under
+    torch.cuda.set_sync_debug_mode("warn") and appends to `into` the number
+    of synchronizing CUDA operations it made."""
+    import warnings
+
+    from mvgformer_tpu_torch.core import train as core_train
+
+    real = core_train.make_train_step
+
+    def make(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def counted(*a, **k):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return step(*a, **k)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                    into.append(sum(str(w.message).startswith(
+                        "called a synchronizing CUDA operation")
+                        for w in caught))
+        return counted
+
+    core_train.make_train_step = make
+    try:
+        yield
+    finally:
+        core_train.make_train_step = real
+
+
+def tool_train(card, out_dir):
+    """Phase 24b: `python -m mvgformer_tpu_torch.tools.ap_train_fast` (its
+    main, in this process) on the ablation config at its full width,
+    TOOL_TRAIN_ARGS: 8 frames staged on the card, 2 epochs, 16 steps, then
+    --resume to END_EPOCH 3, which must start at epoch 2. Every step is
+    counted under the sync debug mode: after the first step of a run (which
+    makes the cached constants) none may synchronize. B2 / B3 launch 24 /
+    24 / 12 times per step. Returns the checkpoint directory and the launch
+    counts."""
+    from mvgformer_tpu_torch.tools import ap_train_fast
+
+    cfg = ablation_cfg(*TOOL_TRAIN_ARGS)
+    L, layers = len(ABL_LEVELS), cfg.DECODER.num_decoder_layers
+    remat = 2 if cfg.PARALLEL.REMAT_DECODER else 1
+    per_step = {"build_corner_table": remat * L * layers,
+                "gather_reduce_forward": remat * L * layers,
+                "gather_reduce_backward": L * layers}
+    runs = {}
+    for name, extra in (("train", ()),
+                        ("resume", ("--resume", "TRAIN.END_EPOCH=3"))):
+        syncs = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        count_kernels()
+        with counted_syncs(syncs), kept_signal_handlers():
+            result = ap_train_fast.main(["--out", out_dir, "--device", "cuda",
+                                         *TOOL_TRAIN_ARGS, *extra])
+        launches = {fn.__name__: fn.launches for fn in ALL_KERNELS}
+        steps = result["steps"]
+        want = {k: n * steps for k, n in per_step.items()}
+        bad = {k: (launches[k], n) for k, n in want.items()
+               if launches[k] != n}
+        epochs = result["epochs"]
+        runs[name] = launches
+        phase("tool_ap_train_fast", run=name,
+              tool="mvgformer_tpu_torch.tools.ap_train_fast",
+              args=list(TOOL_TRAIN_ARGS) + list(extra),
+              start_epoch=result["start_epoch"],
+              last_epoch=result["last_epoch"], steps=steps,
+              seconds=result["seconds"],
+              steps_per_s=steps / result["seconds"],
+              steps_per_s_last_epoch=TOOL_FRAMES / epochs[-1]["wall_s"],
+              syncs_per_step=syncs, epochs=epochs,
+              peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+              kernel_launches=launches, launches_per_step=per_step,
+              card=card)
+        if bad:
+            fail(f"ap_train_fast {name}: launches (got, want) {bad}")
+        if len(syncs) != steps or any(syncs[1:]):
+            fail(f"ap_train_fast {name}: synchronizing operations per step "
+                 f"{syncs}")
+        if not all(math.isfinite(v) for line in epochs for k, v in
+                   line.items() if k != "epoch"):
+            fail(f"ap_train_fast {name}: non-finite metrics {epochs}")
+        if name == "resume" and (result["start_epoch"], result["last_epoch"]
+                                 ) != (2, 2):
+            fail(f"--resume ran epochs {result['start_epoch']}-"
+                 f"{result['last_epoch']}, expected 2-2")
+    return result["ckpt_dir"], runs
+
+
+def tool_eval(card, out_dir):
+    """Phase 24c: the port's ap_ablation evaluation (`eval_config`, the
+    validate CLI `python -m mvgformer_tpu_torch.run.validate` in a
+    subprocess on the card) on 24b's checkpoint over TOOL_EVAL_ROWS, the
+    eval split cut to 8 frames; every row parsed with its frames/s and the
+    CLI's own kernel counts (B1 in every row, B4 in the windowed row, B5
+    in the 'pallas_dma' one); then ap_spread_report on those rows."""
+    from mvgformer_tpu_torch.tools import ap_ablation, ap_spread_report
+
+    matrix = dict(ap_ablation.matrix(windowed=True))
+    results = str(Path(out_dir) / "rows.jsonl")
+    ckpt = ap_ablation.find_checkpoint(out_dir)
+    rows = []
+    for name, base, extra in TOOL_EVAL_ROWS:
+        row = ap_ablation.eval_config(
+            name, matrix[base] + list(extra), ckpt, results=results,
+            out_dir=out_dir, device="cuda",
+            common=(f"DATASET.MAX_DATA_NUM={TOOL_FRAMES}",))
+        if row is None or row["frames_per_s"] is None:
+            fail(f"ap_ablation row {name} failed or carries no frames/s")
+        want = {"deform_sample"}
+        if "windowed" in name:
+            want.add("window_block_dma" if "dma" in name
+                     else "window_block_matmul")
+        if not all((row["launches"] or {}).get(k) for k in want):
+            fail(f"ap_ablation row {name}: the validate CLI launched "
+                 f"{row['launches']}, expected {sorted(want)}")
+        rows.append(row)
+    phase("tool_ap_ablation_eval", tool="mvgformer_tpu_torch.tools."
+          "ap_ablation", rows=rows, card=card)
+    band, _ = ap_spread_report.main([results, "--device", "cuda"])
+    phase("tool_ap_spread_report", rows=len(rows), band_mm=band, card=card)
+    return rows
+
+
+def tool_bone_lengths(card, out_dir):
+    """Phase 24d: extract_bone_lengths on the synthetic dataset of the
+    ablation config: 14 finite bone lengths and a (15, 3) T-pose."""
+    from mvgformer_tpu_torch.tools import extract_bone_lengths
+
+    lengths, tpose = extract_bone_lengths.main([
+        "--cfg", str(ABLATION_CFG), "--device", "cuda", "--out", out_dir,
+        "--max_frames", str(TOOL_FRAMES),
+        f"DATASET.MAX_DATA_NUM={TOOL_FRAMES}"])
+    ok = (lengths.shape == (14,) and tpose.shape == (15, 3)
+          and np.isfinite(lengths).all() and np.isfinite(tpose).all()
+          and (lengths > 0).all())
+    phase("tool_extract_bone_lengths", bone_lengths_mm=lengths.tolist(),
+          ok=bool(ok), card=card)
+    if not ok:
+        fail("extract_bone_lengths gave no sane bone lengths")
+
+
+def have_cv2() -> bool:
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def write_panoptic_tree(root: Path):
+    """A small Panoptic CMU0 validation tree: every validation sequence's
+    calibration (the synthetic camera ring), one sequence with
+    PANOPTIC_FILES body files of two people, and where cv2 can write them
+    the five views' JPEGs of the two frames the validation interval
+    keeps."""
+    from mvgformer_tpu_torch.data.datasets import (CAM_LIST, PANOPTIC_M,
+                                                   PANOPTIC_VAL_SEQS)
+    from mvgformer_tpu_torch.data.synthetic import (make_camera_ring,
+                                                    make_people)
+
+    cam_list = CAM_LIST["CMU0"][:N_VIEWS]
+    cams = make_camera_ring(N_VIEWS, image_size=(1920, 1080))
+    entries = []
+    for v, (panel, node) in enumerate(cam_list):
+        R, T = cams.R[v].double().numpy(), cams.T[v].double().numpy()
+        K = np.eye(3)
+        K[0, 0], K[1, 1] = cams.f[v].tolist()
+        K[0, 2], K[1, 2] = cams.c[v].tolist()
+        k, p = cams.k[v].tolist(), cams.p[v].tolist()
+        entries.append({"panel": panel, "node": node, "K": K.tolist(),
+                        "R": (R @ PANOPTIC_M.T).tolist(),
+                        "t": (-(R @ T) / 10.0).reshape(3, 1).tolist(),
+                        "distCoef": [k[0], k[1], p[0], p[1], k[2]]})
+    people = make_people(2, seed=3)
+    bodies = []
+    for g, pose in enumerate(people):
+        j19 = np.zeros((19, 4))
+        j19[:15, :3] = (pose / 10.0) @ PANOPTIC_M.T
+        j19[:15, 3] = 1.0
+        bodies.append({"id": g, "joints19": j19.reshape(-1).tolist()})
+    for seq in PANOPTIC_VAL_SEQS:
+        (root / seq / "hdPose3d_stage1_coco19").mkdir(parents=True)
+        (root / seq / f"calibration_{seq}.json").write_text(
+            json.dumps({"cameras": entries}))
+    seq = PANOPTIC_VAL_SEQS[0]
+    for i in range(PANOPTIC_FILES):
+        (root / seq / "hdPose3d_stage1_coco19" /
+         f"body3DScene_{i:08d}.json").write_text(
+            json.dumps({"bodies": bodies}))
+    if not have_cv2():
+        return False
+    import cv2
+
+    img = np.zeros((1080, 1920, 3), np.uint8)
+    img[::64] = 128
+    for panel, node in cam_list:
+        prefix = f"{panel:02d}_{node:02d}"
+        img_dir = root / seq / "hdImgs" / prefix
+        img_dir.mkdir(parents=True)
+        for i in range(0, PANOPTIC_FILES, 12):
+            cv2.imwrite(str(img_dir / f"{prefix}_{i:08d}.jpg"), img)
+    return True
+
+
+def tool_verify(card, out_dir):
+    """Phase 24e: verify_checkpoint on a Panoptic tree that this phase
+    writes and a checkpoint of configs/panoptic/knn5-lr4-q1024.yaml's model
+    with weights drawn from TRAIN.SEED: the port's validate CLI runs on the
+    card, and the gate fails (random weights are far from AP25 92.3 / MPJPE
+    16.0 mm) with a non-zero exit. Without cv2 the JPEGs can be neither
+    written nor read, and the tool must stop at validate's failure, also
+    non-zero."""
+    from mvgformer_tpu_torch.config import load_config
+    from mvgformer_tpu_torch.core.train import OptState, TrainState
+    from mvgformer_tpu_torch.models import build_model
+    from mvgformer_tpu_torch.tools import verify_checkpoint
+    from mvgformer_tpu_torch.utils.checkpoint import save_checkpoint
+
+    root = Path(out_dir) / "panoptic"
+    images = write_panoptic_tree(root)
+    cfg = load_config(str(FLAGSHIP_CFG))
+    model = build_model(cfg, generator=torch.Generator().manual_seed(
+        cfg.TRAIN.SEED), device="cuda")
+    ckpt = str(Path(out_dir) / "flagship_ckpt")
+    zero = torch.zeros((), dtype=torch.int32)
+    save_checkpoint(ckpt, TrainState(step=0, model=model, opt_state=OptState(
+        count=zero, mu={}, nu={})), 0, next_epoch=1)
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    code = 0
+    with contextlib.redirect_stdout(sys.stderr):
+        try:
+            verify_checkpoint.main(["--model_path", ckpt, "--data_root",
+                                    str(root), "--device", "cuda",
+                                    "TEST.BATCH_SIZE=1",
+                                    f"OUTPUT_DIR={out_dir}"])
+        except SystemExit as e:
+            code = e.code
+    want = ("FIDELITY GATE FAILED" if images else "validate.py failed")
+    phase("tool_verify_checkpoint", cv2=images, exit=code,
+          gate_failed=isinstance(code, str) and code.startswith(want),
+          seconds=time.perf_counter() - t0, card=card)
+    if not (isinstance(code, str) and code.startswith(want)):
+        fail(f"verify_checkpoint ended with {code!r}, expected {want}")
+    print(f"verify_checkpoint: {code}", flush=True)
+
+
+def tool_host_bench(card):
+    """Phase 24f: bench_host_pipeline --frames 8 --threads 1 2 where cv2
+    imports (it makes and reads JPEGs); else one line saying so."""
+    if not have_cv2():
+        print("bench_host_pipeline: cv2 absent on this machine, not run",
+              flush=True)
+        return
+    from mvgformer_tpu_torch.tools import bench_host_pipeline
+
+    summary = bench_host_pipeline.main(["--frames", "8", "--threads", "1",
+                                        "2", "--device", "cuda"])
+    phase("tool_bench_host_pipeline", summary=summary, card=card)
+
+
+def tools_phase(card):
+    """Phase 24: the ablation config's kernels (24a) and the root tools
+    (24b-24f) on the card. Returns the kernels' stats and the launch
+    counts of the fast trainer's runs."""
+    t0 = time.perf_counter()
+    stats = ablation_kernels(card)
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="tools-", dir=REPO / "build") \
+            as out_dir:
+        _, runs = tool_train(card, out_dir)
+        runs = {f"tool_ap_train_fast_{k}": v for k, v in runs.items()}
+        for row in tool_eval(card, out_dir):
+            runs[f"tool_ap_ablation_{row['config']}"] = row["launches"]
+        tool_bone_lengths(card, out_dir)
+        tool_verify(card, out_dir)
+    tool_host_bench(card)
+    phase("tools", seconds=time.perf_counter() - t0, card=card)
+    return stats, runs
+
+
 def parent_vs_change(card, parent):
     """B1 at B1_SHAPES, B4 and B5 on the K = 28 plan and B2 on the flagship
     value's level views, bfloat16, timed by this checkout's
@@ -3423,6 +3991,7 @@ def main(argv=None):
     vp_by_lq = {run: paths.pop("serve_b1_by_lq")
                 for run, paths in vp_runs.items()}["one_card"]
     phase("view_parallelism", seconds=time.perf_counter() - t_vp, card=card)
+    ablation_stats, tool_runs = tools_phase(card)
     mvp = {"serve_launches": mvp_serve_launches,
            "b1_device_ms_per_launch":
                mvp_serve_prof["b1_device_ms_per_launch"]}
@@ -3439,7 +4008,10 @@ def main(argv=None):
         **{f"vp_{path}_{run}_rank{r}": counts
            for run, paths in vp_runs.items()
            for path, per_rank in paths.items()
-           for r, counts in enumerate(per_rank)}}
+           for r, counts in enumerate(per_rank)},
+        # phase 24: the fast trainer's two runs in this process, and each
+        # ap_ablation row's validate CLI (its own count, in its process)
+        **tool_runs}
 
     turns = (parent_vs_change(card, Path(args.parent).resolve())
              if args.parent else {})
@@ -3531,8 +4103,8 @@ def main(argv=None):
             fn, "table_gather.cu", replaces, train_launches[fn.__name__],
             st["max_abs_err"], st["ms"], st["plain_ms"], st["library_ms"],
             st["work"], flagship, timed_launches=3, library="F.embedding_bag",
-            ms_f32=st["ms_f32"], library_ms_f32=st["library_ms_f32"],
-            **extra))
+            device_ms=st["device_ms"], ms_f32=st["ms_f32"],
+            library_ms_f32=st["library_ms_f32"], **extra))
     for fn, replaces, also, library in PROBE_ROWS:
         st = probe_stats[fn]
         kernels.append(kernel_row(
@@ -3552,6 +4124,16 @@ def main(argv=None):
             row["path_launches"] = {
                 path: counts.get(row["name"], 0)
                 for path, counts in path_launches.items()}
+    # phase 24a: each kernel at the ablation config's shapes (D 16)
+    for row in kernels:
+        st = ablation_stats.get(row["name"])
+        if row["name"] == "deform_sample":
+            row["ablation_d16"] = [
+                {"at": f"bfloat16 N=5 Lq={Lq} H=8 D=16 L=3 P={P} "
+                       f"(levels {ABL_LEVELS})", **stats}
+                for (Lq, P), stats in st.items()]
+        elif st is not None:
+            row["ablation_d16"] = {"at": ABLATION_AT[row["name"]], **st}
     phase("ranking", order=ranking(kernels), card=card)
     print(json.dumps({"kernels": kernels}))
     print(card)

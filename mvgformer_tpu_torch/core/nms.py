@@ -5,7 +5,12 @@ The original repo's eval post-processing is an order-sensitive greedy NMS
 (its lib/core/nms.py:210-284, vendored from mmpose's `nearby_joints_nms`,
 Apache-2.0); it runs on the host after the predictions are collected, and
 is copied line for line, since a rewrite could silently change the
-reported numbers.
+reported numbers. One departure, where the original stops with an
+error: a pose whose joints all lie at one point (zero pose area, as the
+DLT's degenerate-system guard gives a query outside every view) or that
+holds a non-finite joint is close to no pose, not even itself, and the
+original's argmax over an empty cluster raises; here it is its own
+cluster. Wherever the original returns, the two return the same.
 """
 
 from __future__ import annotations
@@ -51,6 +56,8 @@ def nearby_joints_nms(kpts_db: np.ndarray, dist_thr: float,
         if i in ignored:
             continue
         keep_inds = close_instance[i].nonzero()[0]
+        if not len(keep_inds):  # a collapsed or non-finite pose
+            keep_inds = np.array([i])
         keep_ind = keep_inds[np.argmax(scores[keep_inds])]
         if keep_ind not in ignored:
             keep.append(keep_ind)

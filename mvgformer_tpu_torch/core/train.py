@@ -23,7 +23,11 @@ optax composes it there, so the two frameworks update alike:
     them.
 
 The model's parameters are the state's parameters: a step updates them in
-place.
+place. Every decision of the update (the clip, the SKIP_NONFINITE test,
+the step count behind the schedule and the bias corrections) is made on
+the parameters' device, as optax makes it inside the jitted step, so a
+step reads nothing back to the host: the counters of `OptState` are 0-d
+int32 tensors there.
 """
 
 from __future__ import annotations
@@ -46,11 +50,11 @@ MAX_CONSECUTIVE_ERRORS = 100
 
 @dataclasses.dataclass
 class OptState:
-    count: int                    # Adam and schedule steps taken
+    count: torch.Tensor           # Adam and schedule steps taken
     mu: Dict[str, torch.Tensor]   # first moments of the updated params
     nu: Dict[str, torch.Tensor]   # second moments
-    notfinite_count: int = 0      # non-finite steps in a row
-    total_notfinite: int = 0      # non-finite steps in all
+    notfinite_count: torch.Tensor = 0  # non-finite steps in a row
+    total_notfinite: torch.Tensor = 0  # non-finite steps in all
 
 
 @dataclasses.dataclass
@@ -61,11 +65,13 @@ class TrainState:
 
 
 def make_lr_schedule(cfg: Config, steps_per_epoch: int
-                     ) -> Callable[[int], float]:
+                     ) -> Callable[[int], torch.Tensor]:
     """step -> learning rate: multistep (LR_FACTOR at each LR_STEP epoch) or
     cosine over END_EPOCH, joined at `warmup` steps to a linear warmup from
     0 (TRAIN.WARMUP_EPOCHS); the multistep boundaries sit at
-    epoch * steps_per_epoch - warmup steps of the main schedule."""
+    epoch * steps_per_epoch - warmup steps of the main schedule. The step
+    is an int or a 0-d tensor (the optimizer's count, on its device); the
+    rate is a float64 0-d tensor on the step's device."""
     base = cfg.TRAIN.LR
     total = cfg.TRAIN.END_EPOCH * steps_per_epoch
     warmup = int(cfg.TRAIN.WARMUP_EPOCHS * steps_per_epoch)
@@ -73,27 +79,26 @@ def make_lr_schedule(cfg: Config, steps_per_epoch: int
         decay_steps = max(total - warmup, 1)
 
         def main(step):
-            count = min(step, decay_steps)
-            return base * 0.5 * (1.0 + math.cos(math.pi * count
-                                                / decay_steps))
+            count = torch.clamp(step, max=decay_steps)
+            return base * 0.5 * (1.0 + torch.cos(math.pi * count
+                                                 / decay_steps))
     else:
         boundaries = sorted({max(int(e) * steps_per_epoch - warmup, 1):
                              cfg.TRAIN.LR_FACTOR
                              for e in cfg.TRAIN.LR_STEP}.items())
 
         def main(step):
-            lr = base
+            lr = torch.full_like(step, base)
             for boundary, scale in boundaries:
-                if step >= boundary:
-                    lr *= scale
+                lr = torch.where(step >= boundary, lr * scale, lr)
             return lr
-    if not warmup:
-        return main
 
     def schedule(step):
-        if step < warmup:
-            return base * step / warmup
-        return main(step - warmup)
+        step = torch.as_tensor(step, dtype=torch.float64)
+        if not warmup:
+            return main(step)
+        return torch.where(step < warmup, base * step / warmup,
+                           main(step - warmup))
 
     return schedule
 
@@ -135,51 +140,87 @@ class Optimizer:
         labels = self.labels(params)
         moments = {k: torch.zeros_like(p, dtype=torch.float32)
                    for k, p in params.items() if labels[k] != "frozen"}
-        return OptState(count=0, mu=moments,
+        device = next(iter(params.values())).device
+        zero = torch.zeros((), dtype=torch.int32, device=device)
+        return OptState(count=zero, mu=moments,
                         nu={k: torch.zeros_like(m)
-                            for k, m in moments.items()})
+                            for k, m in moments.items()},
+                        notfinite_count=zero, total_notfinite=zero)
 
     def update(self, grads: Mapping[str, Optional[torch.Tensor]],
                state: OptState, params: Mapping[str, torch.Tensor]
                ) -> Tuple[Dict[str, Optional[torch.Tensor]], OptState]:
         """Updates to add to the params (None: leave it as it is). A
-        gradient of None counts as zeros."""
-        present = [g for g in grads.values() if g is not None]
-        notfinite_count = state.notfinite_count
-        total_notfinite = state.total_notfinite
+        gradient of None counts as zeros. Under SKIP_NONFINITE a rejected
+        step's gradients are zeroed and its moment blend and step size are
+        (1, 0): the moments and count stay the old ones, the updates are
+        zeros. The gradients are copied into one flat buffer (one test,
+        one select, one norm, one clip) and Adam runs as multi-tensor ops,
+        so the launches do not grow with the number of leaves."""
+        device = next(iter(params.values())).device
+        count, notfinite_count, total_notfinite = (
+            torch.as_tensor(c, dtype=torch.int32, device=device)
+            for c in (state.count, state.notfinite_count,
+                      state.total_notfinite))
+        present = {k: g for k, g in grads.items() if g is not None}
+        flat = (torch.cat([g.reshape(-1) for g in present.values()]).float()
+                if present else torch.zeros(0, device=device))
+        apply = None
         if self.skip_nonfinite:
-            finite = bool(torch.stack([torch.isfinite(g).all()
-                                       for g in present]).all())
-            notfinite_count = 0 if finite else notfinite_count + 1
-            total_notfinite += 0 if finite else 1
-            if not finite and notfinite_count <= MAX_CONSECUTIVE_ERRORS:
-                return ({k: None for k in grads}, dataclasses.replace(
-                    state, notfinite_count=notfinite_count,
-                    total_notfinite=total_notfinite))
+            finite = torch.isfinite(flat).all()
+            notfinite_count = torch.where(finite, 0, notfinite_count + 1)
+            total_notfinite = total_notfinite + (~finite).int()
+            apply = finite | (notfinite_count > MAX_CONSECUTIVE_ERRORS)
+            flat = torch.where(apply, flat, 0.0)
 
-        grads = {k: g.float() for k, g in grads.items() if g is not None}
+        def pick(applied, rejected):
+            return applied if apply is None else torch.where(
+                apply, applied, rejected)
+
         if self.max_norm > 0:
-            norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
-            if not bool(norm < self.max_norm):
-                grads = {k: (g / norm) * self.max_norm
-                         for k, g in grads.items()}
+            # not linalg.vector_norm: its float32 sum on the CPU drifts
+            norm = torch.sqrt((flat * flat).sum())
+            keep = norm < self.max_norm
+            # (g / norm) * max_norm where clipped, g / 1 * 1 where not
+            flat = (flat / torch.where(keep, 1.0, norm)
+                    * torch.where(keep, 1.0, self.max_norm))
+        views = dict(zip(present, torch.split(
+            flat, [g.numel() for g in present.values()])))
 
+        keys = list(state.mu)
+        G = [views[k].view_as(state.mu[k]) if k in views
+             else torch.zeros_like(state.mu[k]) for k in keys]
+        new_count = count + 1
+        bc1 = 1 - torch.full((), self.b1, device=device) ** new_count
+        bc2 = 1 - torch.full((), self.b2, device=device) ** new_count
+        # (1 - b1) * g + b1 * m and (1 - b2) * g * g + b2 * v
+        mu = torch._foreach_mul([state.mu[k] for k in keys],
+                                pick(self.b1, 1.0))
+        torch._foreach_add_(mu, torch._foreach_mul(G, pick(1 - self.b1,
+                                                           0.0)))
+        nu = torch._foreach_mul([state.nu[k] for k in keys],
+                                pick(self.b2, 1.0))
+        gg = torch._foreach_mul(G, G)
+        torch._foreach_mul_(gg, pick(1 - self.b2, 0.0))
+        torch._foreach_add_(nu, gg)
+        # (mu / bc1) / (sqrt(nu / bc2) + eps), times -lr per group
+        step = torch._foreach_div(mu, bc1)
+        den = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.eps)
+        torch._foreach_div_(step, den)
+        lr = self.schedule(count)
         labels = self.labels(params)
-        count = state.count + 1
-        one = torch.ones((), dtype=torch.float32)
-        bc1 = float(1 - (one * self.b1) ** count)
-        bc2 = float(1 - (one * self.b2) ** count)
-        lr = self.schedule(state.count)
-        mu, nu, updates = {}, {}, {k: None for k in params}
-        for k, m in state.mu.items():
-            g = grads.get(k)
-            if g is None:
-                g = torch.zeros_like(m)
-            mu[k] = (1 - self.b1) * g + self.b1 * m
-            nu[k] = (1 - self.b2) * (g * g) + self.b2 * state.nu[k]
-            step = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + self.eps)
-            updates[k] = (-lr * self.scale[labels[k]]) * step
-        return updates, OptState(count=count, mu=mu, nu=nu,
+        for group, scale in self.scale.items():
+            idx = [i for i, k in enumerate(keys) if labels[k] == group]
+            if idx:
+                torch._foreach_mul_([step[i] for i in idx],
+                                    pick((-lr * scale).float(), 0.0))
+        updates = {k: None for k in params}
+        updates.update(zip(keys, step))
+        return updates, OptState(count=pick(new_count, count),
+                                 mu=dict(zip(keys, mu)),
+                                 nu=dict(zip(keys, nu)),
                                  notfinite_count=notfinite_count,
                                  total_notfinite=total_notfinite)
 
@@ -262,10 +303,10 @@ def make_train_step(cfg: Config, model: torch.nn.Module, tx: Optimizer,
             losses = dict(zip(keys, mean))
         updates, opt_state = tx.update(
             {k: p.grad for k, p in params.items()}, state.opt_state, params)
+        applied = [k for k, u in updates.items() if u is not None]
         with torch.no_grad():
-            for k, u in updates.items():
-                if u is not None:
-                    params[k].add_(u)
+            torch._foreach_add_([params[k] for k in applied],
+                                [updates[k] for k in applied])
         metrics = {k: v.detach() for k, v in losses.items()}
         if cfg.TRAIN.SKIP_NONFINITE:
             metrics["notfinite_total"] = opt_state.total_notfinite

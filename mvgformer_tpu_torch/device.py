@@ -11,6 +11,8 @@ comparisons against it turn TF32 off with `strict_float32()`.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from mvgformer_tpu_torch.config import Config
@@ -26,6 +28,28 @@ def resolve_device(device) -> torch.device:
             f"device {str(device)!r} asked for, but no CUDA card is "
             f"available: pass device='cpu' to run on the CPU")
     return device
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(values: tuple, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    # a normal tensor even when first asked for under inference_mode, so
+    # a later training step may use it
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)
+
+
+def constant(values, dtype: torch.dtype = torch.float32,
+             device="cpu") -> torch.Tensor:
+    """A small constant tensor of `values` (a number or nested sequences
+    of numbers) on `device`, made once per (values, dtype, device) and
+    then reused: on the card a host-to-device copy waits for the stream,
+    so a step that made its constants anew would synchronize with the
+    device each time. The tensor is shared: never write into it."""
+    def freeze(v):
+        return tuple(map(freeze, v)) if isinstance(v, (list, tuple)) else v
+
+    return _constant(freeze(values), dtype, torch.device(device))
 
 
 def strict_float32() -> None:

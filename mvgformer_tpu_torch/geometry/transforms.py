@@ -12,6 +12,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from mvgformer_tpu_torch.device import constant
+
 
 def affine_from_three_points(src: torch.Tensor,
                              dst: torch.Tensor) -> torch.Tensor:
@@ -94,7 +96,6 @@ def get_scale(image_size, resized_size) -> np.ndarray:
 def norm2absolute(coords: torch.Tensor, grid_size,
                   grid_center) -> torch.Tensor:
     """Normalized [0, 1] capture-space coordinates -> world mm."""
-    size = torch.tensor(grid_size, dtype=coords.dtype, device=coords.device)
-    center = torch.tensor(grid_center, dtype=coords.dtype,
-                          device=coords.device)
+    size = constant(grid_size, coords.dtype, coords.device)
+    center = constant(grid_center, coords.dtype, coords.device)
     return coords * size + center - size / 2.0

@@ -20,6 +20,8 @@ from typing import Optional
 
 import torch
 
+from mvgformer_tpu_torch.device import constant
+
 _JACOBI_PAIRS = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
 
 
@@ -125,8 +127,10 @@ def triangulate_dlt(proj: torch.Tensor, points2d: torch.Tensor,
     # has no defined null vector; substitute rows e0, e1/2, e2/4 whose
     # unique null vector is e3 (the origin)
     degen = A.abs().amax(dim=(-2, -1), keepdim=True) < 1e-10
-    tmpl = torch.zeros(A.shape[-2:], dtype=A.dtype, device=A.device)
-    tmpl[0, 0], tmpl[1, 1], tmpl[2, 2] = 1.0, 0.5, 0.25
+    diag = {0: 1.0, 1: 0.5, 2: 0.25}
+    tmpl = constant([[diag[i] if i == j and i in diag else 0.0
+                      for j in range(A.shape[-1])]
+                     for i in range(A.shape[-2])], A.dtype, A.device)
     A = torch.where(degen, tmpl, A)
     if solver == "svd":
         # float64: a float32 SVD of these ill-conditioned 2V x 4 systems

@@ -19,6 +19,8 @@ share_layer_weights (one `layer_shared` module run num_layers times).
 Dropout draws its masks from generators seeded per layer and step, so a
 layer recomputed for the backward draws the same masks; which layers drop
 out is decided by the `train` argument, as in JAX, not by nn.Module.train().
+The seeds are drawn from a CPU generator (`host_seeds`), so a training
+step on the card reads nothing back for them.
 
 Under view parallelism (`grid`, a `parallel.DataParallel` whose view
 world is above 1) each rank holds its own views of the frame; the layer's
@@ -52,7 +54,7 @@ Per layer:
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -60,6 +62,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from mvgformer_tpu_torch.data.meta import ViewData
+from mvgformer_tpu_torch.device import constant
 from mvgformer_tpu_torch.geometry.cameras import (project_points,
                                                   projection_matrices,
                                                   undistort_points)
@@ -126,10 +129,8 @@ def project_reference_points(reference_points: torch.Tensor,
     pix = torch.minimum(torch.clamp(pix, min=-1.0), hi[None, :, None, None])
 
     net = apply_affine(pix, view_data.affine)
-    norm = net / torch.tensor(img_size, dtype=torch.float32,
-                              device=net.device)
-    whl = torch.tensor([[w, h] for h, w in spatial_shapes],
-                       dtype=torch.float32, device=net.device)
+    norm = net / constant(img_size, device=net.device)
+    whl = constant([[w, h] for h, w in spatial_shapes], device=net.device)
     # per-level S/(S-1) expansion
     lvl = norm[..., None, :] * (whl / (whl - 1.0))
     return norm, lvl, bounds
@@ -168,6 +169,15 @@ def _dropout(x: torch.Tensor, p: float,
 
 
 FEATURE_UPDATE_METHODS = ("MLP", "MLP0", "MLPr", "mean")
+
+
+def host_seeds(generator: Optional[torch.Generator], n: int) -> List[int]:
+    """`n` seeds drawn from `generator`, a CPU generator (the default one
+    if None), so that drawing them reads nothing back from the card."""
+    if generator is not None and generator.device.type != "cpu":
+        raise ValueError("the training generator must be a CPU generator, "
+                         f"not one on {generator.device}")
+    return torch.randint(0, 2 ** 62, (n,), generator=generator).tolist()
 
 
 def _drop_fn(p: float, seed: Optional[int], device):
@@ -334,8 +344,7 @@ class DQDecoderLayer(nn.Module):
         split = collectives.axis_size(grid) > 1
         J = self.num_joints
         Q = Nq // J
-        img_wh = torch.tensor(self.img_size, dtype=torch.float32,
-                              device=tgt.device)
+        img_wh = constant(self.img_size, device=tgt.device)
         seed = None
         if train and self.dropout > 0.0:
             if dropout_seed is None:
@@ -543,16 +552,13 @@ class DQDecoder(nn.Module):
             topk_queries = window_plan = layer1_offset_clamp = None
             point_topm = None
             if self.stack[0].dropout > 0.0:
-                dev = generator.device if generator is not None else "cpu"
-                seeds = torch.randint(0, 2 ** 62, (len(self.stack),),
-                                      generator=generator,
-                                      device=dev).tolist()
+                seeds = host_seeds(generator, len(self.stack))
         outputs = []
         out, qpos, refs, sel = tgt, query_pos, reference_points, None
         box = self.ref_clamp_box
         if box is not None:
-            lo = torch.tensor(box[:3], dtype=torch.float32, device=tgt.device)
-            hi = torch.tensor(box[3:], dtype=torch.float32, device=tgt.device)
+            lo = constant(box[:3], device=tgt.device)
+            hi = constant(box[3:], device=tgt.device)
         # once per frame: the clamp over the global batch, every view's
         # projection matrices
         clamp_hi = projection_clamp(view_data, grid)

@@ -55,7 +55,7 @@ from mvgformer_tpu_torch.data.meta import Batch, ViewData, map_tensors
 from mvgformer_tpu_torch.data.synthetic import T_POSE
 from mvgformer_tpu_torch.device import compute_dtype, resolve_device
 from mvgformer_tpu_torch.geometry.structural import HumanTree
-from mvgformer_tpu_torch.models.decoder import (DQDecoder,
+from mvgformer_tpu_torch.models.decoder import (DQDecoder, host_seeds,
                                                 project_reference_points,
                                                 projection_clamp)
 from mvgformer_tpu_torch.models.mlp import Dense
@@ -246,7 +246,10 @@ class MVGFormer(nn.Module):
             v = dec.init_ref_method_value
             std = float(v) if (v is not None and v >= 0) else 100.0
             gt = batch.targets.joints_3d.float()  # (B, M, J, 3)
-            noise = torch.randn(gt.shape, generator=generator,
+            # a generator on gt's device, seeded from the CPU generator
+            noise_gen = torch.Generator(device=gt.device).manual_seed(
+                host_seeds(generator, 1)[0])
+            noise = torch.randn(gt.shape, generator=noise_gen,
                                 device=gt.device)
             pad = gt.new_zeros((B, self.num_instance - gt.shape[1])
                                + tuple(gt.shape[2:]))
@@ -292,10 +295,11 @@ class MVGFormer(nn.Module):
         through the window kernels and its dict also holds
             escaped_mass:       float32 scalar, the attention mass of
                                 samples that escaped their window.
-        train: the training forward (dropout drawn from `generator`, the
-        corner-table sampler, the (B, Q) gt-match `query_mask`); the window
+        train: the training forward (dropout seeded from `generator`, a
+        CPU generator; the corner-table sampler; the (B, Q) gt-match
+        `query_mask`); the window
         plan, top-K and point-top-m are off then. The backbone takes no
-        gradient unless TRAIN.TRAIN_BACKBONE. The 'gt_noise' init draws its
+        gradient unless TRAIN.TRAIN_BACKBONE. The 'gt_noise' init seeds its
         noise from `generator` too (the default generator if None).
         return_intermediates: return (outputs, intermediates), the debug
         taps as JAX's `mutable=["intermediates"]` returns them:

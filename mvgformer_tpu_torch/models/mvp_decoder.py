@@ -61,7 +61,8 @@ from mvgformer_tpu_torch.geometry.cameras import calib_matrix, project_points
 from mvgformer_tpu_torch.geometry.transforms import (apply_affine,
                                                      norm2absolute)
 from mvgformer_tpu_torch.models.attention import MultiheadAttention
-from mvgformer_tpu_torch.models.decoder import LayerNorm, _drop_fn
+from mvgformer_tpu_torch.models.decoder import (LayerNorm, _drop_fn,
+                                                host_seeds)
 from mvgformer_tpu_torch.models.mlp import MLP, Dense
 from mvgformer_tpu_torch.models.mvgformer import (feature_spatial_shapes,
                                                   inverse_sigmoid,
@@ -350,9 +351,7 @@ class MvPTransformer(nn.Module):
         layers = self.decoder.layers
         seeds = [None] * len(layers)
         if train and dec.dropout > 0.0:
-            dev = generator.device if generator is not None else "cpu"
-            seeds = torch.randint(0, 2 ** 62, (len(layers),),
-                                  generator=generator, device=dev).tolist()
+            seeds = host_seeds(generator, len(layers))
         out = tgt.to(self.dtype)
         query_pos = query_pos.to(self.dtype)
         outs = []

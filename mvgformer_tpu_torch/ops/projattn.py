@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mvgformer_tpu_torch.device import constant
 from mvgformer_tpu_torch.models.mlp import Dense
 from mvgformer_tpu_torch.ops.deform_attn import deform_sample
 from mvgformer_tpu_torch.ops.sampling import (bilinear_sample,
@@ -178,8 +179,8 @@ class ProjAttn(nn.Module):
         weights = F.softmax(weights.reshape(N, Lq, H, Lt * P), dim=-1)
         weights = weights.reshape(N, Lq, H, Lt, P)
 
-        normalizer = torch.tensor([[w, h] for h, w in spatial_shapes],
-                                  dtype=torch.float32, device=query.device)
+        normalizer = constant([[w, h] for h, w in spatial_shapes],
+                              device=query.device)
         locations = (reference_points[:, :, None, :, None, :]
                      + offsets / normalizer[None, None, None, :, None, :])
 

@@ -154,8 +154,7 @@ def train(dp, args, cfg) -> dict:
     placer = DevicePlacer(device)
     # each data row draws its own dropout masks (the ranks of a row, under
     # a view split, the same ones)
-    generator = torch.Generator(device=device).manual_seed(
-        cfg.TRAIN.SEED + dp.data_rank)
+    generator = torch.Generator().manual_seed(cfg.TRAIN.SEED + dp.data_rank)
     guard = PreemptionGuard()
     total_steps = 0
     result = {"steps": 0, "step_losses": [], "step_s": [],

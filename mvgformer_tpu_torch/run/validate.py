@@ -91,6 +91,16 @@ def to_numpy(obj):
     return obj
 
 
+def serving_launches() -> dict:
+    """The serving kernels' launch counts in this process so far (the
+    wrappers count only their launches on the card: 0 on the CPU)."""
+    from mvgformer_tpu_torch.ops import deform_attn, window_block, window_dma
+
+    return {fn.__name__: fn.launches for fn in (
+        deform_attn.deform_sample, window_block.window_block_matmul,
+        window_dma.window_block_dma)}
+
+
 def debug_dumper(cfg, model, threshold: float, vis_dir: str):
     """The debug dumps of an eval loop, as `predict_dataset`'s on_batch:
     for the batch's frames whose index is a multiple of
@@ -232,6 +242,7 @@ def validate(dp, args, cfg) -> dict:
             logger.info("eval loop: %d frames in %.3f s (%.3f frames/s), "
                         "prefetch wait %.3f s", len(preds), run.loop_s,
                         len(preds) / run.loop_s, run.wait_s)
+            logger.info("kernel launches: %s", serving_launches())
             loop = {"frames": len(preds), "loop_s": run.loop_s,
                     "wait_s": run.wait_s,
                     "escaped_mass": run.escaped_mass if telemetry else None}

@@ -101,7 +101,7 @@ def load_checkpoint(ckpt_dir: str, state, step: Optional[int] = None
                     ) -> Optional[Tuple[object, int, float]]:
     """Restore the latest (or the given) step into `state` (a
     core.train.TrainState: its model's weights in place, its optimizer
-    moments on the model's device). Returns (state, next_epoch,
+    moments and counters on the model's device). Returns (state, next_epoch,
     best_precision), or None when there is no such step."""
     from mvgformer_tpu_torch.core.train import OptState, TrainState
 
@@ -112,12 +112,13 @@ def load_checkpoint(ckpt_dir: str, state, step: Optional[int] = None
     model.load_state_dict(payload["model"])
     device = next(model.parameters()).device
     opt = payload["opt_state"]
+    counter = lambda n: torch.tensor(n, dtype=torch.int32).to(device)  # noqa: E731
     opt_state = OptState(
-        count=opt["count"],
+        count=counter(opt["count"]),
         mu={k: v.to(device) for k, v in opt["mu"].items()},
         nu={k: v.to(device) for k, v in opt["nu"].items()},
-        notfinite_count=opt["notfinite_count"],
-        total_notfinite=opt["total_notfinite"])
+        notfinite_count=counter(opt["notfinite_count"]),
+        total_notfinite=counter(opt["total_notfinite"]))
     meta = payload["meta"]
     return (TrainState(step=payload["step"], model=model,
                        opt_state=opt_state),

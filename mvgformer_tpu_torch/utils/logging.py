@@ -8,8 +8,10 @@ AverageMeter instrumentation of its training loop (lib/core/function.py:
 
 from __future__ import annotations
 
+import json
 import logging
 import os
+import re
 import time
 from collections import defaultdict
 from typing import Dict
@@ -76,6 +78,15 @@ class MetricLogger:
         keys = keys or sorted(self.meters)
         return " ".join(f"{k}={self.meters[k].avg:.4f}" for k in keys
                         if k in self.meters)
+
+
+def parse_metric_dict(text: str) -> dict:
+    """The metrics dict a CLI logs (`{'ap@25': 0.1, 'mpjpe': nan, ...}`,
+    Python's repr of str keys and float values, nan and inf included)
+    back into a dict."""
+    text = re.sub(r"\bnan\b", "NaN", text)
+    text = re.sub(r"(?<![\w.])inf\b", "Infinity", text)
+    return json.loads(text.replace("'", '"'))
 
 
 def format_table(headers, rows) -> str:

@@ -103,3 +103,21 @@ def test_evaluate_pcp_matches(seed):
     assert list(got[2]) == list(want[2])
     for k in want[2]:
         np.testing.assert_array_equal(got[2][k], want[2][k])
+
+
+def test_collapsed_pose_is_its_own_cluster():
+    """A flagged pose with every joint at one point (the DLT's output for
+    a query outside every view) is close to nothing under the original's
+    rule, and JAX's copy raises on it; the port keeps it alone and keeps
+    the rest as JAX does without it."""
+    rng = np.random.RandomState(5)
+    preds = _frame_preds(rng, make_people(2, seed=5))
+    preds[:, :, 3] = 0.0
+    collapsed = preds[:1].copy()
+    collapsed[0, :, :3] = 0.0
+    collapsed[0, :, 4] = 0.99  # the highest score: taken first
+    with pytest.raises(ValueError):
+        jnms.nearby_joints_nms(np.concatenate([collapsed, preds]), 0.3, 7)
+    got = tnms.nearby_joints_nms(np.concatenate([collapsed, preds]), 0.3, 7)
+    want = jnms.nearby_joints_nms(preds, 0.3, 7)
+    assert got[0] == 0 and [k - 1 for k in got[1:]] == list(want)

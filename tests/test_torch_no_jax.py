@@ -1,12 +1,14 @@
 """The port imports and runs with jax and flax blocked: in a fresh
 interpreter where importing either raises, import every module of
-mvgformer_tpu_torch (run/, runtime/, parallel/ and utils/visualization and
-profiling among them) and run a toy forward
+mvgformer_tpu_torch (run/, runtime/, parallel/, utils/visualization and
+profiling, and the tools ported from the root tools/ among them) and run a
+toy forward
 and eval step on the CPU, through the gather and through each windowed
 layer-1 impl, one training step (matcher, criterion, corner sampler,
-optimizer), and the train and validate CLIs on the synthetic smoke config
-(datasets, prefetch, checkpoint, NMS, evaluation); and, statically, no
-file of the port imports jax, flax or the JAX package."""
+optimizer), the train and validate CLIs on the synthetic smoke config
+(datasets, prefetch, checkpoint, NMS, evaluation), the fast trainer and
+the bone-length extraction; and, statically, no file of the port imports
+jax, flax or the JAX package."""
 
 import ast
 import os
@@ -33,7 +35,14 @@ SCRIPT = textwrap.dedent("""
             "mvgformer_tpu_torch.parallel.collectives",
             "mvgformer_tpu_torch.utils.visualization",
             "mvgformer_tpu_torch.utils.profiling",
-            "mvgformer_tpu_torch.runtime"} <= set(sys.modules)
+            "mvgformer_tpu_torch.runtime",
+            "mvgformer_tpu_torch.tools.ap_train_fast",
+            "mvgformer_tpu_torch.tools.ap_ablation",
+            "mvgformer_tpu_torch.tools.ap_eval_driver",
+            "mvgformer_tpu_torch.tools.ap_spread_report",
+            "mvgformer_tpu_torch.tools.extract_bone_lengths",
+            "mvgformer_tpu_torch.tools.verify_checkpoint",
+            "mvgformer_tpu_torch.tools.bench_host_pipeline"} <= set(sys.modules)
     from mvgformer_tpu_torch.config import load_config
     from mvgformer_tpu_torch.core.infer import make_eval_step
     from mvgformer_tpu_torch.data.synthetic import make_batch
@@ -81,6 +90,16 @@ SCRIPT = textwrap.dedent("""
         res = train_cli.main(args + ["--max_steps", "1"])
         assert res["steps"] == 1, res
         validate_cli.main(args + ["--model_path", res["ckpt_dir"]])
+        from mvgformer_tpu_torch.tools import (ap_train_fast,
+                                               extract_bone_lengths)
+        fast = ap_train_fast.main(["--device", "cpu", "--out", out, "--cfg",
+                                   "configs/synthetic_smoke.yaml",
+                                   "DATASET.MAX_DATA_NUM=1",
+                                   "TRAIN.END_EPOCH=1"])
+        assert fast["steps"] == 1, fast
+        extract_bone_lengths.main(["--cfg", "configs/synthetic_smoke.yaml",
+                                   "--device", "cpu", "--out", out,
+                                   "--max_frames", "2"])
     jax_side = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "flax", "jaxlib",
                                              "mvgformer_tpu")
@@ -113,9 +132,10 @@ def _imported_roots(path):
 
 
 def _port_files():
-    # chip_smoke.py and the card diagnosis run where JAX is not installed
+    # chip_smoke.py and the card diagnoses run where JAX is not installed
     files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "tests", "vp_card_diagnosis.py")]
+             os.path.join(REPO, "tests", "vp_card_diagnosis.py"),
+             os.path.join(REPO, "tests", "sync_diagnosis.py")]
     for root, _, names in os.walk(os.path.join(REPO, "mvgformer_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -123,7 +143,7 @@ def _port_files():
 
 def test_no_port_file_imports_jax_or_the_jax_package():
     """Static guard: no module of the port, not chip_smoke.py and not
-    tests/vp_card_diagnosis.py names
+    tests/vp_card_diagnosis.py or tests/sync_diagnosis.py names
     mvgformer_tpu (as opposed to mvgformer_tpu_torch), jax or flax in an
     import, wherever the import sits (top level, function, branch)."""
     files = _port_files()
