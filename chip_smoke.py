@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--parent DIR]
+    python3 chip_smoke.py [--parent DIR] [--benches-only]
 
 Runs from the root of a checkout, needs one CUDA card and nvcc (CUDA_HOME or
 /usr/local/cuda), and builds the port's kernels from the checkout's sources
@@ -186,13 +186,26 @@ exits non-zero:
      phase writes and a flagship checkpoint of random weights: the gate
      fails, non-zero. 24f: bench_host_pipeline at 8 frames and 1 and 2
      threads where cv2 imports, else a line saying it is absent.
+ 25. benches: `python -m mvgformer_tpu_torch.bench` (its main) at full
+     width, which checks one float32 frame card against CPU (phase 5's
+     `bench.card_vs_cpu`), times 5 loops of 20 chained bf16 frames, counts
+     a frame's syncs, profiles 3 frames and must print `correct: true`;
+     `mvgformer_tpu_torch.bench_detail`'s rows topk64_jacobi_ptop4_b1 and
+     train_gtmatch_jacobi_b1 (with its _chunk8 row, which the substring
+     selects); the forward of `mvgformer_tpu_torch.graft_entry.entry()`
+     once; and `graft_entry.dryrun_multichip`'s training and eval step on
+     a 2 x 2 grid of ranks sharing the card. Each runs with the kernel
+     counts set to 0 before it (`path_launches`; the dry run's on its rank
+     0).
 
 Phase 10 also holds F.embedding_bag, the library call of B3's function,
 against B3's plain versions and times it. The models, batches and window
 plans are made on the card by their entry points (device "cuda"). With
 --parent DIR (an unpacked parent checkout), B1, B2, B4 and B5 of DIR and of
 this checkout are also timed in turns by tools/launch_cost.py before the
-table.
+table. With --benches-only, phases 1, 2 and 25 run and nothing else: a
+reading of the benches inside this script, to set beside their standalone
+runs; it prints no kernel table and no device line.
 
 The last three lines are the kernel table (each kernel's launches on its
 path, worst error, ms, device_ms where measured, plain ms, library ms or
@@ -218,6 +231,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from mvgformer_tpu_torch import bench
+from mvgformer_tpu_torch.device import card_line
 from mvgformer_tpu_torch.ops import (_build, deform_attn, gather_forms,
                                      sampling, table_build, table_gather,
                                      window_block, window_dma,
@@ -228,7 +243,7 @@ from mvgformer_tpu_torch.tools.launch_cost import (B1_SHAPES,
                                                    sampling_inputs,
                                                    window_inputs)
 from mvgformer_tpu_torch.tools.probes.probe_pallas_gather import flat_rows
-from mvgformer_tpu_torch.utils import bounds, yardsticks
+from mvgformer_tpu_torch.utils import bounds, profiling, yardsticks
 
 REPO = Path(__file__).resolve().parent
 SPATIAL_SHAPES = FLAGSHIP_LEVELS
@@ -239,15 +254,13 @@ THRESHOLD = 0.1
 SERVE_FRAMES, SERVE_WARMUP = 6, 2
 WINDOW_FRAMES = 6  # distinct frames per windowed impl, 2 of them warm-up
 TRAIN_STEPS, TRAIN_WARMUP = 5, 2
-SOURCES = ("deform_sample.cu", "window_block.cu", "window_dma.cu",
-           "table_build.cu", "table_gather.cu", "gather_forms.cu")
+SOURCES = (*bench.MODEL_SOURCES, "gather_forms.cu")
 IMPL_KERNEL = {"pallas": window_block.window_block_matmul,
                "pallas_dma": window_dma.window_block_dma}
 TRAIN_KERNELS = (table_build.build_corner_table,
                  table_gather.gather_reduce_forward,
                  table_gather.gather_reduce_backward)
-ALL_KERNELS = (deform_attn.deform_sample, *IMPL_KERNEL.values(),
-               *TRAIN_KERNELS)
+ALL_KERNELS = bench.MODEL_KERNELS
 WINDOW_WORK = {window_block.window_block_matmul: bounds.window_block,
                window_dma.window_block_dma: bounds.window_dma}
 PLAIN = {window_block.window_block_matmul:
@@ -383,13 +396,6 @@ def phase(name, **fields):
 def fail(msg):
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def flagship_cfg(dtype: str):
@@ -594,50 +600,28 @@ def check_window_sample(value, centers_px, plan, P, dtype, gen):
 
 
 def compare_layer1(name, got, want, card, **fields):
-    """Layer-1 logits and 3D of two runs at the golden tolerance classes."""
-    lg, lw = got["pred_logits"].cpu().numpy(), want["pred_logits"].cpu().numpy()
-    logit_err = float(np.abs(lg - lw).max())
-    logits_ok = bool(np.allclose(lg, lw, rtol=1e-3, atol=2e-3))
-    err3d = np.abs(got["pred_poses"].cpu().numpy()
-                   - want["pred_poses"].cpu().numpy())
-    p99, mx = float(np.percentile(err3d, 99)), float(err3d.max())
-    finite = bool(np.isfinite(lg).all()
-                  and torch.isfinite(got["pred_poses"]).all())
-    phase(name, layer=1, logits_max_abs_err=logit_err, poses_mm_p99=p99,
-          poses_mm_max=mx, finite=finite, card=card, **fields)
-    if not (logits_ok and p99 < 2.0 and mx < 6.0 and finite):
+    """Layer-1 logits and 3D of two runs at the golden tolerance classes
+    (`bench.compare_layer1`), printed as phase `name`."""
+    res = bench.compare_layer1(got, want)
+    phase(name, **res, card=card, **fields)
+    if not res["ok"]:
         fail(f"{name}: the two runs disagree on layer 1")
 
 
 def check_slice(card):
     """Phase 5: kernel path on the card against the plain path on the CPU,
-    flagship width, float32 with TF32 off. Returns the two models and the
-    frame for phase 6."""
-    from mvgformer_tpu_torch.data.synthetic import make_batch
-    from mvgformer_tpu_torch.models.mvgformer import MVGFormer
-
+    flagship width, float32 with TF32 off (`bench.card_vs_cpu`). Returns
+    the two models and the frame for phase 6."""
     cfg = flagship_cfg("float32")
     # the same seed gives the same weights and frame on either device
-    model_cpu = MVGFormer(cfg, generator=torch.Generator().manual_seed(SEED),
-                          device="cpu").eval()
-    model_gpu = MVGFormer(
-        cfg, generator=torch.Generator().manual_seed(SEED)).eval()
-    batch = make_batch(cfg, batch_size=1, seed=SEED, num_people=3,
-                       device="cpu")
-    gpu_batch = make_batch(cfg, batch_size=1, seed=SEED, num_people=3)
-    before = deform_attn.deform_sample.launches
-    with torch.inference_mode():
-        t0 = time.perf_counter()
-        gpu = model_gpu(gpu_batch, threshold=THRESHOLD)[0]
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        cpu = model_cpu(batch, threshold=THRESHOLD)[0]
-        t2 = time.perf_counter()
-    if deform_attn.deform_sample.launches == before:
+    run = bench.card_vs_cpu(cfg, "cuda", seed=SEED)
+    if run["b1_launches"] == 0:
         fail("the card's forward did not launch the kernel")
-    compare_layer1("slice_kernel_vs_plain", gpu, cpu, card, gpu_s=t1 - t0,
-                   cpu_s=t2 - t1)
-    return cfg, model_cpu, model_gpu, batch, gpu_batch, gpu
+    compare_layer1("slice_kernel_vs_plain", run["outs"]["dev"],
+                   run["outs"]["cpu"], card, gpu_s=run["seconds"]["dev"],
+                   cpu_s=run["seconds"]["cpu"])
+    return (cfg, run["models"]["cpu"], run["models"]["dev"],
+            run["batches"]["cpu"], run["batches"]["dev"], run["outs"]["dev"])
 
 
 def check_windowed_slice(card, cfg, model_cpu, model_gpu, batch, gpu_batch,
@@ -1773,7 +1757,7 @@ DQ_OPTIONS = {
     "st": {"triangulation_method": "st"},
     "query_adapt_center": {"init_ref_method": "query_adapt_center"},
 }
-B1_KERNEL = "deform_sample_fwd_kernel"
+B1_KERNEL = bench.B1_KERNEL
 
 
 def mvp_cfg(dtype: str, **decoder):
@@ -1824,55 +1808,10 @@ def count_launches(fn):
 
 
 def profile_window(fn, runs):
-    """torch.profiler over `runs` calls of fn(): the device's busy time
-    (the union of its kernel, copy and set intervals) and idle share of
-    the window's host wall time, the top device ops by device time per
-    call, and the device ms per launch of B1's kernel. The profiler's own
-    host work lengthens the window, so the idle share is an upper
-    bound."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        start, end = e.time_range.start, e.time_range.end
-        spans.append((start, end))
-        ms, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + (end - start) / 1e3, n + 1)
-    if not spans:
-        fail("the profiler saw no device time")
-    busy_us, last = 0.0, None
-    for start, end in sorted(spans):
-        if last is None or start > last:
-            busy_us += end - start
-            last = end
-        elif end > last:
-            busy_us += end - last
-            last = end
-    if busy_us / 1e6 > wall:
-        fail(f"the profiler counted {busy_us / 1e6} s of device time in a "
-             f"{wall} s window")
-    ops = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    b1 = [v for k, v in by_name.items() if B1_KERNEL in k]
-    return {"runs": runs, "wall_s": wall, "device_busy_s": busy_us / 1e6,
-            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
-            "device_launches_per_run": len(spans) / runs,
-            "top_device_ops": [{"op": k[:90], "ms_per_run": ms / runs,
-                                "launches_per_run": n / runs}
-                               for k, (ms, n) in ops[:8]],
-            "b1_device_ms_per_launch": (sum(ms for ms, _ in b1)
-                                        / sum(n for _, n in b1)
-                                        if b1 else None)}
+    """`utils/profiling.py::profile_window` over `runs` calls of fn(), with
+    B1's device ms per launch (`b1_device_ms_per_launch`)."""
+    return profiling.profile_window(fn, runs,
+                                    per_launch={"b1": B1_KERNEL})
 
 
 @contextlib.contextmanager
@@ -2850,20 +2789,8 @@ def vp_serve_run(cfg, model, batch, plan, grid, device, timed):
         "collectives_share": timer.totals["collectives"]
         / timer.totals["frame"],
         "b1_launches_per_frame": deform_attn.deform_sample.launches / frames,
-        "peak_mem_gib": peak_gib(device)}
+        "peak_mem_gib": bench.peak_gib(device)}
     return out
-
-
-def peak_gib(device):
-    """The peak memory allocated on the card (None on the CPU)."""
-    if torch.device(device).type != "cuda":
-        return None
-    return torch.cuda.max_memory_allocated(device) / 2 ** 30
-
-
-def empty_cache(device):
-    if torch.device(device).type == "cuda":
-        torch.cuda.empty_cache()
 
 
 def vp_serve_worker(dp, cfgs, out_dir):
@@ -2888,7 +2815,7 @@ def vp_serve_worker(dp, cfgs, out_dir):
                                      plan, dp, dp.device,
                                      timed=name == "dq_bf16")
         del model
-        empty_cache(dp.device)
+        bench.empty_cache(dp.device)
     torch.save(results, Path(out_dir) / f"rank{dp.rank}.pt")
     return None
 
@@ -2947,9 +2874,9 @@ def vp_train_worker(dp, cfgs, out_dir):
                 / timer.totals["step"],
                 "launches_per_step": {fn.__name__: fn.launches / VP_STEPS
                                       for fn in TRAIN_KERNELS},
-                "peak_mem_gib": peak_gib(dp.device)}
+                "peak_mem_gib": bench.peak_gib(dp.device)}
         del model, state
-        empty_cache(dp.device)
+        bench.empty_cache(dp.device)
     torch.save(out, Path(out_dir) / f"rank{dp.rank}.pt")
     return None
 
@@ -2970,7 +2897,7 @@ def vp_single_train(cfg, device):
     grads = {k: p.grad.float() for k, p in model.named_parameters()
              if p.grad is not None}
     del model, state
-    empty_cache(device)
+    bench.empty_cache(device)
     return losses, grads
 
 
@@ -3168,7 +3095,7 @@ def view_parallel(card, device="cuda", serve_cfgs=None, train_cfgs=None):
         single[name] = vp_serve_run(cfg, model, frame, plan, None, device,
                                     timed=name == "dq_bf16")
         del model
-        empty_cache(device)
+        bench.empty_cache(device)
     single_train = {dtype: vp_single_train(cfg, device)
                     for dtype, cfg in train_cfgs.items()}
     phase("vp_one_process", dtype="bfloat16", **single["dq_bf16"]["timing"],
@@ -3429,7 +3356,8 @@ def ablation_b3(card, gen):
     """24a, B3 forward and backward at one dense training layer of the
     ablation config (40 pairs x 122,880 samples per level, D 16) against
     the plain versions as in phase 10 (check_gather_level), the backward
-    twice the same bits; bfloat16 timed. Returns per kernel its stats."""
+    twice the same bits; bfloat16 timed, the forward beside F.embedding_bag
+    (`library_times`). Returns per kernel its stats."""
     fwd, bwd = (table_gather.gather_reduce_forward,
                 table_gather.gather_reduce_backward)
     stats = {fwd: {"max_abs_err": 0.0}, bwd: {"max_abs_err": 0.0}}
@@ -3465,6 +3393,9 @@ def ablation_b3(card, gen):
                 "fwd_bound_ms": bounds.total([
                     bounds.table_gather_forward(t, i)
                     for t, (i, _) in zip(tables, samples)]).bound_ms,
+                # F.embedding_bag, held against the plain version first
+                "fwd_library_ms": library_times(
+                    tables, samples, cts)["library_fwd_ms"],
                 "bwd_ms": sum(cuda_ms(lambda a=a: bwd(*a)) for a in bwd_args),
                 "bwd_device_ms": sum(device_ms(lambda a=a: bwd(*a))[0]
                                      for a in bwd_args),
@@ -3556,11 +3487,9 @@ def ablation_kernels(card):
 
 @contextlib.contextmanager
 def counted_syncs(into):
-    """core.train.make_train_step wrapped so that each step runs under
-    torch.cuda.set_sync_debug_mode("warn") and appends to `into` the number
-    of synchronizing CUDA operations it made."""
-    import warnings
-
+    """core.train.make_train_step wrapped so that each step appends to
+    `into` the number of synchronizing CUDA operations it made
+    (`utils/profiling.py::count_syncs`)."""
     from mvgformer_tpu_torch.core import train as core_train
 
     real = core_train.make_train_step
@@ -3569,16 +3498,9 @@ def counted_syncs(into):
         step = real(*args, **kwargs)
 
         def counted(*a, **k):
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                torch.cuda.set_sync_debug_mode("warn")
-                try:
-                    return step(*a, **k)
-                finally:
-                    torch.cuda.set_sync_debug_mode(0)
-                    into.append(sum(str(w.message).startswith(
-                        "called a synchronizing CUDA operation")
-                        for w in caught))
+            out, syncs = profiling.count_syncs(step, *a, **k)
+            into.append(syncs)
+            return out
         return counted
 
     core_train.make_train_step = make
@@ -3843,6 +3765,74 @@ def tools_phase(card):
     return stats, runs
 
 
+BENCH_DETAIL_ROWS = (("bench_detail_serve", "topk64_jacobi_ptop4_b1"),
+                     ("bench_detail_train", "train_gtmatch_jacobi_b1"))
+DRYRUN_RANKS = 4
+
+
+def bench_phase(card):
+    """Phase 25: the port's benches and graft entry on the card, each run
+    with the kernel counts set to 0 before it. 25a: `python -m
+    mvgformer_tpu_torch.bench` (its main, in this process) at full width:
+    its check, the timed frames' checks, syncs per frame, the profiler
+    window and peak memory, and the headline line, which must be correct.
+    25b: `bench_detail`'s rows topk64_jacobi_ptop4_b1 and
+    train_gtmatch_jacobi_b1 (the substring also selects its _chunk8 row, as
+    the root script's does); a failed row exits 1. 25c:
+    `graft_entry.entry()`'s forward once: the last layer's shapes, finite
+    values, B1 once per layer. 25d: `graft_entry.dryrun_multichip`'s
+    training and eval step on DRYRUN_RANKS ranks (a 2 x 2 data x view grid)
+    sharing the card over gloo: a finite total, a pred row per data rank,
+    and on rank 0 (counted there, set to 0 before its steps) B1 once per
+    layer and the corner sampler's kernels. Returns the counts of each
+    run."""
+    from mvgformer_tpu_torch import bench_detail, graft_entry
+
+    t0 = time.perf_counter()
+    runs = {}
+    headline, runs["bench"] = count_launches(lambda: bench.main([]))
+    phase("bench", headline=headline, launches=runs["bench"], card=card)
+    for path, row in BENCH_DETAIL_ROWS:
+        rows, runs[path] = count_launches(lambda: bench_detail.main([row]))
+        phase(path, rows=[r["config"] for r in rows], launches=runs[path],
+              card=card)
+    bench.empty_cache("cuda")
+    forward, args = graft_entry.entry()
+    (poses, logits), runs["graft_entry"] = count_launches(
+        lambda: forward(*args))
+    cfg = bench.flagship_cfg()
+    Q, J = cfg.DECODER.num_instance, cfg.DECODER.num_keypoints
+    layers = cfg.DECODER.num_decoder_layers
+    phase("graft_entry", poses=list(poses.shape), logits=list(logits.shape),
+          finite=bool(torch.isfinite(poses).all()
+                      and torch.isfinite(logits).all()),
+          launches=runs["graft_entry"], card=card)
+    if (tuple(poses.shape) != (1, Q * J, 3) or tuple(logits.shape) != (1, Q, 2)
+            or not torch.isfinite(poses).all()
+            or runs["graft_entry"]["deform_sample"] != layers):
+        fail(f"graft_entry's forward: poses {tuple(poses.shape)}, logits "
+             f"{tuple(logits.shape)}, launches {runs['graft_entry']}")
+    del forward, args, poses, logits
+    bench.empty_cache("cuda")
+    t_dry = time.perf_counter()
+    dry = graft_entry.dryrun_multichip(DRYRUN_RANKS)
+    runs["graft_dryrun_rank0"] = dry["launches"]
+    cfg = graft_entry.dryrun_cfg(DRYRUN_RANKS)
+    rows = graft_entry.dryrun_grid(DRYRUN_RANKS)[0]
+    phase("graft_dryrun", ranks=DRYRUN_RANKS, total=dry["total"],
+          pred=list(dry["pred"].shape), launches=dry["launches"],
+          seconds=time.perf_counter() - t_dry, card=card)
+    if (dry["pred"].shape[0] != rows or not np.isfinite(dry["pred"]).all()
+            or dry["launches"]["deform_sample"]
+            != cfg.DECODER.num_decoder_layers
+            or not all(dry["launches"][fn.__name__]
+                       for fn in TRAIN_KERNELS)):
+        fail(f"graft_entry's dry run: pred {dry['pred'].shape}, launches "
+             f"{dry['launches']}")
+    phase("benches", seconds=time.perf_counter() - t0, card=card)
+    return runs
+
+
 def parent_vs_change(card, parent):
     """B1 at B1_SHAPES, B4 and B5 on the K = 28 plan and B2 on the flagship
     value's level views, bfloat16, timed by this checkout's
@@ -3887,6 +3877,11 @@ def main(argv=None):
                         help="an unpacked parent checkout: time its B1, B2, "
                         "B4 and B5 beside this tree's "
                         "(tools/launch_cost.py)")
+    parser.add_argument("--benches-only", action="store_true",
+                        help="build the sources, run phase 25 alone (the "
+                        "benches and the graft entry) and stop: a reading "
+                        "of the benches inside this script, to set beside "
+                        "their standalone runs; prints no result line")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs one GPU")
@@ -3907,6 +3902,9 @@ def main(argv=None):
         {"source": src, "seconds": sec, "library": str(lib),
          "ptxas": reports[src]}
         for src, (lib, sec) in zip(SOURCES, built)])
+    if args.benches_only:
+        bench_phase(card)
+        return
 
     worst_f32, b1_shapes = check_kernel(card)
     window_stats = check_window_kernels(card)
@@ -3992,6 +3990,7 @@ def main(argv=None):
                 for run, paths in vp_runs.items()}["one_card"]
     phase("view_parallelism", seconds=time.perf_counter() - t_vp, card=card)
     ablation_stats, tool_runs = tools_phase(card)
+    bench_runs = bench_phase(card)
     mvp = {"serve_launches": mvp_serve_launches,
            "b1_device_ms_per_launch":
                mvp_serve_prof["b1_device_ms_per_launch"]}
@@ -4011,7 +4010,9 @@ def main(argv=None):
            for r, counts in enumerate(per_rank)},
         # phase 24: the fast trainer's two runs in this process, and each
         # ap_ablation row's validate CLI (its own count, in its process)
-        **tool_runs}
+        **tool_runs,
+        # phase 25: the benches and the graft entry
+        **bench_runs}
 
     turns = (parent_vs_change(card, Path(args.parent).resolve())
              if args.parent else {})

@@ -12,6 +12,7 @@ comparisons against it turn TF32 off with `strict_float32()`.
 from __future__ import annotations
 
 import functools
+import subprocess
 
 import torch
 
@@ -50,6 +51,17 @@ def constant(values, dtype: torch.dtype = torch.float32,
         return tuple(map(freeze, v)) if isinstance(v, (list, tuple)) else v
 
     return _constant(freeze(values), dtype, torch.device(device))
+
+
+def card_line() -> str:
+    """The first card's name and power limit as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` prints them: a card
+    set below its maximum power runs slower under load, so every number
+    measured on it is kept beside this line."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def strict_float32() -> None:

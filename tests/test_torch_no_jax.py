@@ -1,8 +1,9 @@
 """The port imports and runs with jax and flax blocked: in a fresh
 interpreter where importing either raises, import every module of
 mvgformer_tpu_torch (run/, runtime/, parallel/, utils/visualization and
-profiling, and the tools ported from the root tools/ among them) and run a
-toy forward
+profiling, the tools ported from the root tools/ and the benches and
+graft entry ported from the root scripts among them) and run a toy
+forward
 and eval step on the CPU, through the gather and through each windowed
 layer-1 impl, one training step (matcher, criterion, corner sampler,
 optimizer), the train and validate CLIs on the synthetic smoke config
@@ -42,7 +43,9 @@ SCRIPT = textwrap.dedent("""
             "mvgformer_tpu_torch.tools.ap_spread_report",
             "mvgformer_tpu_torch.tools.extract_bone_lengths",
             "mvgformer_tpu_torch.tools.verify_checkpoint",
-            "mvgformer_tpu_torch.tools.bench_host_pipeline"} <= set(sys.modules)
+            "mvgformer_tpu_torch.tools.bench_host_pipeline",
+            "mvgformer_tpu_torch.bench", "mvgformer_tpu_torch.bench_detail",
+            "mvgformer_tpu_torch.graft_entry"} <= set(sys.modules)
     from mvgformer_tpu_torch.config import load_config
     from mvgformer_tpu_torch.core.infer import make_eval_step
     from mvgformer_tpu_torch.data.synthetic import make_batch

@@ -13,8 +13,8 @@ import pytest
 import torch
 
 from mvgformer_tpu_torch.run import generate_video
-from mvgformer_tpu_torch.utils.profiling import (StageTimer, first_tensor,
-                                                 trace)
+from mvgformer_tpu_torch.utils.profiling import (StageTimer, busy_seconds,
+                                                 first_tensor, trace)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -38,6 +38,15 @@ def test_first_tensor_walks_outputs():
     assert first_tensor(t) is t
     assert first_tensor(({"x": None, "y": [3, t]},)) is t
     assert first_tensor({"a": 1}) is None
+
+
+def test_busy_seconds_is_the_union_of_the_spans():
+    # microsecond spans: [0, 10) and [5, 20) overlap, [20, 25) touches,
+    # [30, 31) stands apart, [12, 14) lies inside
+    spans = [(30.0, 31.0), (5.0, 20.0), (0.0, 10.0), (12.0, 14.0),
+             (20.0, 25.0)]
+    assert busy_seconds(spans) == pytest.approx(26e-6)
+    assert busy_seconds([]) == 0.0
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):

@@ -77,7 +77,7 @@ def train_grads(cfg, batch, dp=None):
     grads = {k: p.grad.float().cpu() for k, p in model.named_parameters()
              if p.grad is not None}
     del model, state
-    cs.empty_cache(device)
+    cs.bench.empty_cache(device)
     return grads
 
 
@@ -150,7 +150,7 @@ def bounds_flips(card):
         single = cs.vp_serve_run(cfg, model, frame, None, None, DEVICE,
                                  timed=False)
         del model
-        cs.empty_cache(DEVICE)
+        cs.bench.empty_cache(DEVICE)
         with tempfile.TemporaryDirectory(prefix="vp-diag-",
                                          dir=REPO / "build") as out:
             spawn(cs.vp_serve_worker, cs.VP_VIEWS, DEVICE, {"mvp": cfg}, out,
