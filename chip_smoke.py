@@ -64,14 +64,20 @@ exits non-zero:
      torch.profiler over 2 more steps gives B3's device ms per launch, and
      the first of them records the first decoder layer's B3 operands (a
      wrapper around ops.sampling.deform_gather_reduce that calls through);
- 13b. B3 on those captured operands of the training step: against the
-     plain versions as in phase 10, the samples per table row of each
-     level (max, p99, share in rows over the backward's tile), and timed;
- 14. the probe kernels (row gather, windowed gather, take-along, scale,
-     table slots) against their plain versions at the probes' shapes and
-     at B3's flagship level-0 row, float32 and bfloat16, bit for bit
-     (scale exact), one case each timed beside its plain version and its
-     library call: `ms` one call between two events (host path and device
+ 13b. B2 and B3 on those captured operands of the training step: B2 on
+     the step's level views bit for bit against its plain version and the
+     tables B3 read; B3 against the plain versions as in phase 10, the
+     samples per table row of each level (max, p99, share in rows over the
+     backward's tile), and timed;
+ 14. the launch floor (an empty kernel, `gather_forms.noop`, timed as the
+     kernels are); then the probe kernels (row gather, windowed gather,
+     take-along, scale, and the table slots through B2's kernel) against
+     their plain versions at the probes' shapes, at B3's flagship level-0
+     row and, for scale and the table slots, at a flagship level-0 size
+     where bytes set the time (5 x 128 x 240 x 256 and (40, 128, 240,
+     32)), float32 and bfloat16, bit for bit (scale exact); the bfloat16
+     cases of each timed shape beside their plain version and library
+     call: `ms` one call between two events (host path and device
      together), `device_ms` 50 back-to-back calls with the stream held
      until all are enqueued (tools/launch_cost.py), and the host's us per
      call;
@@ -201,18 +207,21 @@ exits non-zero:
 Phase 10 also holds F.embedding_bag, the library call of B3's function,
 against B3's plain versions and times it. The models, batches and window
 plans are made on the card by their entry points (device "cuda"). With
---parent DIR (an unpacked parent checkout), B1, B2, B4 and B5 of DIR and of
-this checkout are also timed in turns by tools/launch_cost.py before the
-table. With --benches-only, phases 1, 2 and 25 run and nothing else: a
-reading of the benches inside this script, to set beside their standalone
-runs; it prints no kernel table and no device line.
+--parent DIR (an unpacked parent checkout), B1, B2, B4, B5 and the table
+slots (at both their sizes) of DIR and of this checkout are also timed in
+turns by tools/launch_cost.py before the table. With --benches-only,
+phases 1, 2 and 25 run and nothing else: a reading of the benches inside
+this script, to set beside their standalone runs; it prints no kernel
+table and no device line.
 
 The last three lines are the kernel table (each kernel's launches on its
 path, worst error, ms, device_ms where measured, plain ms, library ms or
-why there is none, its bound from utils/bounds.py on the timed inputs, and
-for B1, B2, B4 and B5 ptxas's report and, with --parent, the parent's
-times), the card, and the device, as JSON. The `ranking` phase before them
-orders the kernels for later work (`ranking`).
+why there is none, its bound from utils/bounds.py on the timed inputs, for
+B1, B2, B4 and B5 ptxas's report, with --parent the parent's times (the
+table slots' too), and `floor_ms`, the launch floor, once beside the table
+and in each row or shape whose bound per launch lies under it), the card,
+and the device, as JSON. The `ranking` phase before them orders the
+kernels for later work (`ranking`).
 """
 
 import collections
@@ -286,7 +295,7 @@ FLAGSHIP_VALIDATE = ("DATASET.TEST_DATASET=synthetic",
 WINDOWED_VALIDATE = ("DECODER.layer1_windowed_sampling=true",
                      "DECODER.layer1_window_impl=pallas_dma")
 # launch_cost's kernel sets timed against the parent (--parent)
-PARENT_KERNELS = "deform,window_block,window_dma,table_build"
+PARENT_KERNELS = "deform,window_block,window_dma,table_build,table_slots"
 NO_LIBRARY = {
     "deform_sample": "none: F.grid_sample is the bilinear read of one "
                      "level and head only; the sum over levels and points "
@@ -301,24 +310,64 @@ NO_LIBRARY = {
                               "embedding_bag has no bfloat16 backward for "
                               "per-sample weights; float32 beside it",
 }
+# (kernel, source, replaces, also replaces, library call, the shape of
+# phase 14 that the probes launch it at where it is timed at two)
 PROBE_ROWS = (
-    (gather_forms.row_gather, "tools/probes/probe_pallas_gather.py:40",
+    (gather_forms.row_gather, "gather_forms.cu",
+     "tools/probes/probe_pallas_gather.py:40",
      ["tools/probes/probe_pallas_gather.py:70 (make_onehot_kernel)",
       "tools/probes/probe_pallas_gather2.py:84 (onehot_kernel)",
       "tools/probes/probe_mosaic_gather_forms.py:17 (f2, f3, f6)"],
-     "torch.index_select"),
-    (gather_forms.window_gather, "tools/probes/probe_onehot_parts.py:41",
+     "torch.index_select", None),
+    (gather_forms.window_gather, "gather_forms.cu",
+     "tools/probes/probe_onehot_parts.py:41",
      ["tools/probes/probe_sorted_gather_parts.py:116 (kernel)"],
-     "torch.index_select"),
-    (gather_forms.take_along, "tools/probes/probe_pallas_gather2.py:60",
+     "torch.index_select", None),
+    (gather_forms.take_along, "gather_forms.cu",
+     "tools/probes/probe_pallas_gather2.py:60",
      ["tools/probes/probe_pallas_gather.py:40 (take_eq)",
       "tools/probes/probe_mosaic_gather_forms.py:17 (f1, f4, f5)"],
-     "torch.gather"),
-    (gather_forms.scale, "tools/probes/probe_pallas_gather2.py:45", [],
-     "torch.mul"),
-    (gather_forms.table_slots, "tools/probes/probe_table_kernel_forms.py:151",
-     [], None),
+     "torch.gather", None),
+    (gather_forms.scale, "gather_forms.cu",
+     "tools/probes/probe_pallas_gather2.py:45", [], "torch.mul", "P3"),
+    (gather_forms.table_slots, "table_build.cu",
+     "tools/probes/probe_table_kernel_forms.py:151", [], None, "P11"),
 )
+# scale's large case: a flagship level-0 value, (views, h, w, d_model),
+# 78.6 MB in bfloat16, over the 50 MB L2
+SCALE_VALUE = (5, 128, 240, 256)
+TIME_KEYS = ("device_ms", "host_us", "library_device_ms", "library_host_us")
+
+
+def probe_row(fn, source, replaces, also, library, probe_shape, st,
+              launches, turns):
+    """The kernels-line row of a probe kernel: its first timed shape's
+    times and bound as the row's own. A kernel timed at two shapes lists
+    both in `by_shape`, with the path's launches at `probe_shape` (the
+    shape the probes run it at) and none at the other, and the parent's
+    times of the parent_vs_change case at the same size, where `turns`
+    has one."""
+    shapes = []
+    for group, sh in st["shapes"].items():
+        at = "bfloat16; " + " + ".join(sh["at"])
+        shapes.append({
+            "at": at, "launches": launches if group == probe_shape else 0,
+            "timed_launches": len(sh["at"]), "ms": sh["ms"],
+            "plain_ms": sh["plain_ms"], "library_ms": sh["library_ms"],
+            "bound_ms": sh["work"].bound_ms,
+            **{k: sh[k] for k in TIME_KEYS if k in sh},
+            **next((t for case, t in turns.items()
+                    if case.startswith(fn.__name__)
+                    and case.rsplit(" at ", 1)[-1] in at), {})})
+    first = next(iter(st["shapes"].values()))
+    return kernel_row(
+        fn, source, replaces, launches, st["max_abs_err"], first["ms"],
+        first["plain_ms"], first["library_ms"], first["work"],
+        shapes[0]["at"], timed_launches=len(first["at"]), also=also,
+        library=library, by_shape=shapes if len(shapes) > 1 else None,
+        **{k: first[k] for k in TIME_KEYS if k in first},
+        **{k: v for k, v in shapes[0].items()
+           if k.startswith(("parent_", "change_"))})
 
 
 def excess_ms(row):
@@ -1170,20 +1219,32 @@ def train(card):
 def capture_gather_operands(into, levels):
     """While active, record the (tables, idx, w4) of the first `levels`
     gather-reduce calls of the corner sampler (the first decoder layer's
-    levels) into `into` and call through, so no launch count changes.
-    `into` None records nothing."""
-    original = sampling.deform_gather_reduce
+    levels) into into["gather"], and the level views of its first table
+    build (B2's inputs, strided as B2 gets them) into into["build"], and
+    call through, so no launch count changes. `into` None records
+    nothing."""
+    gather, build = sampling.deform_gather_reduce, sampling.build_corner_tables
 
-    def recorder(tables, idx, w4):
-        if into is not None and len(into) < levels:
-            into.append((tables.detach(), idx, w4.detach()))
-        return original(tables, idx, w4)
+    def gather_recorder(tables, idx, w4):
+        if into is not None and len(into["gather"]) < levels:
+            into["gather"].append((tables.detach(), idx, w4.detach()))
+        return gather(tables, idx, w4)
 
-    sampling.deform_gather_reduce = recorder
+    def build_recorder(value_hd, spatial_shapes):
+        if into is not None and not into["build"]:
+            sizes = [h * w for h, w in spatial_shapes]
+            into["build"].extend(
+                v.unflatten(2, (h, w)) for v, (h, w) in zip(
+                    value_hd.detach().split(sizes, dim=2), spatial_shapes))
+        return build(value_hd, spatial_shapes)
+
+    sampling.deform_gather_reduce = gather_recorder
+    sampling.build_corner_tables = build_recorder
     try:
         yield
     finally:
-        sampling.deform_gather_reduce = original
+        sampling.deform_gather_reduce = gather
+        sampling.build_corner_tables = build
 
 
 B3_KERNELS = {"gather_reduce_fwd_kernel": "fwd",
@@ -1195,10 +1256,10 @@ def profile_b3(step, state, batches, gen, levels):
     (so their peak memory holds no captured operand): the device ms per
     launch of B3's kernels (the backward's two kernels summed per launch)
     and of the sort kernels, by name; and the first decoder layer's B3
-    operands of the first of these steps."""
+    operands and B2 inputs of the first of these steps."""
     from torch.profiler import ProfilerActivity, profile
 
-    captured = []
+    captured = {"gather": [], "build": []}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1231,16 +1292,30 @@ def profile_b3(step, state, batches, gen, levels):
 
 
 def check_step_operands(card, captured):
-    """Phase 13b: B3 on the flagship training step's own operands (the
-    first decoder layer's three levels, captured in phase 13, a random
-    cotangent): forward and backward against the plain versions, the
-    backward twice bit for bit, untouched rows 0; the samples per row of
-    each level; and times as in phase 10."""
-    if len(captured) != len(SPATIAL_SHAPES):
-        fail(f"captured {len(captured)} gather-reduce calls in the step")
+    """Phase 13b: B2 and B3 on the flagship training step's own operands
+    (the first decoder layer's three levels, captured in phase 13, a random
+    cotangent): B2 on the step's level views bit for bit against its plain
+    version and against the tables B3 read in the step; B3's forward and
+    backward against the plain versions, the backward twice bit for bit,
+    untouched rows 0; the samples per row of each level; and times as in
+    phase 10."""
+    n_levels = len(SPATIAL_SHAPES)
+    if (len(captured["gather"]), len(captured["build"])) != (n_levels,
+                                                              n_levels):
+        fail(f"captured {len(captured['gather'])} gather-reduce calls and "
+             f"{len(captured['build'])} table builds in the step")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    tables = [t for t, _, _ in captured]
-    samples = [(i, w) for _, i, w in captured]
+    tables = [t for t, _, _ in captured["gather"]]
+    samples = [(i, w) for _, i, w in captured["gather"]]
+    built = [table_build.build_corner_table(v) for v in captured["build"]]
+    b2 = {"b2_bitwise_equal": all(
+              torch.equal(t, table_build.build_corner_table_plain(v))
+              for t, v in zip(built, captured["build"])),
+          "b2_equals_step_tables": all(
+              torch.equal(t, s) for t, s in zip(built, tables)),
+          "b2_views_contiguous": [v.is_contiguous()
+                                  for v in captured["build"]]}
+    del built
     cts = [torch.randn(i.shape + (t.shape[-1] // 4,), device="cuda",
                        generator=gen).to(t.dtype)
            for t, (i, _) in zip(tables, samples)]
@@ -1270,8 +1345,11 @@ def check_step_operands(card, captured):
                                       ]).bound_ms}
     phase("table_gather_step_operands", dtype=str(tables[0].dtype),
           NH=tables[0].shape[0], S=samples[0][0].shape[1], levels=levels,
-          chunk=table_gather.CHUNK, ok=ok, bwd_bit_identical=same, **times,
-          **work, card=card)
+          chunk=table_gather.CHUNK, ok=ok, bwd_bit_identical=same, **b2,
+          **times, **work, card=card)
+    if not (b2["b2_bitwise_equal"] and b2["b2_equals_step_tables"]):
+        fail("B2 disagrees with its plain version, or with the tables of "
+             "the step, on the training step's level views")
     if not (ok and same):
         fail("B3 disagrees with its plain versions, or between two "
              "launches, on the training step's operands")
@@ -1300,10 +1378,17 @@ def row_load(tbl, idx):
 
 
 def probe_cases(dtype, rng):
-    """The probe kernels' cases at the probes' shapes (tools/probes/) and at
-    B3's flagship level-0 row, in one dtype: (kernel, label, args, kwargs,
-    timed); a timed case (bfloat16 only) is timed into its kernel's row of
-    the kernels line."""
+    """The probe kernels' cases at the probes' shapes (tools/probes/), at
+    B3's flagship level-0 row and, for scale and the table slots, at a
+    flagship level-0 size where bytes set the time, in one dtype: (kernel,
+    label, args, kwargs, shape); a case with a shape (bfloat16 only) is
+    timed into that shape of its kernel's row of the kernels line, the
+    row's own shape first."""
+    bf16 = dtype == torch.bfloat16
+
+    def timed(shape):
+        return shape if bf16 else None
+
     def table(*shape):
         a = rng.random(shape, dtype=np.float32) - np.float32(0.5)
         return torch.from_numpy(a).to("cuda", dtype)
@@ -1312,7 +1397,6 @@ def probe_cases(dtype, rng):
         return torch.from_numpy(rng.integers(0, high, shape,
                                              dtype=np.int32)).to("cuda")
 
-    bf16 = dtype == torch.bfloat16
     rg, wg, ta, sc, ts = (gather_forms.row_gather, gather_forms.window_gather,
                           gather_forms.take_along, gather_forms.scale,
                           gather_forms.table_slots)
@@ -1321,37 +1405,43 @@ def probe_cases(dtype, rng):
     p7 = (table(40, 31460, 128), ints((31460 - 1024) // 8, 40, 120),
           ints(1024, 40, 61440))
     cases = [
-        (rg, "P1/P2/P5 2048 rows S 30720", (small, idx), {}, False),
-        (rg, "P1 31488 rows S 30720", (big, ints(31488, 30720)), {}, False),
-        (rg, "P6 f2/f3 and f6", (small, idx[:512].contiguous()), {}, False),
+        (rg, "P1/P2/P5 2048 rows S 30720", (small, idx), {}, None),
+        (rg, "P1 31488 rows S 30720", (big, ints(31488, 30720)), {}, None),
+        (rg, "P6 f2/f3 and f6", (small, idx[:512].contiguous()), {}, None),
         (rg, "P8 one pair R 41620 S 184320",
-         (table(41620, 128), ints(41620, 184320)), {}, False),
+         (table(41620, 128), ints(41620, 184320)), {}, None),
         (rg, "B3 flagship level 0: 40 x 33280 rows, S 122880",
-         (table(40, 33280, 128), ints(33280, 40, 122880)), {}, bf16),
+         (table(40, 33280, 128), ints(33280, 40, 122880)), {},
+         timed("B3 flagship level 0")),
         (wg, "P7 select: 40 x 31460 rows, 120 x 512, W 1024", p7,
-         dict(W=1024, unit=8), bf16),
-        (wg, "P7 copy", p7, dict(W=1024, unit=8, mode="copy"), False),
+         dict(W=1024, unit=8), timed("P7")),
+        (wg, "P7 copy", p7, dict(W=1024, unit=8, mode="copy"), None),
         (wg, "P7 zero", (table(4, 3000, 128), ints(200, 4, 120),
                          ints(1024, 4, 61440)),
-         dict(W=1024, unit=8, mode="zero"), False),
+         dict(W=1024, unit=8, mode="zero"), None),
         (wg, "P8 select, escapes clamped, unit 1",
          (table(1, 41620, 128), ints(41620 - 512, 1, 180),
-          ints(512, 1, 184320)), dict(W=512, unit=1), False),
+          ints(512, 1, 184320)), dict(W=512, unit=1), None),
         (ta, "P4 take_eq (2048, 128) x (30720, 128)",
-         (small, idx[:, None].expand(30720, 128).contiguous(), 0), {}, bf16),
-        (ta, "P6 f1", (small, ints(2048, 512, 128), 0), {}, False),
-        (ta, "P6 f4", (table(8, 128), ints(8, 8, 128), 0), {}, False),
+         (small, idx[:, None].expand(30720, 128).contiguous(), 0), {},
+         timed("P4")),
+        (ta, "P6 f1", (small, ints(2048, 512, 128), 0), {}, None),
+        (ta, "P6 f4", (table(8, 128), ints(8, 8, 128), 0), {}, None),
         (ta, "P6 f5 axis 1", (table(128, 128), ints(128, 128, 128), 1), {},
-         False),
-        (sc, "P3 (2048, 128), a = 2", (small, 2.0), {}, bf16),
+         None),
+        (sc, f"flagship level-0 value {SCALE_VALUE}, a = 2",
+         (table(*SCALE_VALUE), 2.0), {}, timed("flagship value")),
+        (sc, "P3 (2048, 128), a = 2", (small, 2.0), {}, timed("P3")),
     ]
     if not bf16:
-        cases.append((sc, "a = 0.3", (small, 0.3), {}, False))
+        cases.append((sc, "a = 0.3", (small, 0.3), {}, None))
     v_small, v_big = table(40, 16, 30, 32), table(40, 128, 240, 32)
     for name, slots in gather_forms.SLOT_MAPS.items():
+        cases.append((ts, f"{name} at (128, 240)", (v_big, slots), {},
+                      timed("flagship level 0")))
+    for name, slots in gather_forms.SLOT_MAPS.items():
         cases.append((ts, f"P11 {name} at (16, 30)", (v_small, slots), {},
-                      bf16))
-        cases.append((ts, f"{name} at (128, 240)", (v_big, slots), {}, False))
+                      timed("P11")))
     return cases
 
 
@@ -1402,20 +1492,34 @@ def probe_work(kernel, args, kwargs) -> bounds.Work:
     return bounds.table_build(NH, h, w, D, args[0].element_size())
 
 
+def launch_floor(card, rounds=3):
+    """The launch floor: the device's ms per launch of an empty kernel
+    (`gather_forms.noop`), timed as every kernel is (`device_ms`: 50
+    launches behind a sleep kernel), the median of `rounds` readings."""
+    t = torch.empty(1, device="cuda")
+    readings = [device_ms(lambda: gather_forms.noop(t))
+                for _ in range(rounds)]
+    floor = float(np.median([ms for ms, _ in readings]))
+    phase("launch_floor", floor_ms=floor,
+          readings_ms=[ms for ms, _ in readings],
+          host_us=[us for _, us in readings], card=card)
+    return floor
+
+
 def check_probe_kernels(card):
     """Phase 14: each probe kernel against its plain version on the card,
-    float32 and bfloat16, at the probes' shapes and B3's flagship level-0
-    row: bit for bit (scale: exact, and equal to x * 2 at a = 2); the
-    bfloat16 case of each kernel's table row timed beside its plain
-    version and its library call, with its bound from the same inputs.
-    Returns the table rows by kernel."""
+    float32 and bfloat16, at the probes' shapes, B3's flagship level-0
+    row and scale's and the table slots' flagship sizes: bit for bit
+    (scale: exact, and equal to x * 2 at a = 2); the bfloat16 cases of
+    each shape of a kernel's table row timed beside their plain version
+    and their library call, with their bound from the same inputs.
+    Returns, per kernel, its worst error and its timed shapes in order."""
     rng = np.random.default_rng(SEED)
-    stats = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                 "library_ms": None, "work": bounds.Work(0), "at": []}
+    stats = {k: {"max_abs_err": 0.0, "shapes": {}}
              for k in gather_forms.KERNELS}
     for dtype in (torch.float32, torch.bfloat16):
         lines = []
-        for kernel, label, args, kwargs, timed in probe_cases(dtype, rng):
+        for kernel, label, args, kwargs, shape in probe_cases(dtype, rng):
             got = kernel(*args, **kwargs)
             torch.cuda.synchronize()
             want = PROBE_PLAIN[kernel](*args, **kwargs)
@@ -1428,7 +1532,7 @@ def check_probe_kernels(card):
             st["max_abs_err"] = max(st["max_abs_err"], err)
             line = {"kernel": kernel.__name__, "case": label,
                     "bitwise_equal": bool(equal)}
-            if timed:
+            if shape is not None:
                 library = probe_library_call(kernel, args, kwargs)
                 work = probe_work(kernel, args, kwargs)
                 dev_ms, host_us = device_ms(lambda: kernel(*args, **kwargs))
@@ -1442,17 +1546,20 @@ def check_probe_kernels(card):
                 if library is not None:
                     line["library_device_ms"], line["library_host_us"] = \
                         device_ms(library)
+                sh = st["shapes"].setdefault(shape, {
+                    "ms": 0.0, "plain_ms": 0.0, "library_ms": None,
+                    "work": bounds.Work(0), "at": []})
                 for key in ("device_ms", "host_us", "library_device_ms",
                             "library_host_us"):
                     if key in line:
-                        st[key] = st.get(key, 0.0) + line[key]
-                st["ms"] += line["ms"]
-                st["plain_ms"] += line["plain_ms"]
+                        sh[key] = sh.get(key, 0.0) + line[key]
+                sh["ms"] += line["ms"]
+                sh["plain_ms"] += line["plain_ms"]
                 if library is not None:
-                    st["library_ms"] = (st["library_ms"] or 0.0) + line[
+                    sh["library_ms"] = (sh["library_ms"] or 0.0) + line[
                         "library_ms"]
-                st["work"] = st["work"] + work
-                st["at"].append(label)
+                sh["work"] = sh["work"] + work
+                sh["at"].append(label)
             lines.append(line)
             if not equal:
                 fail(f"{kernel.__name__} differs from its plain version: "
@@ -3834,8 +3941,9 @@ def bench_phase(card):
 
 
 def parent_vs_change(card, parent):
-    """B1 at B1_SHAPES, B4 and B5 on the K = 28 plan and B2 on the flagship
-    value's level views, bfloat16, timed by this checkout's
+    """B1 at B1_SHAPES, B4 and B5 on the K = 28 plan, B2 on the flagship
+    value's level views and the table slots' five maps at their two sizes,
+    bfloat16, timed by this checkout's
     tools/launch_cost.py (--kernels PARENT_KERNELS) on the package of the
     checkout at `parent` and on this one in turns: parent, change, change,
     parent, one process each, on the same inputs. Returns, per case,
@@ -3943,6 +4051,7 @@ def main(argv=None):
     step_stats = check_step_operands(card, captured)
     del captured
     torch.cuda.empty_cache()
+    floor_ms = launch_floor(card)
     probe_stats = check_probe_kernels(card)
     probe_launches = run_probes(card)
     for name, count in probe_launches.items():
@@ -4106,16 +4215,10 @@ def main(argv=None):
             st["work"], flagship, timed_launches=3, library="F.embedding_bag",
             device_ms=st["device_ms"], ms_f32=st["ms_f32"],
             library_ms_f32=st["library_ms_f32"], **extra))
-    for fn, replaces, also, library in PROBE_ROWS:
-        st = probe_stats[fn]
-        kernels.append(kernel_row(
-            fn, "gather_forms.cu", replaces, probe_launches[fn.__name__],
-            st["max_abs_err"], st["ms"], st["plain_ms"], st["library_ms"],
-            st["work"], "bfloat16; " + " + ".join(st["at"]),
-            timed_launches=len(st["at"]), also=also, library=library,
-            **{k: st[k] for k in ("device_ms", "host_us",
-                                  "library_device_ms", "library_host_us")
-               if k in st}))
+    for fn, source, replaces, also, library, probe_shape in PROBE_ROWS:
+        kernels.append(probe_row(fn, source, replaces, also, library,
+                                 probe_shape, probe_stats[fn],
+                                 probe_launches[fn.__name__], turns))
     serving_training = {fn.__name__ for fn in ALL_KERNELS}
     for row in kernels:
         if row["name"] in serving_training:
@@ -4135,8 +4238,14 @@ def main(argv=None):
                 for (Lq, P), stats in st.items()]
         elif st is not None:
             row["ablation_d16"] = {"at": ABLATION_AT[row["name"]], **st}
+    # the launch floor beside every row and shape whose bound per launch
+    # lies under it
+    for row in kernels:
+        for entry in (row, *row.get("by_shape", ())):
+            if entry["bound_ms"] / entry.get("timed_launches", 1) < floor_ms:
+                entry["floor_ms"] = floor_ms
     phase("ranking", order=ranking(kernels), card=card)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "floor_ms": floor_ms}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,10 @@
 """The gather forms of the probe kernels: the wrappers of the Hopper kernels
-in `csrc/gather_forms.cu` and their plain PyTorch versions.
+in `csrc/gather_forms.cu` (and of B2's, `csrc/table_build.cu`, for the
+table slots) and their plain PyTorch versions.
 
-The Pallas kernels of `tools/probes/` compute four functions, and the port
-has one kernel for each (the row gather's serves two wrappers):
+The Pallas kernels of `tools/probes/` compute five functions, and the port
+has one kernel for each (the row gather's serves two wrappers; the table
+slots are B2's kernel with a slot map):
 
     row_gather(tbl (P, R, C), idx (P, S))          -> (P, S, C)
         out[p, i] = tbl[p, idx[p, i]]: jnp.take, lax.gather, dynamic row
@@ -17,20 +19,23 @@ has one kernel for each (the row gather's serves two wrappers):
     table_slots(v (NH, h, w, D), slots)             -> (NH, (h+2)*wpp, 4D)
         the corner-table layout of B2 with each of its 4 slots taken from
         the row itself ("cur", 0) or the next ("nxt", 1), shifted by 0 or 1
-        in x, or off; B2_SLOTS is B2's own map.
+        in x, or off; B2_SLOTS is B2's own map, and B2's kernel runs
+        every map (`slot_codes` gives the codes it is handed).
 
 A row, element or slot whose index lies off the table (or off the window)
 is zero in both versions.
 
     * Each wrapper sends a CPU tensor to the plain version and a CUDA tensor
       to its kernel, or raises; nothing falls back. Its `.launches` counts
-      kernel launches and nothing else changes it.
+      its own kernel launches and nothing else changes it (`table_slots`
+      leaves B2's `build_corner_table.launches` as it is).
     * The copies move raw bits, so the kernels equal the plain versions bit
       for bit in float32 and bfloat16; `scale` rounds its float32 product
       once, as the plain version does.
 
 The port's model never calls these: `mvgformer_tpu_torch/tools/probes/`
 does, with the PyTorch call of the same function timed beside each kernel.
+`noop` launches an empty kernel: the launch floor, timed beside them.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from mvgformer_tpu_torch.ops import _build
+from mvgformer_tpu_torch.ops import _build, table_build
 from mvgformer_tpu_torch.ops.table_build import padded_width
 
 _SRC = _build.CSRC / "gather_forms.cu"
@@ -66,8 +71,7 @@ _ROW_GATHER = _build.Launcher(_SRC, "mvg_row_gather", [_P] * 4 + [_I] * 8 + [_P]
 _TAKE_ALONG = _build.Launcher(_SRC, "mvg_take_along", [_P] * 3 + [_I] * 6 + [_P])
 _SCALE = _build.Launcher(_SRC, "mvg_scale",
                          [_P, _P, ctypes.c_longlong, ctypes.c_float, _I, _P])
-_TABLE_SLOTS = _build.Launcher(_SRC, "mvg_table_slots",
-                               [_P, _P] + [_I] * 10 + [_P])
+_NOOP = _build.Launcher(_SRC, "mvg_noop", [_P])
 
 
 def _check_device(*tensors) -> str:
@@ -280,7 +284,10 @@ scale.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _slot_codes(slots: Sequence[Slot]) -> Tuple[int, ...]:
+def slot_codes(slots: Sequence[Slot]) -> Tuple[int, ...]:
+    """The 4 slot codes that `csrc/table_build.cu` takes for a slot map: -1
+    for a slot that is off, else 2 * row + shift. B2_SLOTS gives
+    table_build.B2_CODES, B2's own compile-time instance."""
     if len(slots) != 4:
         raise ValueError(f"4 slots, got {len(slots)}")
     codes = []
@@ -298,7 +305,7 @@ def _slot_codes(slots: Sequence[Slot]) -> Tuple[int, ...]:
 def table_slots_plain(v: torch.Tensor, slots: Sequence[Slot]) -> torch.Tensor:
     """(NH, h, w, D) -> (NH, (h+2) * padded_width(w), 4D) with pads and
     slices, as `table_build.build_corner_table_plain`."""
-    _slot_codes(slots)
+    slot_codes(slots)
     NH, h, w, D = v.shape
     wpp = padded_width(w)
     # p[y + 1, x + 1] = v[y, x]; slot (row, shift) of table row (y, x) is
@@ -314,23 +321,28 @@ def table_slots(v: torch.Tensor, slots: Sequence[Slot] = B2_SLOTS
                 ) -> torch.Tensor:
     """The corner-table layout of v (NH, h, w, D) with the slot map
     `slots` (4 entries, each None or (row, shift)); with B2_SLOTS it is
-    B2's table. On CUDA: float32 or bfloat16, contiguous."""
-    codes = _slot_codes(slots)
+    B2's table. On CUDA: float32 or bfloat16, contiguous; B2's kernel
+    runs it, reading v as N = NH views of H = 1 head."""
+    codes = slot_codes(slots)
     if v.dim() != 4:
         raise ValueError(f"v must be (NH, h, w, D), got {tuple(v.shape)}")
     if _check_device(v) == "cpu":
         return table_slots_plain(v, slots)
     _check_cuda([("v", v)], [])
-    NH, h, w, D = v.shape
-    wpp = padded_width(w)
-    out = torch.empty((NH, (h + 2) * wpp, 4 * D), dtype=v.dtype,
-                      device=v.device)
-    _TABLE_SLOTS(v, v.data_ptr(), out.data_ptr(), NH, h, w, wpp, D,
-                 v.element_size(), *codes)
+    out = table_build.launch_table(v[:, None], codes)
     table_slots.launches += 1
     return out
 
 
 table_slots.launches = 0
+
+
+def noop(t: torch.Tensor) -> None:
+    """One launch of an empty kernel on the current stream of t's card:
+    the least a launch costs, timed beside the kernels."""
+    if not t.is_cuda:
+        raise ValueError(f"noop launches on a card, got {t.device}")
+    _NOOP(t)
+
 
 KERNELS = (row_gather, window_gather, take_along, scale, table_slots)

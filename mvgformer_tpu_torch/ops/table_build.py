@@ -10,6 +10,10 @@ the table of (view, head) pair p has (h + 2) * padded_width(w) rows; row
 with zeros outside the map and in the columns past w + 1. A bilinear
 sample whose top-left pixel is (y0, x0) reads the one row
 (y0 + 1) * padded_width(w) + x0 + 1 (ops/sampling.py::deform_sample_corner).
+The same kernel takes slot codes (`launch_table`): slot c of row (y, x)
+then holds v[y - 1 + code // 2, x - code % 2], or zeros for the code -1;
+B2's table is B2_CODES, and the probe's store patterns
+(ops/gather_forms.py::table_slots) are the others.
 
     * `build_corner_table` is the kernel's wrapper: a CPU tensor goes to
       `build_corner_table_plain`, a CUDA tensor launches
@@ -40,7 +44,11 @@ def padded_width(w: int) -> int:
 _BUILD = _build.Launcher(
     _SRC, "mvg_table_build",
     [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 4
-    + [ctypes.c_void_p])
+    + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+# slot c of B2's row (y, x) holds v[y - 1 + c // 2, x - 1 + c % 2]: the
+# code 2 * row + shift of slot c is (row c // 2, shift 1 - c % 2); the C
+# side runs its compile-time B2 instance for exactly these codes
+B2_CODES = (1, 0, 3, 2)
 
 
 def build_corner_table_plain(v: torch.Tensor) -> torch.Tensor:
@@ -54,6 +62,20 @@ def build_corner_table_plain(v: torch.Tensor) -> torch.Tensor:
     corners = (p[:, :, 0:h + 2, 0:wpp], p[:, :, 0:h + 2, 1:wpp + 1],
                p[:, :, 1:h + 3, 0:wpp], p[:, :, 1:h + 3, 1:wpp + 1])
     return torch.cat(corners, dim=-1).reshape(N * H, (h + 2) * wpp, 4 * D)
+
+
+def launch_table(v: torch.Tensor, codes: Sequence[int]) -> torch.Tensor:
+    """One launch of `csrc/table_build.cu` on the (N, H, h, w, D) CUDA view
+    v (unit channel stride, float32 or bfloat16; the caller checks) with
+    the 4 slot codes `codes`: the (N*H, (h+2) * padded_width(w), 4D)
+    table. Counts nothing: each caller counts its own launches."""
+    N, H, h, w, D = v.shape
+    wpp = padded_width(w)
+    out = torch.empty((N * H, (h + 2) * wpp, 4 * D), dtype=v.dtype,
+                      device=v.device)
+    _BUILD(v, v.data_ptr(), out.data_ptr(), N, H, h, w, wpp, D,
+           v.element_size(), *v.stride()[:4], *codes)
+    return out
 
 
 def build_corner_table(v: torch.Tensor) -> torch.Tensor:
@@ -73,12 +95,7 @@ def build_corner_table(v: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"v must be float32 or bfloat16, got {v.dtype}")
     if v.stride(-1) != 1:
         raise ValueError("v must have unit channel stride")
-    N, H, h, w, D = v.shape
-    wpp = padded_width(w)
-    out = torch.empty((N * H, (h + 2) * wpp, 4 * D), dtype=v.dtype,
-                      device=v.device)
-    _BUILD(v, v.data_ptr(), out.data_ptr(), N, H, h, w, wpp, D,
-           v.element_size(), *v.stride()[:4])
+    out = launch_table(v, B2_CODES)
     build_corner_table.launches += 1
     return out
 

@@ -2,7 +2,8 @@
 kernels of two checkouts side by side:
 
     python mvgformer_tpu_torch/tools/launch_cost.py [--root DIR] [--label L]
-        [--kernels probes,deform,window_block,window_dma,table_build]
+        [--kernels probes,deform,window_block,window_dma,table_build,
+                   table_slots]
 
 imports `mvgformer_tpu_torch` from the checkout at DIR (default: this one),
 so two trees can be held side by side in one run on one card (run it once
@@ -11,8 +12,10 @@ per tree, in turns). The cases, all bfloat16:
     probes        P4's take-along, (2048, 128) by (30720, 128) on axis 0;
                   P3's scale of (2048, 128) by 2; P1's row gather of 30,720
                   rows from 2048: the probe kernels at their own small
-                  shapes, where the host's path per call decides the time,
-                  each beside the PyTorch call of the same function; then a
+                  shapes, where the host's path per call decides the time;
+                  and scale at a flagship level-0 value (5, 128, 240, 256),
+                  where bytes do; each beside the PyTorch call of the same
+                  function; then a
                   line splitting the host's path of the take-along wrapper
                   (microseconds per call, in a loop of 3000, of the whole
                   wrapper, of its output's `torch.empty`, of its checks, and
@@ -29,7 +32,10 @@ per tree, in turns). The cases, all bfloat16:
                   calls under impl 'pallas_dma' (K 28, Kx 32);
     table_build   B2 (`build_corner_table`) on the three level views of a
                   flagship value (5 views, 8 heads x 32), strided as the
-                  corner sampler hands them over (`level_views`).
+                  corner sampler hands them over (`level_views`);
+    table_slots   the table slots' maps d0-d4 (B2's kernel with a slot map)
+                  on (40, h, w, 32) at the flagship level 0 (128, 240) and
+                  at the probe's (16, 30), the five launches summed.
 
 Each case prints one JSON line with
 
@@ -140,11 +146,14 @@ def cases(gather_forms, torch, rng):
     idx = torch.from_numpy(rng.integers(0, 2048, 30720).astype("int32")).cuda()
     along = idx[:, None].expand(30720, 128).contiguous()
     along64 = along.long()
+    value = table(5, 128, 240, 256)
     return [
         ("take_along P4", lambda: gather_forms.take_along(small, along, 0),
          lambda: torch.gather(small, 0, along64)),
         ("scale P3", lambda: gather_forms.scale(small, 2.0),
          lambda: torch.mul(small, 2.0)),
+        ("scale flagship value", lambda: gather_forms.scale(value, 2.0),
+         lambda: torch.mul(value, 2.0)),
         ("row_gather P1", lambda: gather_forms.row_gather(small, idx),
          lambda: torch.index_select(small, 0, idx)),
     ]
@@ -154,7 +163,9 @@ FLAGSHIP_LEVELS = ((128, 240), (64, 120), (32, 60))
 # B1's shapes in a served frame: dense layer 1, then the top-64 layers
 B1_SHAPES = ((15360, 4), (960, 4))
 KERNEL_SETS = ("probes", "deform", "window_block", "window_dma",
-               "table_build")
+               "table_build", "table_slots")
+# the table slots' sizes: the flagship level 0 and the probe's small level
+SLOT_SIZES = ((128, 240), (16, 30))
 
 
 def sampling_inputs(Lq, P, dtype, gen, levels=FLAGSHIP_LEVELS, views=5,
@@ -226,8 +237,9 @@ def level_views(value, levels):
 def kernel_cases(root, torch, sets, device="cuda", cfg=None):
     """(name, fn, plain) of B1 at B1_SHAPES ('deform' in sets), of the three
     level calls of the layer-1 plan through B4 ('window_block') or B5
-    ('window_dma'), and of B2 on the three level views of a value
-    ('table_build'), bfloat16, through the checkout at root. `plain`
+    ('window_dma'), of B2 on the three level views of a value
+    ('table_build'), and of the table slots' five maps at SLOT_SIZES
+    ('table_slots'), bfloat16, through the checkout at root. `plain`
     computes the same through the kernels' plain versions. The window and
     table cases take their levels, views, heads and plan from `cfg`
     (default: the flagship config of root, whose plan has K = 28)."""
@@ -235,9 +247,9 @@ def kernel_cases(root, torch, sets, device="cuda", cfg=None):
     from mvgformer_tpu_torch.data.synthetic import make_batch
     from mvgformer_tpu_torch.models.mvgformer import (
         build_layer1_window_plan, feature_spatial_shapes, layer1_centers_px)
-    from mvgformer_tpu_torch.ops import (deform_attn, sampling, table_build,
-                                         window_block, window_dma,
-                                         window_sampling)
+    from mvgformer_tpu_torch.ops import (deform_attn, gather_forms, sampling,
+                                         table_build, window_block,
+                                         window_dma, window_sampling)
 
     gen = torch.Generator(device=device).manual_seed(0)
     cases = []
@@ -286,6 +298,15 @@ def kernel_cases(root, torch, sets, device="cuda", cfg=None):
                                for v in views],
                       lambda: [table_build.build_corner_table_plain(v)
                                for v in views]))
+    maps = list(gather_forms.SLOT_MAPS.values())
+    for h, w in SLOT_SIZES if "table_slots" in sets else ():
+        v = torch.randn(40, h, w, 32, device=device, generator=gen).to(
+            torch.bfloat16)
+        cases.append((f"table_slots d0-d4 at ({h}, {w})",
+                      lambda v=v: [gather_forms.table_slots(v, m)
+                                   for m in maps],
+                      lambda v=v: [gather_forms.table_slots_plain(v, m)
+                                   for m in maps]))
     return cases
 
 

@@ -14,8 +14,9 @@ bfloat16, at (128, 240) and the small (16, 30):
                 with the slot maps of SLOT_MAPS; d2 is B2's own map
 
 Forms a, b, c and e run csrc/table_build.cu (ops/table_build.py), held bit
-for bit against its plain version; d0-d4 run the slot-copy kernel, held
-against its plain version, and d2 also against B2. No single PyTorch call
+for bit against its plain version; d0-d4 run the same kernel with their
+slot maps (ops/gather_forms.py::table_slots), held against its plain
+version, and d2 also against B2. No single PyTorch call
 builds these tables (a pad, four slices and a concatenation do), so no
 library call is timed.
 

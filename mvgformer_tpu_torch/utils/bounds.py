@@ -122,7 +122,7 @@ def deform_sample(value: torch.Tensor,
 
 
 def table_build(pairs: int, h: int, w: int, D: int, esize: int) -> Work:
-    """B2 (and the slot-copy kernel) for one level: the (pairs, h, w, D)
+    """B2 (with any slot map) for one level: the (pairs, h, w, D)
     level read once and the (pairs, (h+2) * padded_width(w), 4D) table
     written."""
     return Work(pairs * h * w * D * esize

@@ -13,7 +13,9 @@ same numpy inputs, bit for bit in float32 and bfloat16:
     jnp expression of its select over sorted rows, escapes clamped;
   * P9-P12 (probe_table_kernel_forms.py) against
     mvgformer_tpu.ops.sampling.build_corner_tables, and the slot maps d0-d4
-    against form_d's store statements written in jnp.
+    against form_d's store statements written in jnp; the slot codes the
+    table slots hand B2's kernel (csrc/table_build.cu), and the table that
+    kernel's index arithmetic makes of them, written out in numpy.
 
 The TPU's one-hot forms (P2, P5) ran jnp.dot at default precision, which
 rounds a float32 table to bfloat16 on the TPU; the contract here is the
@@ -24,6 +26,7 @@ so it is not imported and its expressions are written out here.
 
 import importlib.util
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -245,6 +248,80 @@ def test_p11_slot_maps_equal_form_d(rng, dtype, variant):
     want = _form_d_jnp(jv, variant, table_build.padded_width(w))
     _equal(gather_forms.table_slots(tv, gather_forms.SLOT_MAPS[
         f"d{variant}"]), want)
+
+
+SLOT_CODES = {"d0": (0, -1, -1, -1), "d1": (0, 0, 2, 2), "d2": (1, 0, 3, 2),
+              "d3": (0, 0, 2, 2), "d4": (1, 1, 1, 1)}
+
+
+def _kernel_index_map(v, codes, b2):
+    """The table csrc/table_build.cu writes, indexed as its threads index
+    it: slot c of row (y, x) reads v[y - 1 + code // 2, x - code % 2] for
+    the slot's code (B2's compile-time instance: (c & 2) | (1 - (c & 1))),
+    zero off the map and for the code -1."""
+    NH, h, w, D = v.shape
+    wpp = table_build.padded_width(w)
+    out = np.zeros((NH, h + 2, wpp, 4, D), v.dtype)
+    for c in range(4):
+        code = (c & 2) | (1 - (c & 1)) if b2 else codes[c]
+        if code < 0:
+            continue
+        for y in range(h + 2):
+            for x in range(wpp):
+                sy, sx = y - 1 + (code >> 1), x - (code & 1)
+                if 0 <= sy < h and 0 <= sx < w:
+                    out[:, y, x, c] = v[:, sy, sx]
+    return out.reshape(NH, (h + 2) * wpp, 4 * D)
+
+
+def _b2_instance_codes():
+    """The codes for which csrc/table_build.cu runs B2's instance."""
+    src = table_build._SRC.read_text()
+    found = re.search(r"b2 = s0 == (-?\d) && s1 == (-?\d) && "
+                      r"s2 == (-?\d) && s3 == (-?\d);", src)
+    return tuple(int(g) for g in found.groups())
+
+
+@pytest.mark.parametrize("name", sorted(SLOT_CODES))
+def test_slot_codes_index_the_plain_table(rng, name):
+    """Each of d0-d4 gives its codes, and the table the kernel's index
+    arithmetic makes of them is the plain version's; only B2_SLOTS gives
+    B2_CODES, the codes of B2's own instance, whose fixed map makes the
+    same table as B2's plain build."""
+    slots = gather_forms.SLOT_MAPS[name]
+    codes = gather_forms.slot_codes(slots)
+    assert codes == SLOT_CODES[name]
+    v = rng.randn(2, 3, 5, 2).astype(np.float32)
+    want = gather_forms.table_slots_plain(torch.from_numpy(v), slots).numpy()
+    np.testing.assert_array_equal(_kernel_index_map(v, codes, b2=False),
+                                  want)
+    assert _b2_instance_codes() == table_build.B2_CODES
+    assert (codes == table_build.B2_CODES) == (slots ==
+                                               gather_forms.B2_SLOTS)
+    if slots == gather_forms.B2_SLOTS:
+        np.testing.assert_array_equal(_kernel_index_map(v, codes, b2=True),
+                                      want)
+        np.testing.assert_array_equal(
+            table_build.build_corner_table_plain(
+                torch.from_numpy(v)[:, None]).numpy(), want)
+
+
+def test_table_slots_hand_their_codes_to_b2_kernel(monkeypatch):
+    """On a card the wrapper launches B2's kernel on the (NH, 1, h, w, D)
+    view with the map's codes, counting its own launches and not B2's."""
+    seen = []
+    monkeypatch.setattr(gather_forms, "_check_device", lambda *t: "cuda")
+    monkeypatch.setattr(table_build, "launch_table", lambda v, codes: (
+        seen.append((tuple(v.shape), tuple(codes))), v)[1])
+    monkeypatch.setattr(gather_forms.table_slots, "launches", 0)
+    b2_before = table_build.build_corner_table.launches
+    v = torch.zeros(4, 3, 5, 2)
+    for slots in gather_forms.SLOT_MAPS.values():
+        gather_forms.table_slots(v, slots)
+    assert seen == [((4, 1, 3, 5, 2), SLOT_CODES[name])
+                    for name in gather_forms.SLOT_MAPS]
+    assert gather_forms.table_slots.launches == len(SLOT_CODES)
+    assert table_build.build_corner_table.launches == b2_before
 
 
 def test_plain_versions_zero_what_lies_off_the_table():

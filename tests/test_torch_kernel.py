@@ -15,8 +15,11 @@
     included, on rows as concentrated as the training step's and indices
     off the table, the backward bit-identical over two launches; and the whole corner sampler against the deformable-sampling
     kernel (the same contract) at float32 atol 1e-5;
-  * the probe kernels (row gather, windowed gather, take-along, table
-    slots) bit for bit, indices off the table included, and scale exact;
+  * the probe kernels (row gather, windowed gather, take-along, and the
+    table slots through B2's kernel) bit for bit, indices off the table
+    included, and scale exact over thousands of blocks with a tail, from
+    aligned and misaligned pointers; B2 on strided flagship level views
+    against its plain version and the table slots' B2 map;
     and the library call timed beside B3 (F.embedding_bag, forward and
     autograd) against B3's plain versions.
 
@@ -667,20 +670,29 @@ def test_take_along_matches_plain(cuda, dtype, axis, tbl_shape, idx_shape):
     assert torch.equal(got, gather_forms.take_along_plain(tbl, idx, axis))
 
 
+# 6,337 blocks of 256 units in bfloat16 (vectors of 8 elements), the last
+# partly filled, and a 3-element tail
+SCALE_LARGE = 12_976_931
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n", [2048 * 128, 1001, 7])
+@pytest.mark.parametrize("n", [2048 * 128, 1001, 7, SCALE_LARGE])
 def test_scale_matches_plain(cuda, dtype, n):
+    """Exact against the plain version: from a pointer off 16 bytes (every
+    element through the tail's path) and from an aligned one (vectors and
+    a tail of n % (16 / esize) elements)."""
     from mvgformer_tpu_torch.ops import gather_forms
-    x = torch.randn(n + 1, generator=torch.Generator().manual_seed(n))
-    x = x.to(cuda, dtype)[1:]  # unaligned for the odd sizes' tail path
-    for a in (2.0, 0.3):
-        got = _launched_once(gather_forms.scale,
-                             lambda: gather_forms.scale(x, a))
-        want = gather_forms.scale_plain(x, a)
-        assert torch.equal(got, want)
-        if a == 2.0:
-            assert torch.equal(got, x * 2)
+    full = torch.randn(n + 1, generator=torch.Generator().manual_seed(n))
+    full = full.to(cuda, dtype)
+    for x in (full[1:], full[:n]):  # off 16 bytes, then aligned
+        for a in (2.0, 0.3):
+            got = _launched_once(gather_forms.scale,
+                                 lambda: gather_forms.scale(x, a))
+            want = gather_forms.scale_plain(x, a)
+            assert torch.equal(got, want)
+            if a == 2.0:
+                assert torch.equal(got, x * 2)
 
 
 @pytest.mark.gpu
@@ -688,17 +700,44 @@ def test_scale_matches_plain(cuda, dtype, n):
 @pytest.mark.parametrize("h,w,D", [(16, 30, 32), (128, 240, 32), (5, 3, 5),
                                    (1, 1, 8)])
 def test_table_slots_match_plain_and_b2(cuda, dtype, h, w, D):
+    """Every slot map through B2's kernel, bit for bit; the count is the
+    table slots' own, B2's stays as it was."""
     from mvgformer_tpu_torch.ops import gather_forms
     v = torch.randn(3, h, w, D, generator=torch.Generator().manual_seed(h))
     v = v.to(cuda, dtype)
+    b2_before = table_build.build_corner_table.launches
     for name, slots in gather_forms.SLOT_MAPS.items():
         got = _launched_once(gather_forms.table_slots,
                              lambda: gather_forms.table_slots(v, slots))
         assert torch.equal(got, gather_forms.table_slots_plain(v, slots)), \
             name
+    assert table_build.build_corner_table.launches == b2_before
     b2 = table_build.build_corner_table(v[:, None])
     assert torch.equal(gather_forms.table_slots(v, gather_forms.B2_SLOTS),
                        b2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b2_from_strided_value_equals_plain_and_slots(cuda, dtype):
+    """B2 on the strided level views of a (N, Len_in, H, D) value, as the
+    corner sampler hands them over, at the flagship levels: bit for bit
+    against its plain version and against the table slots' B2 map on a
+    contiguous copy of each view."""
+    from mvgformer_tpu_torch.ops import gather_forms
+    from mvgformer_tpu_torch.tools.launch_cost import (FLAGSHIP_LEVELS,
+                                                       level_views)
+    value = torch.randn(2, sum(h * w for h, w in FLAGSHIP_LEVELS), 3, 32,
+                        generator=torch.Generator().manual_seed(5))
+    value = value.to(cuda, dtype)
+    for v in level_views(value, FLAGSHIP_LEVELS):
+        assert not v.is_contiguous()
+        got = _launched_once(table_build.build_corner_table,
+                             lambda: table_build.build_corner_table(v))
+        assert torch.equal(got, table_build.build_corner_table_plain(v))
+        flat = v.flatten(0, 1).contiguous()
+        assert torch.equal(got, gather_forms.table_slots(
+            flat, gather_forms.B2_SLOTS))
 
 
 @pytest.mark.gpu

@@ -26,7 +26,8 @@ LAUNCHERS = {
     "row_gather": gather_forms._ROW_GATHER,
     "take_along": gather_forms._TAKE_ALONG,
     "scale": gather_forms._SCALE,
-    "table_slots": gather_forms._TABLE_SLOTS,
+    "table_slots": table_build._BUILD,  # B2's kernel with a slot map
+    "noop": gather_forms._NOOP,
 }
 
 
@@ -136,3 +137,9 @@ def test_sampling_inputs_mix_edge_and_nonfinite_locations():
     assert loc.dtype == torch.float32
     assert torch.isnan(loc).any() and torch.isinf(loc).any()
     assert (loc[:, 16:24] == 50.0).all()
+
+
+def test_noop_needs_a_card():
+    with pytest.raises(ValueError, match="card"):
+        gather_forms.noop(torch.zeros(1))
+    assert gather_forms.noop not in gather_forms.KERNELS  # no TPU kernel
