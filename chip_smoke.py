@@ -133,7 +133,7 @@ exits non-zero:
      `bf16_grad_bounds`, 2x the one process's own bf16 rounding of the
      leaf where that is larger), the ranks' parameters
      after the Adam step bit-equal; per rank steps/s over 3 steps, the
-     gradient all-reduce's ms and share of a step (a StageTimer around
+     gradient all-reduce's ms and share of a step (a Stopwatch around
      each), B2 / B3 launches per step (counts set to 0 before the 5
      steps; the rows' `path_launches`); where 2 or more cards are
      visible, the same on two cards over NCCL. 20b: the train CLI under
@@ -148,7 +148,7 @@ exits non-zero:
      matplotlib the validate CLI with VISUALIZATION_JUMP_NUM 0 and
      DEBUG.DEBUG on 2 flagship frames, listing its files, else the
      flagship frame's taps and the epipolar pickle;
- 22. a StageTimer around the served flagship frame (bf16, top-64,
+ 22. a Stopwatch around the served flagship frame (bf16, top-64,
      point-top-4, Jacobi): the backbone, each decoder layer and the rest
      in ms, beside frames/s;
  23. view parallelism: B1 against its plain version at one view (N 1, Lq
@@ -2254,6 +2254,35 @@ F32_GRAD_BOUND = 2e-2
 BF16_ROUNDING_MARGIN = 2.0
 
 
+
+class Stopwatch:
+    """Wall seconds per named stage, each stage ending with a synchronize
+    of `device`: the synchronizing splits of phases 20a, 22 and 23 (the
+    program's spans, `utils/profiling.span`, split a frame on the
+    profiler's clock without synchronizing)."""
+
+    def __init__(self, device):
+        self.device = device
+        self.totals = collections.defaultdict(float)
+        self.counts = collections.defaultdict(int)
+
+    @contextlib.contextmanager
+    def stage(self, name):
+        start = time.perf_counter()
+        yield
+        profiling.synchronize(self.device)
+        self.totals[name] += time.perf_counter() - start
+        self.counts[name] += 1
+
+    def time_fn(self, name, fn, *args, **kwargs):
+        """fn(*args, **kwargs) as the stage `name`."""
+        with self.stage(name):
+            return fn(*args, **kwargs)
+
+    def summary(self):
+        """Mean seconds per call of each stage."""
+        return {k: self.totals[k] / self.counts[k] for k in self.totals}
+
 def dp_train_cfg(dtype="bfloat16"):
     """Phase 13's flagship training config (gt match, Jacobi, remat) in
     `dtype` with dropout 0: each rank draws its own masks."""
@@ -2279,13 +2308,12 @@ def dp_step_worker(dp, cfg, steps, out_dir):
     one `make_train_step(..., dp=)` whose metrics, reduced gradients and
     updated parameters go to <out_dir>/rank<r>.pt; then (`steps` > 0)
     `steps` timed steps with the kernel counts set to 0 before them, and
-    a StageTimer around each step and each gradient all-reduce, into
+    a Stopwatch around each step and each gradient all-reduce, into
     rank<r>.json."""
     from mvgformer_tpu_torch.core import train as core_train
     from mvgformer_tpu_torch.device import strict_float32
     from mvgformer_tpu_torch.models.mvgformer import MVGFormer
     from mvgformer_tpu_torch.parallel import replicated, shard_batch
-    from mvgformer_tpu_torch.utils.profiling import StageTimer
 
     strict_float32()
     model = MVGFormer(cfg, generator=torch.Generator().manual_seed(SEED),
@@ -2293,7 +2321,7 @@ def dp_step_worker(dp, cfg, steps, out_dir):
     replicated(model, dp)
     local = shard_batch(dp_global_batch(cfg, dp.device), dp)
     state, tx = core_train.create_train_state(cfg, model)
-    timer = StageTimer()
+    timer = Stopwatch(dp.device)
     reduce = core_train.all_reduce_grads
     core_train.all_reduce_grads = functools.partial(
         timer.time_fn, "all_reduce", reduce)
@@ -2309,12 +2337,12 @@ def dp_step_worker(dp, cfg, steps, out_dir):
     if not steps:
         core_train.all_reduce_grads = reduce
         return None
-    timer = StageTimer()
+    timer = Stopwatch(dp.device)
     core_train.all_reduce_grads = functools.partial(
         timer.time_fn, "all_reduce", reduce)
     count_kernels()
     for _ in range(steps):
-        with timer.stage("step", dp.device):
+        with timer.stage("step"):
             state, _ = step(state, local)
     core_train.all_reduce_grads = reduce
     stats = {"rank": dp.rank, "world": dp.world, "backend": dp.backend,
@@ -2693,7 +2721,7 @@ def debug_dumps(card, out_dir):
 
 
 def stage_split(card):
-    """Phase 22: a StageTimer around the flagship served frame (bf16,
+    """Phase 22: a Stopwatch around the flagship served frame (bf16,
     batch 1, top-64, point-top-4, Jacobi, through the gather) and around
     its backbone and each decoder layer (each stage ends with a
     synchronize); `rest` is the frame less those stages (the query and
@@ -2702,7 +2730,6 @@ def stage_split(card):
     from mvgformer_tpu_torch.core.infer import make_eval_step
     from mvgformer_tpu_torch.data.synthetic import make_batch
     from mvgformer_tpu_torch.models.mvgformer import MVGFormer
-    from mvgformer_tpu_torch.utils.profiling import StageTimer
 
     cfg = flagship_cfg("bfloat16")
     model = MVGFormer(cfg, generator=torch.Generator().manual_seed(SEED))
@@ -2710,7 +2737,7 @@ def stage_split(card):
                          num_people=3, cam_seed=SEED)
               for i in range(STAGE_FRAMES)]
     step = make_eval_step(cfg, model, THRESHOLD)
-    timer = StageTimer()
+    timer = Stopwatch("cuda")
     stages = [("backbone", model.backbone)] + [
         (f"layer_{i}", layer) for i, layer in enumerate(model.decoder.stack)]
     for name, module in stages:
@@ -2721,7 +2748,7 @@ def stage_split(card):
     timer.totals.clear()
     timer.counts.clear()
     for batch in frames[1:]:
-        with timer.stage("frame", "cuda"):
+        with timer.stage("frame"):
             step(batch)
     for _, module in stages:
         del module.forward
@@ -2848,7 +2875,7 @@ def vp_serve_run(cfg, model, batch, plan, grid, device, timed):
     from mvgformer_tpu_torch.core.infer import make_eval_step
     from mvgformer_tpu_torch.models import is_dq
     from mvgformer_tpu_torch.parallel import collectives
-    from mvgformer_tpu_torch.utils.profiling import StageTimer, synchronize
+    from mvgformer_tpu_torch.utils.profiling import synchronize
 
     taken, undo = recorded_selections()
     by_lq, undo_b1 = b1_launches_by_lq()
@@ -2876,13 +2903,13 @@ def vp_serve_run(cfg, model, batch, plan, grid, device, timed):
     synchronize(device)
     if torch.device(device).type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    timer = StageTimer()
+    timer = Stopwatch(device)
     undo = timed_collectives(timer, device)
     count_kernels()
     collectives.reset_counts()
     try:
         for _ in range(VP_FRAMES - VP_WARMUP):
-            with timer.stage("frame", device):
+            with timer.stage("frame"):
                 step(batch)
     finally:
         undo()
@@ -2938,7 +2965,6 @@ def vp_train_worker(dp, cfgs, out_dir):
     from mvgformer_tpu_torch.device import strict_float32
     from mvgformer_tpu_torch.models.mvgformer import MVGFormer
     from mvgformer_tpu_torch.parallel import shard_batch
-    from mvgformer_tpu_torch.utils.profiling import StageTimer
 
     strict_float32()
     out = {}
@@ -2959,7 +2985,7 @@ def vp_train_worker(dp, cfgs, out_dir):
             "params": {k: p.detach().cpu()
                        for k, p in model.named_parameters()}}
         if dtype == "bfloat16":
-            timer = StageTimer()
+            timer = Stopwatch(dp.device)
             undo = timed_collectives(timer, dp.device)
             reduce = core_train.all_reduce_grads
             core_train.all_reduce_grads = functools.partial(
@@ -2967,7 +2993,7 @@ def vp_train_worker(dp, cfgs, out_dir):
             count_kernels()
             try:
                 for _ in range(VP_STEPS):
-                    with timer.stage("step", dp.device):
+                    with timer.stage("step"):
                         state, _ = step(state, local, gen)
             finally:
                 core_train.all_reduce_grads = reduce

@@ -24,6 +24,7 @@ from mvgformer_tpu_torch.models import is_dq
 from mvgformer_tpu_torch.ops.window_sampling import WindowPlan
 from mvgformer_tpu_torch.parallel.mesh import (DataParallel, gather_objects,
                                                shard_views)
+from mvgformer_tpu_torch.utils.profiling import span
 
 
 def make_eval_step(cfg: Config, model: torch.nn.Module, threshold: float,
@@ -53,28 +54,36 @@ def make_eval_step(cfg: Config, model: torch.nn.Module, threshold: float,
 
     @torch.inference_mode()
     def eval_step(batch: Batch):
-        # the MvP baseline filters no queries: the threshold only sets the
-        # flag channel
-        outs = (model(batch, threshold=threshold, window_plan=window_plan,
-                      grid=dp)
-                if dq else model(batch, grid=dp))
-        out = outs[-1]
-        B, Q = out["pred_logits"].shape[:2]
-        poses = out["pred_poses"].reshape(B, Q, -1, 3)
-        J = poses.shape[2]
-        score = torch.sigmoid(out["pred_logits"][:, :, 1:2])
-        score = score[:, :, None].expand(B, Q, J, 1)
-        flag = (score > threshold).to(poses.dtype) - 1.0
-        pred = torch.cat([poses, flag, score], dim=-1)
-        if not with_escape_telemetry:
-            return pred
-        escaped = torch.zeros((), dtype=torch.float32, device=poses.device)
-        for o in outs:
-            if "escaped_mass" in o:
-                escaped = escaped + o["escaped_mass"]
-        return pred, escaped
+        with span("mvg.step"):
+            # the MvP baseline filters no queries: the threshold only sets
+            # the flag channel
+            outs = (model(batch, threshold=threshold,
+                          window_plan=window_plan, grid=dp)
+                    if dq else model(batch, grid=dp))
+            with span("mvg.pred"):
+                return _pred(outs, threshold, with_escape_telemetry)
 
     return eval_step
+
+
+def _pred(outs, threshold: float, with_escape_telemetry: bool):
+    """The eval step's pred from the model's per-layer outputs, and the
+    escaped mass with `with_escape_telemetry`."""
+    out = outs[-1]
+    B, Q = out["pred_logits"].shape[:2]
+    poses = out["pred_poses"].reshape(B, Q, -1, 3)
+    J = poses.shape[2]
+    score = torch.sigmoid(out["pred_logits"][:, :, 1:2])
+    score = score[:, :, None].expand(B, Q, J, 1)
+    flag = (score > threshold).to(poses.dtype) - 1.0
+    pred = torch.cat([poses, flag, score], dim=-1)
+    if not with_escape_telemetry:
+        return pred
+    escaped = torch.zeros((), dtype=torch.float32, device=poses.device)
+    for o in outs:
+        if "escaped_mass" in o:
+            escaped = escaped + o["escaped_mass"]
+    return pred, escaped
 
 
 @dataclasses.dataclass

@@ -44,6 +44,7 @@ from mvgformer_tpu_torch.data.meta import Batch
 from mvgformer_tpu_torch.models import is_dq
 from mvgformer_tpu_torch.ops.window_sampling import WindowPlan
 from mvgformer_tpu_torch.parallel.mesh import DataParallel, all_reduce_grads
+from mvgformer_tpu_torch.utils.profiling import span
 
 MAX_CONSECUTIVE_ERRORS = 100
 
@@ -272,41 +273,53 @@ def make_train_step(cfg: Config, model: torch.nn.Module, tx: Optimizer,
 
     def train_step(state: TrainState, batch: Batch,
                    generator: Optional[torch.Generator] = None):
+        with span("mvg.step"):
+            return _step(state, batch, generator)
+
+    def _step(state, batch, generator):
         mdl = state.model
         mdl.train()
         params = dict(mdl.named_parameters())
         for p in params.values():
             p.grad = None
         if dq:
-            init_refs = mdl.initial_reference_points_static(
-                batch.views.shape[0])
-            # with gt_match off the criterion matches per layer and this
-            # match is unused, as in JAX
-            match = match_queries(cfg, init_refs, batch)
-            outs = mdl(batch,
-                       query_mask=match.query_mask if gt_match else None,
-                       train=True, generator=generator, grid=dp)
+            with span("mvg.match"):
+                init_refs = mdl.initial_reference_points_static(
+                    batch.views.shape[0])
+                # with gt_match off the criterion matches per layer and
+                # this match is unused, as in JAX
+                match = match_queries(cfg, init_refs, batch)
+            with span("mvg.forward"):
+                outs = mdl(batch,
+                           query_mask=match.query_mask if gt_match else None,
+                           train=True, generator=generator, grid=dp)
         else:
             init_refs = match = None
-            outs = mdl(batch, train=True, generator=generator, grid=dp)
-        losses = compute_losses(cfg, outs, batch,
-                                match if gt_match else None,
-                                init_reference=init_refs,
-                                num_replicas=num_replicas, dp=dp)
-        losses["total"].backward()
-        if distributed:
-            labels = tx.labels(params)
-            keys = list(losses)
-            mean = all_reduce_grads(
-                [p for k, p in params.items() if labels[k] != "frozen"], dp,
-                torch.stack([losses[k].detach().float() for k in keys]))
-            losses = dict(zip(keys, mean))
-        updates, opt_state = tx.update(
-            {k: p.grad for k, p in params.items()}, state.opt_state, params)
-        applied = [k for k, u in updates.items() if u is not None]
-        with torch.no_grad():
-            torch._foreach_add_([params[k] for k in applied],
-                                [updates[k] for k in applied])
+            with span("mvg.forward"):
+                outs = mdl(batch, train=True, generator=generator, grid=dp)
+        with span("mvg.loss"):
+            losses = compute_losses(cfg, outs, batch,
+                                    match if gt_match else None,
+                                    init_reference=init_refs,
+                                    num_replicas=num_replicas, dp=dp)
+        with span("mvg.backward"):
+            losses["total"].backward()
+        with span("mvg.update"):
+            if distributed:
+                labels = tx.labels(params)
+                keys = list(losses)
+                mean = all_reduce_grads(
+                    [p for k, p in params.items() if labels[k] != "frozen"],
+                    dp, torch.stack([losses[k].detach().float()
+                                     for k in keys]))
+                losses = dict(zip(keys, mean))
+            updates, opt_state = tx.update(
+                {k: p.grad for k, p in params.items()}, state.opt_state,
+                params)
+            applied = [k for k, u in updates.items() if u is not None]
+            with torch.no_grad():
+                torch._foreach_add_([params[k] for k in applied],
+                                    [updates[k] for k in applied])
         metrics = {k: v.detach() for k, v in losses.items()}
         if cfg.TRAIN.SKIP_NONFINITE:
             metrics["notfinite_total"] = opt_state.total_notfinite

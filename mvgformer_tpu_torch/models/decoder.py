@@ -76,6 +76,7 @@ from mvgformer_tpu_torch.models.mlp import Dense, OffsetNet
 from mvgformer_tpu_torch.ops.projattn import ProjAttn, top_indices
 from mvgformer_tpu_torch.ops.window_sampling import WindowPlan
 from mvgformer_tpu_torch.parallel import collectives
+from mvgformer_tpu_torch.utils.profiling import LAYER, span
 
 # flax's nn.LayerNorm default; torch's is 1e-5
 LN_EPS = 1e-6
@@ -353,9 +354,10 @@ class DQDecoderLayer(nn.Module):
         drop = _drop_fn(self.dropout, seed, tgt.device)
 
         # (1) project the query joints into every view
-        ref_norm, ref_lvl, bounds = project_reference_points(
-            reference_points, view_data, spatial_shapes, self.img_size,
-            clamp_hi, detach=self.detach_refpoints)
+        with span("mvg.project"):
+            ref_norm, ref_lvl, bounds = project_reference_points(
+                reference_points, view_data, spatial_shapes, self.img_size,
+                clamp_hi, detach=self.detach_refpoints)
 
         # (2) the optional self-attention over the queries; its result
         # feeds ProjAttn only, update_feature's residual stays tgt
@@ -407,13 +409,15 @@ class DQDecoderLayer(nn.Module):
         Qc = Q
         if (triangulate_topk is not None and not train
                 and triangulate_topk < Q):
-            sel = top_indices(class_prob[..., 1], triangulate_topk)
-            Qc = triangulate_topk
-            attn = _take_queries(attn.transpose(0, 1), sel, J,
-                                 2).transpose(0, 1)
-            ref_norm = _take_queries(ref_norm, sel, J, 2)
-            mask_nq = _take_queries(mask_nq, sel, J, 1)
-            reference_points = _take_queries(reference_points, sel, J, 1)
+            with span("mvg.topk"):
+                sel = top_indices(class_prob[..., 1], triangulate_topk)
+                Qc = triangulate_topk
+                attn = _take_queries(attn.transpose(0, 1), sel, J,
+                                     2).transpose(0, 1)
+                ref_norm = _take_queries(ref_norm, sel, J, 2)
+                mask_nq = _take_queries(mask_nq, sel, J, 1)
+                reference_points = _take_queries(reference_points, sel, J,
+                                                 1)
         Nqc = Qc * J
 
         # (7) per-view offsets + confidences
@@ -423,63 +427,65 @@ class DQDecoderLayer(nn.Module):
         projs_abs = ref_norm_v * img_wh
         conf_logits = conf_logits.float()
 
-        # (8) masked-out queries triangulate the image centre, a safe
-        # stand-in, before the inverse affine and undistortion
-        tri_in = torch.where(mask_nq[None, :, :, None], refined_abs,
-                             img_wh * 0.5)
-        orig = apply_affine(tri_in.transpose(0, 1), view_data.inv_affine)
-        orig_undist = undistort_points(orig, view_data.cameras, iter_num=5)
-        if split:
-            # the softmax over views and the solve need every view: one
-            # all-gather of the points and the logits, in view order
-            packed = collectives.all_gather(torch.cat(
-                [orig_undist, conf_logits.transpose(0, 1)[..., None]],
-                dim=-1), grid, dim=1)  # (B, V, Nqc, 3)
-            orig_undist = packed[..., :2]
-            conf_logits = packed[..., 2].transpose(0, 1)
-            V = packed.shape[1]
-        conf = torch.softmax(conf_logits, dim=0)
+        with span("mvg.dlt"):
+            # (8) masked-out queries triangulate the image centre, a safe
+            # stand-in, before the inverse affine and undistortion
+            tri_in = torch.where(mask_nq[None, :, :, None], refined_abs,
+                                 img_wh * 0.5)
+            orig = apply_affine(tri_in.transpose(0, 1), view_data.inv_affine)
+            orig_undist = undistort_points(orig, view_data.cameras, iter_num=5)
+            if split:
+                # the softmax over views and the solve need every view: one
+                # all-gather of the points and the logits, in view order
+                packed = collectives.all_gather(torch.cat(
+                    [orig_undist, conf_logits.transpose(0, 1)[..., None]],
+                    dim=-1), grid, dim=1)  # (B, V, Nqc, 3)
+                orig_undist = packed[..., :2]
+                conf_logits = packed[..., 2].transpose(0, 1)
+                V = packed.shape[1]
+            conf = torch.softmax(conf_logits, dim=0)
 
-        # (9) triangulate, then the masked dense update
-        if self.triangulation_solver == "st":
-            # structural triangulation, one person per query
-            pts_p = orig_undist.transpose(1, 2).reshape(
-                B * Qc, J, V, 2).transpose(1, 2)  # (B*Qc, V, J, 2)
-            conf_p = conf.permute(1, 2, 0).reshape(B * Qc, J, V).transpose(
-                1, 2)  # (B*Qc, V, J)
-            pm_p = proj_mats[:, None].expand(B, Qc, V, 3, 4).reshape(
-                B * Qc, V, 3, 4)
-            lengths = self.st_bone_lengths[None].expand(B * Qc, J - 1)
-            new_refs = structural_triangulate(
-                pm_p, pts_p, conf_p, lengths, n_steps=self.st_n_steps,
-                conversion=self.st_conversion).reshape(B, Nqc, 3)
-        else:
-            pts = orig_undist.transpose(1, 2)  # (B, Nqc, V, 2)
-            conf_bqv = conf.permute(1, 2, 0)  # (B, Nqc, V)
-            if train and self.tri_grad_clip is not None:
-                # TRAIN.TRI_GRAD_CLIP: bound the solver-amplified
-                # cotangents reaching the offset net and the confidence
-                # head
-                pts = clip_cotangent(pts, self.tri_grad_clip)
-                conf_bqv = clip_cotangent(conf_bqv[..., None],
-                                          self.tri_grad_clip)[..., 0]
-            pm = proj_mats[:, None].expand(B, Nqc, V, 3, 4)
-            new_refs = triangulate_dlt(pm, pts, conf_bqv,
-                                       solver=self.triangulation_solver)
-        if hasattr(self, "bayesian_conf"):
-            # blend with the layer's input pose by a learned confidence
-            bconf = collectives.view_mean(torch.sigmoid(
-                self.bayesian_conf(attn)), grid).float()  # (B, Nqc, 1)
-            new_refs = (bconf * new_refs
-                        + (1 - bconf) * reference_points.float())
-        new_refs = torch.where(mask_nq[..., None], new_refs, 0.0)
-        m4 = mask_nq[:, None, :, None]
-        refined_out = torch.where(m4, refined_abs.transpose(0, 1), 0.0)
-        projs_out = torch.where(m4, projs_abs.transpose(0, 1), 0.0)
+            # (9) triangulate, then the masked dense update
+            if self.triangulation_solver == "st":
+                # structural triangulation, one person per query
+                pts_p = orig_undist.transpose(1, 2).reshape(
+                    B * Qc, J, V, 2).transpose(1, 2)  # (B*Qc, V, J, 2)
+                conf_p = conf.permute(1, 2, 0).reshape(B * Qc, J, V).transpose(
+                    1, 2)  # (B*Qc, V, J)
+                pm_p = proj_mats[:, None].expand(B, Qc, V, 3, 4).reshape(
+                    B * Qc, V, 3, 4)
+                lengths = self.st_bone_lengths[None].expand(B * Qc, J - 1)
+                new_refs = structural_triangulate(
+                    pm_p, pts_p, conf_p, lengths, n_steps=self.st_n_steps,
+                    conversion=self.st_conversion).reshape(B, Nqc, 3)
+            else:
+                pts = orig_undist.transpose(1, 2)  # (B, Nqc, V, 2)
+                conf_bqv = conf.permute(1, 2, 0)  # (B, Nqc, V)
+                if train and self.tri_grad_clip is not None:
+                    # TRAIN.TRI_GRAD_CLIP: bound the solver-amplified
+                    # cotangents reaching the offset net and the confidence
+                    # head
+                    pts = clip_cotangent(pts, self.tri_grad_clip)
+                    conf_bqv = clip_cotangent(conf_bqv[..., None],
+                                              self.tri_grad_clip)[..., 0]
+                pm = proj_mats[:, None].expand(B, Nqc, V, 3, 4)
+                new_refs = triangulate_dlt(pm, pts, conf_bqv,
+                                           solver=self.triangulation_solver)
+            if hasattr(self, "bayesian_conf"):
+                # blend with the layer's input pose by a learned confidence
+                bconf = collectives.view_mean(torch.sigmoid(
+                    self.bayesian_conf(attn)), grid).float()  # (B, Nqc, 1)
+                new_refs = (bconf * new_refs
+                            + (1 - bconf) * reference_points.float())
+            new_refs = torch.where(mask_nq[..., None], new_refs, 0.0)
+            m4 = mask_nq[:, None, :, None]
+            refined_out = torch.where(m4, refined_abs.transpose(0, 1), 0.0)
+            projs_out = torch.where(m4, projs_abs.transpose(0, 1), 0.0)
         if sel is not None:
-            new_refs = _scatter_queries(new_refs, sel, Q, J, 1)
-            refined_out = _scatter_queries(refined_out, sel, Q, J, 2)
-            projs_out = _scatter_queries(projs_out, sel, Q, J, 2)
+            with span("mvg.topk"):
+                new_refs = _scatter_queries(new_refs, sel, Q, J, 1)
+                refined_out = _scatter_queries(refined_out, sel, Q, J, 2)
+                projs_out = _scatter_queries(projs_out, sel, Q, J, 2)
         return (tgt_update, new_refs, refined_out, projs_out, class_prob,
                 escaped)
 
@@ -566,52 +572,56 @@ class DQDecoder(nn.Module):
             projection_matrices(view_data.cameras, inv_trans=True), grid,
             dim=1)
         for lid, layer in enumerate(self.stack):
-            kwargs = dict(
-                threshold=threshold, filter_method=filter_method,
-                triangulate_topk=topk_queries if lid == 0 else None,
-                window_plan=window_plan if lid == 0 else None,
-                offset_clamp=layer1_offset_clamp if lid == 0 else None,
-                point_topm=point_topm, query_mask=query_mask, train=train,
-                dropout_seed=seeds[lid], grid=grid)
-            if intermediates is not None:
-                name = ("layer_shared" if hasattr(self, "layer_shared")
-                        else f"layer_{lid}")
-                kwargs["taps"] = intermediates.setdefault(
-                    name, {}).setdefault("proj_attn", {})
-            args = (out, qpos, refs, src_views, spatial_shapes, view_data,
-                    proj_mats, clamp_hi)
-            if not (train and self.remat):
-                res = layer(*args, **kwargs)
-            else:
-                res = checkpoint(layer, *args, use_reentrant=False, **kwargs)
-            out, refs, ref2d, projs2d, class_prob, escaped = res
-            if sel is None:
-                outputs.append({"hs": out, "refs": refs, "refs_2d": ref2d,
-                                "projs_2d": projs2d,
-                                "class_prob": class_prob})
-                if escaped is not None:
-                    outputs[-1]["escaped_mass"] = \
-                        collectives.all_reduce_sum(escaped, grid)
-            else:
-                outputs.append({
-                    "hs": _scatter_queries(out, sel, Q, J, 1),
-                    "refs": _scatter_queries(refs, sel, Q, J, 1),
-                    "refs_2d": _scatter_queries(ref2d, sel, Q, J, 2),
-                    "projs_2d": _scatter_queries(projs2d, sel, Q, J, 2),
-                    "class_prob": _scatter_queries(class_prob, sel, Q, 1,
-                                                   1),
-                })
-            if box is not None:
-                # bound only the next layer's input; the outputs above keep
-                # the raw predictions
-                refs = torch.clamp(refs, lo, hi)
-            if (topk_queries is not None and sel is None and lid == 0
-                    and topk_queries < Q):
-                sel = top_indices(class_prob[..., 1], topk_queries)
-                out = _take_queries(out, sel, J, 1)
-                refs = _take_queries(refs, sel, J, 1)
-                if qpos is not None:
-                    qpos = _take_queries(qpos, sel, J, 1)
-                if query_mask is not None:
-                    query_mask = torch.gather(query_mask, 1, sel)
+            with span(LAYER.format(lid)):
+                kwargs = dict(
+                    threshold=threshold, filter_method=filter_method,
+                    triangulate_topk=topk_queries if lid == 0 else None,
+                    window_plan=window_plan if lid == 0 else None,
+                    offset_clamp=layer1_offset_clamp if lid == 0 else None,
+                    point_topm=point_topm, query_mask=query_mask, train=train,
+                    dropout_seed=seeds[lid], grid=grid)
+                if intermediates is not None:
+                    name = ("layer_shared" if hasattr(self, "layer_shared")
+                            else f"layer_{lid}")
+                    kwargs["taps"] = intermediates.setdefault(
+                        name, {}).setdefault("proj_attn", {})
+                args = (out, qpos, refs, src_views, spatial_shapes,
+                        view_data, proj_mats, clamp_hi)
+                if not (train and self.remat):
+                    res = layer(*args, **kwargs)
+                else:
+                    res = checkpoint(layer, *args, use_reentrant=False,
+                                     **kwargs)
+                out, refs, ref2d, projs2d, class_prob, escaped = res
+                if sel is None:
+                    outputs.append({"hs": out, "refs": refs,
+                                    "refs_2d": ref2d, "projs_2d": projs2d,
+                                    "class_prob": class_prob})
+                    if escaped is not None:
+                        outputs[-1]["escaped_mass"] = \
+                            collectives.all_reduce_sum(escaped, grid)
+                else:
+                    outputs.append({
+                        "hs": _scatter_queries(out, sel, Q, J, 1),
+                        "refs": _scatter_queries(refs, sel, Q, J, 1),
+                        "refs_2d": _scatter_queries(ref2d, sel, Q, J, 2),
+                        "projs_2d": _scatter_queries(projs2d, sel, Q, J,
+                                                     2),
+                        "class_prob": _scatter_queries(class_prob, sel, Q, 1,
+                                                       1),
+                    })
+                if box is not None:
+                    # bound only the next layer's input; the outputs above
+                    # keep the raw predictions
+                    refs = torch.clamp(refs, lo, hi)
+                if (topk_queries is not None and sel is None and lid == 0
+                        and topk_queries < Q):
+                    with span("mvg.topk"):
+                        sel = top_indices(class_prob[..., 1], topk_queries)
+                        out = _take_queries(out, sel, J, 1)
+                        refs = _take_queries(refs, sel, J, 1)
+                        if qpos is not None:
+                            qpos = _take_queries(qpos, sel, J, 1)
+                        if query_mask is not None:
+                            query_mask = torch.gather(query_mask, 1, sel)
         return outputs

@@ -63,6 +63,7 @@ from mvgformer_tpu_torch.models.pose_resnet import PoseResNet
 from mvgformer_tpu_torch.ops.window_sampling import (WindowPlan,
                                                      build_window_plan)
 from mvgformer_tpu_torch.parallel import collectives
+from mvgformer_tpu_torch.utils.profiling import span
 
 # the T-pose asset is shared with the JAX package
 _TPOSE_ASSET = (Path(__file__).resolve().parents[2] / "mvgformer_tpu"
@@ -327,26 +328,28 @@ class MVGFormer(nn.Module):
         # unless TRAIN.TRAIN_BACKBONE (JAX's stop_gradient)
         imgs = batch.views.transpose(0, 1).reshape(
             (V * B,) + tuple(batch.views.shape[2:]))
-        with torch.set_grad_enabled(torch.is_grad_enabled()
-                                    and self.cfg.TRAIN.TRAIN_BACKBONE):
+        with span("mvg.backbone"), torch.set_grad_enabled(
+                torch.is_grad_enabled() and self.cfg.TRAIN.TRAIN_BACKBONE):
             feats = self.backbone(imgs, use_feat_level=tuple(
                 dec.use_feat_level))[::-1]
         spatial_shapes = tuple((int(f.shape[1]), int(f.shape[2]))
                                for f in feats)
 
-        query_embeds = (self.joint_embedding.weight[None]
-                        + self.instance_embedding.weight[:, None]).reshape(
-            self.num_instance * self.num_joints, -1)
-        c = dec.d_model
-        query_pos = None
-        if not dec.close_pose_embedding:
-            query_pos = query_embeds[None, :, :c].expand(B, -1, -1)
-        tgt = query_embeds[None, :, c:].expand(B, -1, -1)
-        refs0 = self.reference_points_init(batch, feats, tgt, query_pos,
-                                           generator, grid)
-        tgt = tgt.to(self.dtype)
-        if query_pos is not None:
-            query_pos = query_pos.to(self.dtype)
+        with span("mvg.init"):
+            query_embeds = (self.joint_embedding.weight[None]
+                            + self.instance_embedding.weight[:, None]
+                            ).reshape(self.num_instance * self.num_joints,
+                                      -1)
+            c = dec.d_model
+            query_pos = None
+            if not dec.close_pose_embedding:
+                query_pos = query_embeds[None, :, :c].expand(B, -1, -1)
+            tgt = query_embeds[None, :, c:].expand(B, -1, -1)
+            refs0 = self.reference_points_init(batch, feats, tgt, query_pos,
+                                               generator, grid)
+            tgt = tgt.to(self.dtype)
+            if query_pos is not None:
+                query_pos = query_pos.to(self.dtype)
         inter = {"decoder": {}}
         layer_outputs = self.decoder(
             tgt, query_pos, refs0, feats, spatial_shapes, batch.view_data,

@@ -73,6 +73,7 @@ from mvgformer_tpu_torch.models.position_encoding import (crop_intrinsics,
                                                           get_rays)
 from mvgformer_tpu_torch.ops.projattn import ProjAttn
 from mvgformer_tpu_torch.parallel import collectives
+from mvgformer_tpu_torch.utils.profiling import LAYER, span
 
 FUSE_VIEW_FEATS = ("mean", "cat_proj", "sum_proj", "attn_fuse_dot_prod",
                    "attn_fuse_subtract")
@@ -325,52 +326,55 @@ class MvPTransformer(nn.Module):
         B, V = batch.views.shape[:2]
         imgs = batch.views.transpose(0, 1).reshape(
             (V * B,) + tuple(batch.views.shape[2:]))
-        with torch.set_grad_enabled(torch.is_grad_enabled()
-                                    and cfg.TRAIN.TRAIN_BACKBONE):
+        with span("mvg.backbone"), torch.set_grad_enabled(
+                torch.is_grad_enabled() and cfg.TRAIN.TRAIN_BACKBONE):
             feats = self.backbone(imgs, use_feat_level=tuple(
                 dec.use_feat_level))[::-1]
         spatial_shapes = tuple((int(f.shape[1]), int(f.shape[2]))
                                for f in feats)
-        rays = camera_embeddings(dec.projattn_posembed_mode,
-                                 batch.view_data, spatial_shapes,
-                                 cfg.NETWORK.IMAGE_SIZE)
-
-        query_embeds = (self.joint_embedding.weight[None]
-                        + self.instance_embedding.weight[:, None]).reshape(
-            self.num_instance * self.num_joints, -1)
-        c = dec.d_model
-        query_pos = query_embeds[None, :, :c].expand(B, -1, -1)
-        tgt = query_embeds[None, :, c:].expand(B, -1, -1)
-
-        base = query_pos.float()
-        if dec.query_adaptation:
-            base = base + pooled_view_features(feats, B,
-                                               self.reference_feats, grid)
-        reference = torch.sigmoid(self.reference_points(base))
+        with span("mvg.init"):
+            rays = camera_embeddings(dec.projattn_posembed_mode,
+                                     batch.view_data, spatial_shapes,
+                                     cfg.NETWORK.IMAGE_SIZE)
+            query_embeds = (self.joint_embedding.weight[None]
+                            + self.instance_embedding.weight[:, None]
+                            ).reshape(self.num_instance * self.num_joints,
+                                      -1)
+            c = dec.d_model
+            query_pos = query_embeds[None, :, :c].expand(B, -1, -1)
+            tgt = query_embeds[None, :, c:].expand(B, -1, -1)
+            base = query_pos.float()
+            if dec.query_adaptation:
+                base = base + pooled_view_features(
+                    feats, B, self.reference_feats, grid)
+            reference = torch.sigmoid(self.reference_points(base))
+            out = tgt.to(self.dtype)
+            query_pos = query_pos.to(self.dtype)
 
         layers = self.decoder.layers
         seeds = [None] * len(layers)
         if train and dec.dropout > 0.0:
             seeds = host_seeds(generator, len(layers))
-        out = tgt.to(self.dtype)
-        query_pos = query_pos.to(self.dtype)
         outs = []
         for lid, layer in enumerate(layers):
-            out = layer(out, query_pos, reference, feats, spatial_shapes,
-                        batch.view_data, camera_ray_embeds=rays, train=train,
-                        dropout_seed=seeds[lid], grid=grid)
-            # iterative refinement in inverse-sigmoid space
-            delta = self.pose_embed[lid](out).float()
-            reference_new = torch.sigmoid(delta + inverse_sigmoid(reference))
-            prob = torch.sigmoid(self.class_embed[lid](out).float())
-            class_prob = prob.reshape(B, self.num_instance,
-                                      self.num_joints, 2).mean(dim=2)
-            outs.append({
-                "pred_logits": inverse_sigmoid(class_prob),
-                "pred_poses": norm2absolute(reference_new,
-                                            cfg.MULTI_PERSON.SPACE_SIZE,
-                                            cfg.MULTI_PERSON.SPACE_CENTER)})
-            reference = (reference_new.detach()
-                         if dec.detach_refpoints_cameraprj_firstlayer
-                         else reference_new)
+            with span(LAYER.format(lid)):
+                out = layer(out, query_pos, reference, feats,
+                            spatial_shapes, batch.view_data,
+                            camera_ray_embeds=rays, train=train,
+                            dropout_seed=seeds[lid], grid=grid)
+                # iterative refinement in inverse-sigmoid space
+                delta = self.pose_embed[lid](out).float()
+                reference_new = torch.sigmoid(delta
+                                              + inverse_sigmoid(reference))
+                prob = torch.sigmoid(self.class_embed[lid](out).float())
+                class_prob = prob.reshape(B, self.num_instance,
+                                          self.num_joints, 2).mean(dim=2)
+                outs.append({
+                    "pred_logits": inverse_sigmoid(class_prob),
+                    "pred_poses": norm2absolute(
+                        reference_new, cfg.MULTI_PERSON.SPACE_SIZE,
+                        cfg.MULTI_PERSON.SPACE_CENTER)})
+                reference = (reference_new.detach()
+                             if dec.detach_refpoints_cameraprj_firstlayer
+                             else reference_new)
         return outs

@@ -37,6 +37,7 @@ from mvgformer_tpu_torch.ops.deform_attn import deform_sample
 from mvgformer_tpu_torch.ops.sampling import (bilinear_sample,
                                               deform_sample_corner)
 from mvgformer_tpu_torch.ops.window_sampling import WindowPlan, window_sample
+from mvgformer_tpu_torch.utils.profiling import span
 
 
 def radial_offsets_bias(n_heads: int, n_levels: int,
@@ -131,89 +132,91 @@ class ProjAttn(nn.Module):
             (N, Lq, C) attended features, and the escaped attention mass of
             the windowed sampler (a float32 scalar; None without a plan).
         """
-        N, Lq, C = query.shape
-        H, P = self.n_heads, self.n_points
+        with span("mvg.projattn"):
+            N, Lq, C = query.shape
+            H, P = self.n_heads, self.n_points
 
-        # the per-level reference-point feature: grid_sample
-        # (align_corners=False) on the grid clamp(2r - 1, -1.1, 1.1)
-        ref_feats = []
-        for lvl, (h, w) in enumerate(spatial_shapes):
-            g = torch.clamp(reference_points[:, :, lvl, :] * 2.0 - 1.0,
-                            -1.1, 1.1)
-            x = (g[..., 0] + 1.0) * 0.5 * w - 0.5
-            y = (g[..., 1] + 1.0) * 0.5 * h - 0.5
-            v = src_views[lvl].reshape(N, h * w, C)
-            ref_feats.append(bilinear_sample(v, x, y, h, w))
-        ref_feats = torch.stack(ref_feats, dim=2)  # (N, Lq, L, C)
+            # the per-level reference-point feature: grid_sample
+            # (align_corners=False) on the grid clamp(2r - 1, -1.1, 1.1)
+            ref_feats = []
+            for lvl, (h, w) in enumerate(spatial_shapes):
+                g = torch.clamp(reference_points[:, :, lvl, :] * 2.0 - 1.0,
+                                -1.1, 1.1)
+                x = (g[..., 0] + 1.0) * 0.5 * w - 0.5
+                y = (g[..., 1] + 1.0) * 0.5 * h - 0.5
+                v = src_views[lvl].reshape(N, h * w, C)
+                ref_feats.append(bilinear_sample(v, x, y, h, w))
+            ref_feats = torch.stack(ref_feats, dim=2)  # (N, Lq, L, C)
 
-        input_flatten = torch.cat([s.reshape(N, -1, C) for s in src_views],
-                                  dim=1)
-        if self.pos_channels:
-            want = tuple(input_flatten.shape[:2]) + (self.pos_channels,)
-            got = (None if camera_ray_embeds is None
-                   else tuple(camera_ray_embeds.shape))
-            if got != want:
-                raise ValueError(f"this ProjAttn takes camera_ray_embeds "
-                                 f"of shape {want}, got {got}")
-            input_flatten = torch.cat(
-                [input_flatten, camera_ray_embeds.to(input_flatten.dtype)],
-                dim=-1)
-        elif camera_ray_embeds is not None:
-            raise ValueError("camera_ray_embeds given to a ProjAttn in mode "
-                             "'ablation_not_use_rayconv'")
-        value = self.rayconv(input_flatten)
-        Len_in = value.shape[1]
-        value = value.reshape(N, Len_in, H, self.d_model // H)
+            input_flatten = torch.cat([s.reshape(N, -1, C) for s in src_views],
+                                      dim=1)
+            if self.pos_channels:
+                want = tuple(input_flatten.shape[:2]) + (self.pos_channels,)
+                got = (None if camera_ray_embeds is None
+                       else tuple(camera_ray_embeds.shape))
+                if got != want:
+                    raise ValueError(f"this ProjAttn takes camera_ray_embeds "
+                                     f"of shape {want}, got {got}")
+                input_flatten = torch.cat(
+                    [input_flatten, camera_ray_embeds.to(input_flatten.dtype)],
+                    dim=-1)
+            elif camera_ray_embeds is not None:
+                raise ValueError("camera_ray_embeds given to a ProjAttn in "
+                                 "mode 'ablation_not_use_rayconv'")
+            value = self.rayconv(input_flatten)
+            Len_in = value.shape[1]
+            value = value.reshape(N, Len_in, H, self.d_model // H)
 
-        mix = (ref_feats + query[:, :, None, :]).to(self.dtype)
-        offsets = self.sampling_offsets(mix)   # (N, Lq, L, H*n_levels*P*2)
-        weights = self.attention_weights(mix)  # (N, Lq, L, H*n_levels*P)
+            mix = (ref_feats + query[:, :, None, :]).to(self.dtype)
+            offsets = self.sampling_offsets(mix)   # (N, Lq, L, H*n_levels*P*2)
+            weights = self.attention_weights(mix)  # (N, Lq, L, H*n_levels*P)
 
-        # row-major reinterpretation across the stacked level axis
-        Lt = len(src_views) * self.n_levels
-        offsets = offsets.reshape(N, Lq, H, Lt, P, 2)
-        if offset_clamp_px is not None:
-            # in each level's own pixel units, before the division by (w, h)
-            offsets = torch.clamp(offsets, -float(offset_clamp_px),
-                                  float(offset_clamp_px))
-        weights = F.softmax(weights.reshape(N, Lq, H, Lt * P), dim=-1)
-        weights = weights.reshape(N, Lq, H, Lt, P)
+            # row-major reinterpretation across the stacked level axis
+            Lt = len(src_views) * self.n_levels
+            offsets = offsets.reshape(N, Lq, H, Lt, P, 2)
+            if offset_clamp_px is not None:
+                # in each level's own pixel units, before the division by
+                # (w, h)
+                offsets = torch.clamp(offsets, -float(offset_clamp_px),
+                                      float(offset_clamp_px))
+            weights = F.softmax(weights.reshape(N, Lq, H, Lt * P), dim=-1)
+            weights = weights.reshape(N, Lq, H, Lt, P)
 
-        normalizer = constant([[w, h] for h, w in spatial_shapes],
-                              device=query.device)
-        locations = (reference_points[:, :, None, :, None, :]
-                     + offsets / normalizer[None, None, None, :, None, :])
+            normalizer = constant([[w, h] for h, w in spatial_shapes],
+                                  device=query.device)
+            locations = (reference_points[:, :, None, :, None, :]
+                         + offsets / normalizer[None, None, None, :, None, :])
 
-        if point_topm is not None and point_topm < P:
-            # keep the top-m points per (query, head, level) and
-            # renormalize over (level, point) so the mass stays 1
-            idx = top_indices(weights, int(point_topm))
-            w_sel = torch.gather(weights, -1, idx)
-            kept = w_sel.sum(dim=(-2, -1), keepdim=True)
-            weights = w_sel / torch.clamp(kept, min=1e-6)
-            locations = torch.gather(
-                locations, 4, idx[..., None].expand(idx.shape + (2,)))
+            if point_topm is not None and point_topm < P:
+                # keep the top-m points per (query, head, level) and
+                # renormalize over (level, point) so the mass stays 1
+                idx = top_indices(weights, int(point_topm))
+                w_sel = torch.gather(weights, -1, idx)
+                kept = w_sel.sum(dim=(-2, -1), keepdim=True)
+                weights = w_sel / torch.clamp(kept, min=1e-6)
+                locations = torch.gather(
+                    locations, 4, idx[..., None].expand(idx.shape + (2,)))
 
-        if taps is not None:
-            for key, val in (("sampling_locations", locations),
-                             ("sampling_weights", weights)):
-                taps[key] = taps.get(key, ()) + (val.detach(),)
+            if taps is not None:
+                for key, val in (("sampling_locations", locations),
+                                 ("sampling_weights", weights)):
+                    taps[key] = taps.get(key, ()) + (val.detach(),)
 
-        escaped = None
-        if train:
-            if window_plan is not None:
-                raise ValueError("the window plan is for serving only")
-            out = deform_sample_corner(value, spatial_shapes,
-                                       locations.float(),
-                                       weights.to(value.dtype))
-        elif window_plan is not None:
-            # the windowed sampler takes float32 weights, the gather takes
-            # them in the value dtype
-            out, escaped = window_sample(value, spatial_shapes,
-                                         locations.float(), weights.float(),
-                                         window_plan)
-        else:
-            out = deform_sample(value.contiguous(), spatial_shapes,
-                                locations.float().contiguous(),
-                                weights.to(value.dtype).contiguous())
-        return self.output_proj(out), escaped
+            escaped = None
+            if train:
+                if window_plan is not None:
+                    raise ValueError("the window plan is for serving only")
+                out = deform_sample_corner(value, spatial_shapes,
+                                           locations.float(),
+                                           weights.to(value.dtype))
+            elif window_plan is not None:
+                # the windowed sampler takes float32 weights, the gather takes
+                # them in the value dtype
+                out, escaped = window_sample(value, spatial_shapes,
+                                             locations.float(),
+                                             weights.float(), window_plan)
+            else:
+                out = deform_sample(value.contiguous(), spatial_shapes,
+                                    locations.float().contiguous(),
+                                    weights.to(value.dtype).contiguous())
+            return self.output_proj(out), escaped

@@ -1,46 +1,64 @@
-"""Profiling: stage timers and trace capture.
+"""Profiling: the port's spans, trace capture and the card's counters.
 
-The port's counterpart of `mvgformer_tpu/utils/profiling.py`: wall-clock
-time per named stage (the original repository's AverageMeter timers around
-forward stages, with cuda.synchronize-based time_synchronized), and a
-`torch.profiler` trace of a block written as a Chrome trace; and on the
-card, the synchronizing operations a call makes (`count_syncs`) and the
-device's busy and idle time over a profiler window (`profile_window`).
-
-PyTorch returns from a call on the card before the device finishes, so
-`StageTimer.stage` and `StageTimer.time_fn` end with a synchronize of the
-device the stage's outputs live on: a stage's time is its host time and
-its device time up to the synchronize.
+The port's counterpart of `mvgformer_tpu/utils/profiling.py`. `span(name)`
+marks a layer of the program on `torch.profiler`'s timeline, the clock of
+the card's activity, while a profiler records, and costs one flag check
+otherwise; `SPANS` names every span the program opens. `trace()` writes a
+profiler trace of a block as a Chrome trace, the spans above the ops and
+kernels they launch. On the card, `count_syncs` counts the synchronizing
+operations a call makes and `profile_window` the device's busy and idle
+time over a profiler window.
 """
 
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import os
 import tempfile
 import time
 import warnings
-from collections import defaultdict
-from typing import Callable, Dict, Iterable, Mapping, Optional, Tuple
+from typing import Callable, Iterable, Mapping, Optional, Tuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+# every span the program opens: the step of serving (`core/infer.py`) or
+# training (`core/train.py`), and inside it the model's layers; LAYER is
+# the name of decoder layer l (from 0), `LAYER.format(l)`
+LAYER = "mvg.layer{}"
+SPANS = ("mvg.step", "mvg.backbone", "mvg.init", LAYER, "mvg.project",
+         "mvg.projattn", "mvg.topk", "mvg.dlt", "mvg.pred", "mvg.match",
+         "mvg.forward", "mvg.loss", "mvg.backward", "mvg.update")
 
 
-def first_tensor(obj) -> Optional[torch.Tensor]:
-    """The first tensor in a (nested) tuple, list, dict or dataclass."""
-    if isinstance(obj, torch.Tensor):
-        return obj
-    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        obj = [getattr(obj, f.name) for f in dataclasses.fields(obj)]
-    elif isinstance(obj, dict):
-        obj = list(obj.values())
-    if isinstance(obj, (list, tuple)):
-        for item in obj:
-            t = first_tensor(item)
-            if t is not None:
-                return t
-    return None
+class _Off:
+    """The span of a block that no profiler records: nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+def span(name: str):
+    """A context manager that marks the enclosed block as `name` on the
+    profiler's timeline while a profiler records (the autograd profiler's
+    enabled flag, which every thread reads), and does nothing otherwise.
+
+    The range is a function-scope record (torch's `_RecordFunctionFast`):
+    it nests the host's ops and launches under it and, unlike a
+    `record_function` user range, draws no range of its own on the card's
+    timeline, so a trace counts the same device operations and busy time
+    with the spans as without them."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
 def synchronize(device) -> None:
@@ -48,46 +66,6 @@ def synchronize(device) -> None:
     CPU)."""
     if device is not None and torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
-
-
-class StageTimer:
-    """Accumulates wall-clock seconds per named stage."""
-
-    def __init__(self):
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def stage(self, name: str, device=None):
-        """Time the enclosed block; it ends with a synchronize of `device`
-        (the device its outputs live on; None or the CPU: none)."""
-        start = time.perf_counter()
-        yield
-        synchronize(device)
-        self.totals[name] += time.perf_counter() - start
-        self.counts[name] += 1
-
-    def time_fn(self, name: str, fn: Callable, *args, force: bool = True,
-                **kwargs):
-        """Run fn, wait for the device of its first output tensor (with
-        `force`), and record the time."""
-        start = time.perf_counter()
-        out = fn(*args, **kwargs)
-        if force:
-            t = first_tensor(out)
-            synchronize(None if t is None else t.device)
-        self.totals[name] += time.perf_counter() - start
-        self.counts[name] += 1
-        return out
-
-    def summary(self) -> Dict[str, float]:
-        """Mean seconds per call of each stage."""
-        return {k: self.totals[k] / max(self.counts[k], 1)
-                for k in sorted(self.totals)}
-
-    def format(self) -> str:
-        return " | ".join(f"{k}={v * 1000:.1f}ms"
-                          for k, v in self.summary().items())
 
 
 @contextlib.contextmanager

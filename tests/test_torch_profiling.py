@@ -1,6 +1,6 @@
-"""The port's stage timer and trace capture (utils/profiling.py, as
-tests/test_prefetch.py::test_stage_timer holds JAX's) and its
-generate_video (run/generate_video.py, as tests/test_cli_smoke.py::
+"""The port's trace capture and busy-time union (utils/profiling.py; its
+spans: tests/test_torch_spans.py) and its generate_video
+(run/generate_video.py, as tests/test_cli_smoke.py::
 test_generate_video_cli holds JAX's), on the CPU."""
 
 import json
@@ -13,31 +13,9 @@ import pytest
 import torch
 
 from mvgformer_tpu_torch.run import generate_video
-from mvgformer_tpu_torch.utils.profiling import (StageTimer, busy_seconds,
-                                                 first_tensor, trace)
+from mvgformer_tpu_torch.utils.profiling import busy_seconds, span, trace
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def test_stage_timer():
-    st = StageTimer()
-    with st.stage("a"):
-        pass
-    with st.stage("a", device="cpu"):
-        pass
-    out = st.time_fn("b", lambda x: x * 2, torch.ones(4))
-    assert float(out[0]) == 2.0
-    assert st.counts["a"] == 2 and st.counts["b"] == 1
-    assert st.totals["b"] >= 0.0
-    assert set(st.summary()) == {"a", "b"}
-    assert "a=" in st.format() and "ms" in st.format()
-
-
-def test_first_tensor_walks_outputs():
-    t = torch.zeros(2)
-    assert first_tensor(t) is t
-    assert first_tensor(({"x": None, "y": [3, t]},)) is t
-    assert first_tensor({"a": 1}) is None
 
 
 def test_busy_seconds_is_the_union_of_the_spans():
@@ -51,11 +29,16 @@ def test_busy_seconds_is_the_union_of_the_spans():
 
 def test_trace_writes_a_chrome_trace(tmp_path):
     with trace(str(tmp_path)) as log_dir:
-        torch.ones(64, 64) @ torch.ones(64, 64)
+        with span("mvg.step"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
     assert log_dir == str(tmp_path)
     with open(tmp_path / "trace.json") as f:
         events = json.load(f)["traceEvents"]
-    assert any("mm" in e.get("name", "") for e in events)
+    (step,) = [e for e in events if e.get("name") == "mvg.step"]
+    mm = [e for e in events if "mm" in e.get("name", "")]
+    # the span holds the op it ran, on the same thread
+    assert mm and all(step["ts"] <= e["ts"] and e["tid"] == step["tid"]
+                      for e in mm)
 
 
 def _frames(tmp_path, sizes):
