@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--parent DIR] [--benches-only]
+    python3 chip_smoke.py [--parent DIR] [--benches-only] [--dlt-only]
 
 Runs from the root of a checkout, needs one CUDA card and nvcc (CUDA_HOME or
 /usr/local/cuda), and builds the port's kernels from the checkout's sources
@@ -8,9 +8,10 @@ into build/kernels/. Phases, each printed on its own line; any failure
 exits non-zero:
 
   1. find the card and print its name and power limit;
-  2. build the six sources at once (deformable sampling, the two window
+  2. build the seven sources at once (deformable sampling, the two window
      kernels, the corner-table build, the table gather-reduce forward and
-     backward, and the probe kernels' gather forms), one nvcc each, and
+     backward, the serving DLT and the probe kernels' gather forms), one
+     nvcc each, and
      print ptxas's registers, stack and spill bytes per kernel instance;
   3. hold the deformable-sampling kernel against its plain PyTorch version
      on the card at the flagship shapes (dense layer 1, Lq 15360 at P 4 and
@@ -203,6 +204,18 @@ exits non-zero:
      a 2 x 2 grid of ranks sharing the card. Each runs with the kernel
      counts set to 0 before it (`path_launches`; the dry run's on its rank
      0).
+ 26. the serving Jacobi DLT (`ops/dlt_jacobi.py`, one kernel per decoder
+     layer): 26a at a served layer's shapes, 960 points a frame and 5
+     views at batch 1 and 8, the kernel against the plain chain (the
+     largest gap on points inside the capture space), timed as the other
+     kernels (`ms`, `device_ms`, `host_us`) beside the plain chain's
+     `plain_ms` and the launch floor; 26b the flagship bf16 model serves a
+     frame at batch 1 and at batch 8, and trains one step, with the DLT's
+     counts set to 0 before each: a launch per layer and no plain call in
+     serving, no launch and a plain call per layer and recompute in
+     training; 26c `python3 -m benchmark.spans` on dq_serve_live_b1 and
+     dq_serve_offline_b8 (10 s each): `mvg.dlt`'s ops and host ms a frame,
+     the device ops a frame and the idle share.
 
 Phase 10 also holds F.embedding_bag, the library call of B3's function,
 against B3's plain versions and times it. The models, batches and window
@@ -212,7 +225,8 @@ slots (at both their sizes) of DIR and of this checkout are also timed in
 turns by tools/launch_cost.py before the table. With --benches-only,
 phases 1, 2 and 25 run and nothing else: a reading of the benches inside
 this script, to set beside their standalone runs; it prints no kernel
-table and no device line.
+table and no device line. With --dlt-only, phases 1, 2, 14's launch floor
+and 26 run and nothing else.
 
 The last three lines are the kernel table (each kernel's launches on its
 path, worst error, ms, device_ms where measured, plain ms, library ms or
@@ -242,13 +256,15 @@ import torch
 
 from mvgformer_tpu_torch import bench
 from mvgformer_tpu_torch.device import card_line
-from mvgformer_tpu_torch.ops import (_build, deform_attn, gather_forms,
-                                     sampling, table_build, table_gather,
-                                     window_block, window_dma,
+from mvgformer_tpu_torch.ops import (_build, deform_attn, dlt_jacobi,
+                                     gather_forms, sampling, table_build,
+                                     table_gather, window_block, window_dma,
                                      window_sampling)
 from mvgformer_tpu_torch.tools.launch_cost import (B1_SHAPES,
+                                                   DLT_SPACE_CENTER,
                                                    FLAGSHIP_LEVELS,
-                                                   device_ms, level_views,
+                                                   device_ms, dlt_inputs,
+                                                   level_views,
                                                    sampling_inputs,
                                                    window_inputs)
 from mvgformer_tpu_torch.tools.probes.probe_pallas_gather import flat_rows
@@ -294,6 +310,14 @@ FLAGSHIP_VALIDATE = ("DATASET.TEST_DATASET=synthetic",
                      "PARALLEL.COMPUTE_DTYPE=bfloat16")
 WINDOWED_VALIDATE = ("DECODER.layer1_windowed_sampling=true",
                      "DECODER.layer1_window_impl=pallas_dma")
+# phase 26: a served layer's DLT at batch 1 (live) and 8, 960 points a
+# frame (top-64 x 15 joints), 5 views; the benchmark cells it runs
+# benchmark.spans on, and the seconds of each
+DLT_BATCHES = (1, 8)
+DLT_POINTS, DLT_VIEWS = 960, 5
+DLT_SPAN_CELLS = ("dq_serve_live_b1", "dq_serve_offline_b8")
+DLT_SPAN_SECONDS = "10"
+DLT_SPAN_SEED = "1800000018"
 # launch_cost's kernel sets timed against the parent (--parent)
 PARENT_KERNELS = "deform,window_block,window_dma,table_build,table_slots"
 NO_LIBRARY = {
@@ -305,6 +329,8 @@ NO_LIBRARY = {
     "window_block_dma": "none: no single call reads tent-weighted windows "
                         "at block origins",
     "build_corner_table": "none: a pad, four slices and a concatenation",
+    "fused_dlt": "none: no library call runs the chain; torch.linalg.eigh "
+                 "solves only its 4 x 4 step, by another algorithm",
     "table_slots": "none: a pad, four slices and a concatenation",
     "gather_reduce_backward": "none in bfloat16: PyTorch's CUDA "
                               "embedding_bag has no bfloat16 backward for "
@@ -3966,6 +3992,121 @@ def bench_phase(card):
     return runs
 
 
+def dlt_kernel(card, floor_ms):
+    """Phase 26a: the DLT kernel against the plain chain at a served
+    layer's shapes, and timed. Returns a `by_shape` entry per batch."""
+    center = torch.tensor(DLT_SPACE_CENTER)
+    half = torch.tensor([4000.0, 4000.0, 1000.0])
+    shapes = []
+    for B in DLT_BATCHES:
+        ops = dlt_inputs(B, DLT_POINTS, DLT_VIEWS, seed=SEED + B)
+        got = dlt_jacobi.fused_dlt(**ops)
+        want = dlt_jacobi.plain_dlt(**ops)
+        inside = ops["mask"] & ((want - center.cuda()).abs()
+                                <= half.cuda()).all(dim=-1)
+        gap = (got - want).abs()[inside]
+        err = float(gap.max())
+        # the card tests' tolerance: 0.05 mm or 1e-5 of the coordinate
+        over = int((gap > 0.05 + 1e-5 * want.abs()[inside]).sum())
+        fused = functools.partial(dlt_jacobi.fused_dlt, **ops)
+        plain = functools.partial(dlt_jacobi.plain_dlt, **ops)
+        dev, host = device_ms(fused)
+        shapes.append({
+            "at": f"float32 B={B} N={DLT_POINTS} V={DLT_VIEWS} (a served "
+                  f"layer's top-64 x 15 joints)",
+            "max_abs_err_mm": err, "over_tolerance": over,
+            "inside": int(inside.sum()),
+            "masked_zero": bool((got[~ops["mask"]] == 0).all()),
+            "ms": cuda_ms(fused), "device_ms": dev, "host_us": host,
+            "plain_ms": cuda_ms(plain, runs=5, warmup=1),
+            "floor_ms": floor_ms})
+        if over or not shapes[-1]["masked_zero"]:
+            fail(f"the DLT kernel at B {B}: {shapes[-1]}")
+    phase("dlt_kernel", by_shape=shapes,
+          ptxas=_build.kernel_report(_build.CSRC / "dlt_jacobi.cu"),
+          card=card)
+    return shapes
+
+
+def dlt_counts(card):
+    """Phase 26b: fused_dlt's counts over one served flagship frame at
+    batch 1 and at batch 8 and over one flagship training step, each from
+    0: a launch per layer and no plain call in serving, no launch and a
+    plain call per layer (again in the remat recompute) in training."""
+    from mvgformer_tpu_torch.core.infer import make_eval_step
+    from mvgformer_tpu_torch.core.train import (create_train_state,
+                                                make_train_step)
+    from mvgformer_tpu_torch.data.synthetic import make_batch
+    from mvgformer_tpu_torch.models.mvgformer import MVGFormer
+
+    cfg = flagship_cfg("bfloat16")
+    layers = cfg.DECODER.num_decoder_layers
+    model = MVGFormer(cfg, generator=torch.Generator().manual_seed(SEED))
+    counts = {}
+    for B in DLT_BATCHES:
+        frame = make_batch(cfg, batch_size=B, seed=SEED + 300 + B,
+                           num_people=3, cam_seed=SEED)
+        step = make_eval_step(cfg, model, THRESHOLD)
+        dlt_jacobi.fused_dlt.launches = dlt_jacobi.fused_dlt.plain_calls = 0
+        step(frame)
+        torch.cuda.synchronize()
+        counts[f"serve_b{B}"] = (dlt_jacobi.fused_dlt.launches,
+                                 dlt_jacobi.fused_dlt.plain_calls)
+    state, tx = create_train_state(cfg, model)
+    train_step = make_train_step(cfg, model, tx)
+    batch = make_batch(cfg, batch_size=1, seed=SEED + 400, num_people=3,
+                       cam_seed=SEED)
+    dlt_jacobi.fused_dlt.launches = dlt_jacobi.fused_dlt.plain_calls = 0
+    train_step(state, batch, torch.Generator().manual_seed(SEED))
+    torch.cuda.synchronize()
+    counts["train"] = (dlt_jacobi.fused_dlt.launches,
+                       dlt_jacobi.fused_dlt.plain_calls)
+    remat = 2 if cfg.PARALLEL.REMAT_DECODER else 1
+    want = {**{f"serve_b{B}": (layers, 0) for B in DLT_BATCHES},
+            "train": (0, remat * layers)}
+    phase("dlt_counts", launches_plain_calls=counts,
+          engagement={k: (n / (n + p) if n + p else None)
+                      for k, (n, p) in counts.items()}, card=card)
+    if counts != want:
+        fail(f"fused_dlt's counts {counts}, expected {want}")
+    del model, state
+    torch.cuda.empty_cache()
+    return counts
+
+
+def dlt_spans(card):
+    """Phase 26c: `python3 -m benchmark.spans` on the two DQ serving cells,
+    each in its own process: `mvg.dlt`'s device ops and untraced host ms a
+    frame (the span metrics), the traced device ops a frame and the idle
+    share."""
+    out = {}
+    for cell in DLT_SPAN_CELLS:
+        proc = subprocess.run(
+            [sys.executable, "-m", "benchmark.spans", "--workload", cell,
+             "--seed", DLT_SPAN_SEED, "--seconds", DLT_SPAN_SECONDS],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"benchmark.spans on {cell}: {proc.stderr[-2000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        out[cell] = {"dlt_span": res["spans"].get("mvg.dlt"),
+                     "span_metrics": res["span_metrics"],
+                     "metrics": res["metrics"], "correct": res["correct"],
+                     "checks": res["checks"],
+                     "units": res["traced"]["units"]}
+        phase("dlt_spans", cell=cell, **out[cell], card=card)
+    return out
+
+
+def dlt_phase(card, floor_ms):
+    """Phase 26: the serving Jacobi DLT kernel (26a-26c)."""
+    t0 = time.perf_counter()
+    shapes = dlt_kernel(card, floor_ms)
+    counts = dlt_counts(card)
+    spans = dlt_spans(card)
+    phase("dlt", seconds=time.perf_counter() - t0, card=card)
+    return shapes, counts, spans
+
+
 def parent_vs_change(card, parent):
     """B1 at B1_SHAPES, B4 and B5 on the K = 28 plan, B2 on the flagship
     value's level views and the table slots' five maps at their two sizes,
@@ -4016,6 +4157,10 @@ def main(argv=None):
                         "benches and the graft entry) and stop: a reading "
                         "of the benches inside this script, to set beside "
                         "their standalone runs; prints no result line")
+    parser.add_argument("--dlt-only", action="store_true",
+                        help="build the sources, read the launch floor, "
+                        "run phase 26 alone (the serving DLT kernel) and "
+                        "stop; prints no result line")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs one GPU")
@@ -4038,6 +4183,9 @@ def main(argv=None):
         for src, (lib, sec) in zip(SOURCES, built)])
     if args.benches_only:
         bench_phase(card)
+        return
+    if args.dlt_only:
+        dlt_phase(card, launch_floor(card))
         return
 
     worst_f32, b1_shapes = check_kernel(card)
@@ -4126,6 +4274,7 @@ def main(argv=None):
     phase("view_parallelism", seconds=time.perf_counter() - t_vp, card=card)
     ablation_stats, tool_runs = tools_phase(card)
     bench_runs = bench_phase(card)
+    dlt_shapes, dlt_launches, _ = dlt_phase(card, floor_ms)
     mvp = {"serve_launches": mvp_serve_launches,
            "b1_device_ms_per_launch":
                mvp_serve_prof["b1_device_ms_per_launch"]}
@@ -4241,6 +4390,20 @@ def main(argv=None):
             st["work"], flagship, timed_launches=3, library="F.embedding_bag",
             device_ms=st["device_ms"], ms_f32=st["ms_f32"],
             library_ms_f32=st["library_ms_f32"], **extra))
+    dlt_rows = [{**sh, "launches": dlt_launches[f"serve_b{B}"][0],
+                 "bound_ms": bounds.dlt_jacobi(
+                     B, DLT_POINTS, DLT_VIEWS).bound_ms}
+                for B, sh in zip(DLT_BATCHES, dlt_shapes)]
+    kernels.append(kernel_row(
+        dlt_jacobi.fused_dlt, "dlt_jacobi.cu",
+        "mvgformer_tpu/geometry/triangulate.py:jacobi4_smallest (plain "
+        "jnp that XLA fuses; with the affine, undistortion and softmax "
+        "of mvgformer_tpu/models/decoder.py)",
+        dlt_rows[0]["launches"], dlt_rows[0]["max_abs_err_mm"],
+        dlt_rows[0]["ms"], dlt_rows[0]["plain_ms"], None,
+        bounds.dlt_jacobi(1, DLT_POINTS, DLT_VIEWS), dlt_rows[0]["at"],
+        by_shape=dlt_rows, device_ms=dlt_rows[0]["device_ms"],
+        ptxas=reports["dlt_jacobi.cu"]))
     for fn, source, replaces, also, library, probe_shape in PROBE_ROWS:
         kernels.append(probe_row(fn, source, replaces, also, library,
                                  probe_shape, probe_stats[fn],

@@ -10,8 +10,10 @@ dehomogenize. Solvers:
                 equilibrated 4x4 Gram matrix;
     'jacobi' -- the same Gram matrix solved by a fixed-sweep cyclic Jacobi
                 loop written as elementwise tensor math (the flagship
-                serving solver). Plain torch ops here; a fused kernel is
-                queued in ROADMAP.md.
+                serving solver). Plain torch ops here: the CPU and the
+                training path, and the reference of the serving kernel
+                `ops/dlt_jacobi.py`, which runs a decoder layer's whole
+                DLT on the card in one launch.
 """
 
 from __future__ import annotations

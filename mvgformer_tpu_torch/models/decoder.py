@@ -50,6 +50,11 @@ Per layer:
   8. inverse crop affine and undistortion;
   9. confidence-weighted DLT (or structural) triangulation, the optional
      bayesian blend, the masked dense update.
+
+On the card a serving call with the Jacobi solver and every view on this
+process runs steps 8-9 up to the masked update as one kernel
+(`ops/dlt_jacobi.py`, rule `fused_path`); training, a view split, the CPU
+and the other solvers run them as plain torch ops.
 """
 
 from __future__ import annotations
@@ -73,6 +78,7 @@ from mvgformer_tpu_torch.geometry.triangulate import (clip_cotangent,
                                                       triangulate_dlt)
 from mvgformer_tpu_torch.models.attention import MultiheadAttention
 from mvgformer_tpu_torch.models.mlp import Dense, OffsetNet
+from mvgformer_tpu_torch.ops import dlt_jacobi
 from mvgformer_tpu_torch.ops.projattn import ProjAttn, top_indices
 from mvgformer_tpu_torch.ops.window_sampling import WindowPlan
 from mvgformer_tpu_torch.parallel import collectives
@@ -428,56 +434,71 @@ class DQDecoderLayer(nn.Module):
         conf_logits = conf_logits.float()
 
         with span("mvg.dlt"):
-            # (8) masked-out queries triangulate the image centre, a safe
-            # stand-in, before the inverse affine and undistortion
-            tri_in = torch.where(mask_nq[None, :, :, None], refined_abs,
-                                 img_wh * 0.5)
-            orig = apply_affine(tri_in.transpose(0, 1), view_data.inv_affine)
-            orig_undist = undistort_points(orig, view_data.cameras, iter_num=5)
-            if split:
-                # the softmax over views and the solve need every view: one
-                # all-gather of the points and the logits, in view order
-                packed = collectives.all_gather(torch.cat(
-                    [orig_undist, conf_logits.transpose(0, 1)[..., None]],
-                    dim=-1), grid, dim=1)  # (B, V, Nqc, 3)
-                orig_undist = packed[..., :2]
-                conf_logits = packed[..., 2].transpose(0, 1)
-                V = packed.shape[1]
-            conf = torch.softmax(conf_logits, dim=0)
-
-            # (9) triangulate, then the masked dense update
-            if self.triangulation_solver == "st":
-                # structural triangulation, one person per query
-                pts_p = orig_undist.transpose(1, 2).reshape(
-                    B * Qc, J, V, 2).transpose(1, 2)  # (B*Qc, V, J, 2)
-                conf_p = conf.permute(1, 2, 0).reshape(B * Qc, J, V).transpose(
-                    1, 2)  # (B*Qc, V, J)
-                pm_p = proj_mats[:, None].expand(B, Qc, V, 3, 4).reshape(
-                    B * Qc, V, 3, 4)
-                lengths = self.st_bone_lengths[None].expand(B * Qc, J - 1)
-                new_refs = structural_triangulate(
-                    pm_p, pts_p, conf_p, lengths, n_steps=self.st_n_steps,
-                    conversion=self.st_conversion).reshape(B, Nqc, 3)
+            fused = dlt_jacobi.fused_path(
+                refined_abs.device, self.triangulation_solver, split,
+                refined_abs, conf_logits)
+            if fused:
+                # (8-9) one kernel on the card: the serving Jacobi DLT from
+                # the refined points to the masked new refs
+                new_refs = dlt_jacobi.fused_dlt(
+                    refined_abs, conf_logits, mask_nq, view_data.inv_affine,
+                    view_data.cameras, proj_mats)
             else:
-                pts = orig_undist.transpose(1, 2)  # (B, Nqc, V, 2)
-                conf_bqv = conf.permute(1, 2, 0)  # (B, Nqc, V)
-                if train and self.tri_grad_clip is not None:
-                    # TRAIN.TRI_GRAD_CLIP: bound the solver-amplified
-                    # cotangents reaching the offset net and the confidence
-                    # head
-                    pts = clip_cotangent(pts, self.tri_grad_clip)
-                    conf_bqv = clip_cotangent(conf_bqv[..., None],
-                                              self.tri_grad_clip)[..., 0]
-                pm = proj_mats[:, None].expand(B, Nqc, V, 3, 4)
-                new_refs = triangulate_dlt(pm, pts, conf_bqv,
-                                           solver=self.triangulation_solver)
+                # (8) masked-out queries triangulate the image centre, a safe
+                # stand-in, before the inverse affine and undistortion
+                tri_in = torch.where(mask_nq[None, :, :, None], refined_abs,
+                                     img_wh * 0.5)
+                orig = apply_affine(tri_in.transpose(0, 1),
+                                    view_data.inv_affine)
+                orig_undist = undistort_points(orig, view_data.cameras,
+                                               iter_num=5)
+                if split:
+                    # the softmax over views and the solve need every view: one
+                    # all-gather of the points and the logits, in view order
+                    packed = collectives.all_gather(torch.cat(
+                        [orig_undist, conf_logits.transpose(0, 1)[..., None]],
+                        dim=-1), grid, dim=1)  # (B, V, Nqc, 3)
+                    orig_undist = packed[..., :2]
+                    conf_logits = packed[..., 2].transpose(0, 1)
+                    V = packed.shape[1]
+                conf = torch.softmax(conf_logits, dim=0)
+
+                # (9) triangulate, then the masked dense update
+                if self.triangulation_solver == "st":
+                    # structural triangulation, one person per query
+                    pts_p = orig_undist.transpose(1, 2).reshape(
+                        B * Qc, J, V, 2).transpose(1, 2)  # (B*Qc, V, J, 2)
+                    conf_p = conf.permute(1, 2, 0).reshape(
+                        B * Qc, J, V).transpose(1, 2)  # (B*Qc, V, J)
+                    pm_p = proj_mats[:, None].expand(B, Qc, V, 3, 4).reshape(
+                        B * Qc, V, 3, 4)
+                    lengths = self.st_bone_lengths[None].expand(B * Qc, J - 1)
+                    new_refs = structural_triangulate(
+                        pm_p, pts_p, conf_p, lengths, n_steps=self.st_n_steps,
+                        conversion=self.st_conversion).reshape(B, Nqc, 3)
+                else:
+                    pts = orig_undist.transpose(1, 2)  # (B, Nqc, V, 2)
+                    conf_bqv = conf.permute(1, 2, 0)  # (B, Nqc, V)
+                    if train and self.tri_grad_clip is not None:
+                        # TRAIN.TRI_GRAD_CLIP: bound the solver-amplified
+                        # cotangents reaching the offset net and the confidence
+                        # head
+                        pts = clip_cotangent(pts, self.tri_grad_clip)
+                        conf_bqv = clip_cotangent(conf_bqv[..., None],
+                                                  self.tri_grad_clip)[..., 0]
+                    pm = proj_mats[:, None].expand(B, Nqc, V, 3, 4)
+                    new_refs = triangulate_dlt(
+                        pm, pts, conf_bqv, solver=self.triangulation_solver)
             if hasattr(self, "bayesian_conf"):
                 # blend with the layer's input pose by a learned confidence
                 bconf = collectives.view_mean(torch.sigmoid(
                     self.bayesian_conf(attn)), grid).float()  # (B, Nqc, 1)
                 new_refs = (bconf * new_refs
                             + (1 - bconf) * reference_points.float())
-            new_refs = torch.where(mask_nq[..., None], new_refs, 0.0)
+            if not fused or hasattr(self, "bayesian_conf"):
+                # the kernel zeroes masked-out queries; the blend brings
+                # them back
+                new_refs = torch.where(mask_nq[..., None], new_refs, 0.0)
             m4 = mask_nq[:, None, :, None]
             refined_out = torch.where(m4, refined_abs.transpose(0, 1), 0.0)
             projs_out = torch.where(m4, projs_abs.transpose(0, 1), 0.0)

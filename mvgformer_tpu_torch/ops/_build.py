@@ -33,6 +33,15 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags of one source on top of NVCC_FLAGS, by the source's stem: the DLT
+# rounds each product and sum where the plain torch chain does, so nvcc may
+# not contract them into fused multiply-adds
+SOURCE_FLAGS = {"dlt_jacobi": ("-fmad=false",)}
+
+
+def flags(src: Path) -> Tuple[str, ...]:
+    """nvcc's flags for `src`."""
+    return (*NVCC_FLAGS, *SOURCE_FLAGS.get(src.stem, ()))
 
 
 def _nvcc() -> str:
@@ -54,7 +63,7 @@ def library_path(src: Path) -> Path:
     key = hashlib.sha256(src.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         key.update(header.read_bytes())
-    key.update(" ".join(NVCC_FLAGS).encode())
+    key.update(" ".join(flags(src)).encode())
     return BUILD_DIR / f"{src.stem}-{key.hexdigest()[:16]}.so"
 
 
@@ -65,7 +74,7 @@ def build(src: Path) -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [_nvcc(), *flags(src), "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"

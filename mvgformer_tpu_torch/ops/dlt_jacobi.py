@@ -1,0 +1,160 @@
+"""The serving Jacobi DLT on the card: one hand-written kernel per decoder
+layer for `DQDecoderLayer`'s steps 8-9.
+
+`fused_dlt` computes what the layer's plain chain computes from the refined
+2D points to the masked 3D points (`plain_dlt`): the inverse crop affine,
+the 5-iteration undistortion, the softmax of the confidence logits over the
+views, the confidence-weighted DLT with its degenerate guard, the column
+equilibration, the Gram matrix, 6 cyclic Jacobi sweeps, the eigenvector of
+the smallest eigenvalue, the dehomogenisation and the query mask.
+
+    * CUDA tensors launch `csrc/dlt_jacobi.cu` (forward only), or raise.
+    * CPU tensors go to `plain_dlt`.
+
+`fused_path` is the layer's dispatch rule, from what the call can observe:
+the kernel runs where the points are on the card, the solver is 'jacobi',
+nothing needs a gradient and every view is on this process. Training (the
+kernel has no backward), a view split (its all-gather sits inside the
+chain), the CPU and the other solvers keep the plain chain.
+
+`fused_dlt.launches` counts kernel launches; `fused_dlt.plain_calls` counts
+the CUDA Jacobi calls that `fused_path` sent to the plain chain. Nothing
+else changes them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from mvgformer_tpu_torch.device import constant
+from mvgformer_tpu_torch.geometry.cameras import (CameraParams,
+                                                  undistort_points)
+from mvgformer_tpu_torch.geometry.transforms import apply_affine
+from mvgformer_tpu_torch.geometry.triangulate import triangulate_dlt
+from mvgformer_tpu_torch.ops import _build
+
+_SRC = _build.CSRC / "dlt_jacobi.cu"
+# the kernel keeps a point's views in registers: the survey's 3-10 views
+MAX_VIEWS = 10
+
+
+def build() -> Path:
+    """Compile the kernel unless the library for this source exists."""
+    return _build.build(_SRC)
+
+
+_LAUNCH = _build.Launcher(
+    _SRC, "mvg_dlt_jacobi",
+    [ctypes.c_void_p] + [ctypes.c_int64] * 4
+    + [ctypes.c_void_p] + [ctypes.c_int64] * 3
+    + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
+def fused_path(device: torch.device, solver: str, split: bool,
+               *inputs: torch.Tensor) -> bool:
+    """Whether a DQ layer's steps 8-9 on `device` take the kernel: CUDA,
+    the 'jacobi' solver, no view split, and no input that needs a gradient
+    (grad mode off, as under the eval step's inference mode, or no input
+    requiring grad). A CUDA Jacobi call that takes the plain chain counts
+    in `fused_dlt.plain_calls`."""
+    if device.type != "cuda" or solver != "jacobi":
+        return False
+    needs_grad = torch.is_grad_enabled() and any(t.requires_grad
+                                                 for t in inputs)
+    if split or needs_grad:
+        fused_dlt.plain_calls += 1
+        return False
+    return True
+
+
+def plain_dlt(refined: torch.Tensor, logits: torch.Tensor,
+              mask: torch.Tensor, inv_affine: torch.Tensor,
+              cameras: CameraParams, proj: torch.Tensor) -> torch.Tensor:
+    """The plain chain of `DQDecoderLayer`'s steps 8-9 for the 'jacobi'
+    solver with every view on this process: masked-out points triangulate
+    a stand-in, the net image's corner (the layer's is its centre; no point
+    reads another's), and come out as zeros. Arguments as `fused_dlt`'s."""
+    V, B, N, _ = refined.shape
+    tri_in = torch.where(mask[None, :, :, None], refined,
+                         constant(0.0, refined.dtype, refined.device))
+    orig = apply_affine(tri_in.transpose(0, 1), inv_affine)
+    orig_undist = undistort_points(orig, cameras, iter_num=5)
+    conf = torch.softmax(logits, dim=0)
+    pm = proj[:, None].expand(B, N, V, 3, 4)
+    new_refs = triangulate_dlt(pm, orig_undist.transpose(1, 2),
+                               conf.permute(1, 2, 0), solver="jacobi")
+    return torch.where(mask[..., None], new_refs, 0.0)
+
+
+def _check(refined, logits, mask, inv_affine, cameras, proj):
+    if refined.dim() != 4 or refined.shape[-1] != 2:
+        raise ValueError("refined must be (V, B, N, 2), got "
+                         f"{tuple(refined.shape)}")
+    V, B, N, _ = refined.shape
+    want = {"logits": (logits, (V, B, N)), "mask": (mask, (B, N)),
+            "inv_affine": (inv_affine, (B, V, 2, 3)),
+            "f": (cameras.f, (B, V, 2)), "c": (cameras.c, (B, V, 2)),
+            "k": (cameras.k, (B, V, 3)), "p": (cameras.p, (B, V, 2)),
+            "proj": (proj, (B, V, 3, 4))}
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape} for refined "
+                             f"{tuple(refined.shape)}, got {tuple(t.shape)}")
+    devices = {t.device for t, _ in want.values()} | {refined.device}
+    if len(devices) != 1:
+        raise ValueError(f"inputs on several devices: {devices}")
+
+
+def fused_dlt(refined: torch.Tensor, logits: torch.Tensor,
+              mask: torch.Tensor, inv_affine: torch.Tensor,
+              cameras: CameraParams, proj: torch.Tensor) -> torch.Tensor:
+    """(B, N, 3) triangulated points, zero where `mask` is False.
+
+    refined (V, B, N, 2) net-image px and logits (V, B, N), float32 at any
+    strides; mask (B, N) bool; inv_affine (B, V, 2, 3) net -> full image;
+    the cameras' f, c, p (B, V, 2) and k (B, V, 3); proj (B, V, 3, 4):
+    float32 and, on CUDA, contiguous. V at most MAX_VIEWS on CUDA, and no
+    input may require grad there (the kernel has no backward).
+    """
+    _check(refined, logits, mask, inv_affine, cameras, proj)
+    if refined.device.type == "cpu":
+        return plain_dlt(refined, logits, mask, inv_affine, cameras, proj)
+    if refined.device.type != "cuda":
+        raise ValueError(f"unsupported device {refined.device}")
+    # refined and logits go at their strides, the rest contiguous
+    per_view = {"inv_affine": inv_affine, "f": cameras.f, "c": cameras.c,
+                "k": cameras.k, "p": cameras.p, "proj": proj}
+    for name, t in {"refined": refined, "logits": logits,
+                    **per_view}.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if mask.dtype != torch.bool:
+        raise TypeError(f"mask must be bool, got {mask.dtype}")
+    for name, t in {"mask": mask, **per_view}.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if torch.is_grad_enabled() and (refined.requires_grad
+                                    or logits.requires_grad):
+        raise NotImplementedError(
+            "fused_dlt has no backward kernel; call it under "
+            "torch.no_grad() or on tensors that do not require grad")
+    V, B, N, _ = refined.shape
+    if V > MAX_VIEWS:
+        raise ValueError(f"{V} views: the kernel takes at most {MAX_VIEWS}")
+    out = torch.empty((B, N, 3), dtype=torch.float32, device=refined.device)
+    if B * N == 0:
+        return out
+    _LAUNCH(refined, refined.data_ptr(), *refined.stride(),
+            logits.data_ptr(), *logits.stride(), mask.data_ptr(),
+            inv_affine.data_ptr(), cameras.f.data_ptr(), cameras.c.data_ptr(),
+            cameras.k.data_ptr(), cameras.p.data_ptr(), proj.data_ptr(),
+            out.data_ptr(), B, N, V)
+    fused_dlt.launches += 1
+    return out
+
+
+fused_dlt.launches = 0
+fused_dlt.plain_calls = 0

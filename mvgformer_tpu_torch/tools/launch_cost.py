@@ -47,7 +47,9 @@ Each case prints one JSON line with
     max_abs_err  (the B1, window and table cases) the largest difference
                from the kernels' plain versions on the same inputs.
 
-The inputs come from a fixed seed, so every tree gets the same ones. Needs
+The inputs come from a fixed seed, so every tree gets the same ones.
+`dlt_inputs` makes a served layer's DLT operands on a distorted camera ring
+(`ops/dlt_jacobi.py`; chip_smoke.py phase 26 and the kernel's card tests). Needs
 one CUDA card; `device_ms` is also what chip_smoke.py reports beside `ms`,
 and chip_smoke.py --parent DIR runs the deform, window_block, window_dma and
 table_build cases of DIR and of its own checkout in turns. The tool is this
@@ -195,6 +197,65 @@ def sampling_inputs(Lq, P, dtype, gen, levels=FLAGSHIP_LEVELS, views=5,
     aw = torch.rand(views, Lq, heads, L, P, device=device,
                     generator=gen).to(dtype)
     return value, loc, aw
+
+
+# the DLT's operands: a Panoptic-like rig in the 8 x 8 x 2 m space
+DLT_NET_SIZE = (960, 512)
+DLT_IMAGE_SIZE = (1920, 1080)
+DLT_SPACE_CENTER = (0.0, -500.0, 800.0)
+
+
+def dlt_rig(B, V, seed=0):
+    """(view_data, proj) on the CPU of a ring of V distorted cameras
+    (`data.synthetic.make_camera_ring`), the same for each of B frames."""
+    import numpy as np
+    import torch
+
+    from mvgformer_tpu_torch.data.meta import build_view_data
+    from mvgformer_tpu_torch.data.synthetic import make_camera_ring
+    from mvgformer_tpu_torch.geometry.cameras import (CameraParams,
+                                                      projection_matrices)
+
+    ring = make_camera_ring(V, image_size=DLT_IMAGE_SIZE,
+                            center=DLT_SPACE_CENTER, seed=seed)
+    cams = CameraParams(**{
+        name: getattr(ring, name)[None].expand(
+            (B,) + getattr(ring, name).shape).contiguous()
+        for name in ("R", "T", "f", "c", "k", "p")})
+    image_wh = np.tile(np.asarray(DLT_IMAGE_SIZE, np.float32), (B, V, 1))
+    vd = build_view_data(cams, image_wh, DLT_NET_SIZE)
+    return vd, projection_matrices(cams, inv_trans=True)
+
+
+def dlt_inputs(B, N, V, seed=0, noise_px=2.0, masked=0.3, device="cuda"):
+    """A decoder layer's DLT operands (`ops.dlt_jacobi.fused_dlt`'s keyword
+    arguments) on `device`: world points in the middle 5 x 5 x 1.8 m of
+    the capture space projected through `dlt_rig`, mapped into the network
+    image, plus `noise_px` of gaussian noise (detections); random logits;
+    a random mask with a `masked` share of queries off. Made on the CPU
+    from `seed`."""
+    import torch
+
+    from mvgformer_tpu_torch.geometry.cameras import (CameraParams,
+                                                      project_points)
+    from mvgformer_tpu_torch.geometry.transforms import apply_affine
+
+    gen = torch.Generator().manual_seed(seed)
+    vd, proj = dlt_rig(B, V, seed)
+    cx, cy, _ = DLT_SPACE_CENTER
+    lo = torch.tensor([cx - 2500.0, cy - 2500.0, 0.0])
+    hi = torch.tensor([cx + 2500.0, cy + 2500.0, 1800.0])
+    world = lo + (hi - lo) * torch.rand(B, N, 3, generator=gen)
+    pix = project_points(world[:, None].expand(B, V, N, 3), vd.cameras)
+    net = apply_affine(pix, vd.affine)  # (B, V, N, 2)
+    net = net + noise_px * torch.randn(net.shape, generator=gen)
+    cams = CameraParams(**{name: getattr(vd.cameras, name).to(device)
+                           for name in ("R", "T", "f", "c", "k", "p")})
+    return dict(refined=net.transpose(0, 1).contiguous().to(device),
+                logits=torch.randn(V, B, N, generator=gen).to(device),
+                mask=(torch.rand(B, N, generator=gen) >= masked).to(device),
+                inv_affine=vd.inv_affine.to(device), cameras=cams,
+                proj=proj.to(device))
 
 
 def window_inputs(centers_px, halo, P, dtype, gen, escape,

@@ -275,3 +275,22 @@ def take_along(tbl: torch.Tensor, idx: torch.Tensor, axis: int) -> Work:
 def scale(n: int, esize: int) -> Work:
     """n elements read and written, one multiply each."""
     return Work(2 * n * esize, n)
+
+
+# float32 operations per point of the serving DLT (csrc/dlt_jacobi.cu),
+# each add, multiply, divide, square root and exponential counted once:
+# per view the affine (8), the undistortion's 5 iterations and its ends
+# (158), the softmax (4), the system's two rows twice over with the Gram
+# matrix's 10 entries (96); per point the rescale (4), 36 rotations of 56
+# and the dehomogenisation (7)
+DLT_OPS_PER_VIEW = 8 + 158 + 4 + 96
+DLT_OPS_PER_POINT = 4 + 36 * 56 + 7
+
+
+def dlt_jacobi(B: int, N: int, V: int) -> Work:
+    """B x N points over V views: each point's V refined 2D points (8 bytes)
+    and logits (4), its mask byte and its 3D point (12); each frame and
+    view's crop, camera and projection numbers (27 floats)."""
+    points = B * N
+    return Work(points * (12 * V + 1 + 12) + B * V * 27 * 4,
+                points * (V * DLT_OPS_PER_VIEW + DLT_OPS_PER_POINT))

@@ -1,0 +1,238 @@
+"""The dispatch of a DQ decoder layer's DLT (`ops/dlt_jacobi.py`) on the
+CPU, at toy widths:
+
+  * the rule `fused_path`: the kernel on CUDA for the 'jacobi' solver when
+    no input needs a gradient and the views are not split; grad-enabled
+    inputs, a split grid, 'eigh', 'svd', 'st' and the CPU take the plain
+    chain, and only CUDA Jacobi calls count in `fused_dlt.plain_calls`;
+  * `fused_dlt` on CPU tensors is `plain_dlt`, launches nothing, and checks
+    shapes and devices first;
+  * a served toy model on the CPU, each solver, takes the plain chain and
+    counts nothing; with the rule told the points are on the card, the
+    fused branch (on the CPU, `plain_dlt`) gives the plain chain's bits,
+    with and without bayesian_update and top-K, and a training step keeps
+    the plain chain, counts its calls and gives the same losses.
+"""
+
+import pytest
+import torch
+
+from mvgformer_tpu_torch.config import load_config
+from mvgformer_tpu_torch.core.infer import make_eval_step
+from mvgformer_tpu_torch.core.train import create_train_state, make_train_step
+from mvgformer_tpu_torch.data.synthetic import make_batch
+from mvgformer_tpu_torch.geometry.cameras import CameraParams
+from mvgformer_tpu_torch.models import build_model
+from mvgformer_tpu_torch.ops import dlt_jacobi
+from mvgformer_tpu_torch.ops.dlt_jacobi import fused_dlt, fused_path, plain_dlt
+from torch_one_thread import one_torch_thread  # noqa: F401
+
+THRESHOLD = 0.1
+LAYERS = 2
+CUDA = torch.device("cuda")  # the rule reads the device; no card needed
+
+
+def _cfg(**overrides):
+    cfg = load_config()
+    cfg.NETWORK.IMAGE_SIZE = [96, 64]
+    cfg.DECODER.d_model = 32
+    cfg.DECODER.dim_feedforward = 64
+    cfg.DECODER.nhead = 4
+    cfg.DECODER.dec_n_points = 4
+    cfg.DECODER.num_decoder_layers = LAYERS
+    cfg.DECODER.num_instance = 16
+    cfg.DECODER.triangulation_method = "jacobi"
+    cfg.POSE_RESNET.NUM_LAYERS = 18
+    cfg.POSE_RESNET.NUM_DECONV_FILTERS = [32, 32, 32]
+    cfg.DATASET.CAMERA_NUM = 3
+    cfg.MULTI_PERSON.MAX_PEOPLE_NUM = 4
+    cfg.PARALLEL.COMPUTE_DTYPE = "float32"
+    for key, value in overrides.items():
+        section, name = key.split("__")
+        setattr(getattr(cfg, section), name, value)
+    return cfg
+
+
+def _model(cfg):
+    return build_model(cfg, generator=torch.Generator().manual_seed(0),
+                       device="cpu")
+
+
+@pytest.fixture
+def counters():
+    """fused_dlt's counts so far; the test reads what it added."""
+    start = (fused_dlt.launches, fused_dlt.plain_calls)
+    return lambda: (fused_dlt.launches - start[0],
+                    fused_dlt.plain_calls - start[1])
+
+
+def _points(requires_grad=False):
+    return (torch.zeros(3, 1, 8, 2, requires_grad=requires_grad),
+            torch.zeros(3, 1, 8))
+
+
+@pytest.mark.parametrize("device,solver,split,grad,want,plain", [
+    (CUDA, "jacobi", False, "inference", True, 0),
+    (CUDA, "jacobi", False, "no_grad", True, 0),
+    (CUDA, "jacobi", False, "enabled, no input requires it", True, 0),
+    (CUDA, "jacobi", False, "enabled", False, 1),
+    (CUDA, "jacobi", True, "inference", False, 1),
+    (CUDA, "jacobi", True, "enabled", False, 1),
+    (CUDA, "eigh", False, "inference", False, 0),
+    (CUDA, "svd", False, "inference", False, 0),
+    (CUDA, "st", False, "inference", False, 0),
+    (CUDA, "eigh", False, "enabled", False, 0),
+    (torch.device("cpu"), "jacobi", False, "inference", False, 0),
+    (torch.device("cpu"), "jacobi", False, "enabled", False, 0),
+])
+def test_fused_path_rule(counters, device, solver, split, grad, want,
+                         plain):
+    if grad == "inference":
+        with torch.inference_mode():
+            inputs = _points()
+            got = fused_path(device, solver, split, *inputs)
+    elif grad == "no_grad":
+        inputs = _points(requires_grad=True)
+        with torch.no_grad():
+            got = fused_path(device, solver, split, *inputs)
+    else:
+        inputs = _points(requires_grad=grad == "enabled")
+        got = fused_path(device, solver, split, *inputs)
+    assert got is want
+    assert counters() == (0, plain)
+
+
+def _operands(B=2, N=6, V=3, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    eye = torch.eye(3).expand(B, V, 3, 3)
+    cams = CameraParams(R=eye.contiguous(),
+                        T=torch.randn(B, V, 3, 1, generator=gen) * 100,
+                        f=torch.full((B, V, 2), 500.0),
+                        c=torch.full((B, V, 2), 300.0),
+                        k=torch.randn(B, V, 3, generator=gen) * 0.01,
+                        p=torch.randn(B, V, 2, generator=gen) * 1e-3)
+    inv_affine = torch.tensor([[2.0, 0.0, 1.0], [0.0, 2.0, -1.0]]).expand(
+        B, V, 2, 3).contiguous()
+    proj = torch.randn(B, V, 3, 4, generator=gen)
+    return dict(refined=torch.rand(V, B, N, 2, generator=gen) * 100,
+                logits=torch.randn(V, B, N, generator=gen),
+                mask=torch.rand(B, N, generator=gen) > 0.3,
+                inv_affine=inv_affine, cameras=cams, proj=proj)
+
+
+def test_fused_dlt_on_the_cpu_is_the_plain_chain(counters):
+    ops = _operands()
+    got = fused_dlt(**ops)
+    assert torch.equal(got, plain_dlt(**ops))
+    assert got.shape == (2, 6, 3)
+    assert torch.equal(got[~ops["mask"]], torch.zeros_like(
+        got[~ops["mask"]]))
+    assert counters() == (0, 0)
+
+
+@pytest.mark.parametrize("field,value,match", [
+    ("logits", torch.zeros(3, 2, 5), "logits must be"),
+    ("mask", torch.ones(2, 5, dtype=torch.bool), "mask must be"),
+    ("proj", torch.zeros(2, 3, 4, 4), "proj must be"),
+    ("inv_affine", torch.zeros(2, 2, 2, 3), "inv_affine must be"),
+    ("refined", torch.zeros(3, 2, 6, 3), r"refined must be \(V, B, N, 2\)"),
+    ("mask", torch.ones(2, 6, dtype=torch.bool, device="meta"),
+     "several devices"),
+])
+def test_fused_dlt_checks_shapes_and_devices(field, value, match):
+    ops = _operands()
+    ops[field] = value
+    with pytest.raises(ValueError, match=match):
+        fused_dlt(**ops)
+
+
+def test_fused_dlt_refuses_other_devices():
+    ops = {k: (v.to("meta") if torch.is_tensor(v) else v)
+           for k, v in _operands().items()}
+    ops["cameras"] = CameraParams(**{
+        name: getattr(ops["cameras"], name).to("meta")
+        for name in ("R", "T", "f", "c", "k", "p")})
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_dlt(**ops)
+
+
+def _serve(cfg, batch):
+    return make_eval_step(cfg, _model(cfg), THRESHOLD)(batch)
+
+
+@pytest.mark.parametrize("solver", ["jacobi", "eigh", "svd", "st"])
+def test_served_layers_on_the_cpu_take_the_plain_chain(counters, solver):
+    cfg = _cfg(DECODER__triangulation_method=solver)
+    batch = make_batch(cfg, seed=2, num_people=2, device="cpu")
+    pred = _serve(cfg, batch)
+    assert torch.isfinite(pred).all()
+    assert counters() == (0, 0)
+
+
+def _as_if_on_the_card(monkeypatch):
+    """The rule as it decides for CUDA tensors; the fused branch then runs
+    fused_dlt on the CPU, which is plain_dlt."""
+    rule = dlt_jacobi.fused_path
+    monkeypatch.setattr(
+        dlt_jacobi, "fused_path",
+        lambda device, *args: rule(CUDA, *args))
+
+
+@pytest.mark.parametrize("overrides", [
+    {}, {"DECODER__bayesian_update": True},
+    {"DECODER__inference_topk_queries": 8},
+    {"DECODER__inference_topk_queries": 8, "DECODER__bayesian_update": True},
+], ids=["dense", "bayesian", "topk", "topk_bayesian"])
+def test_fused_branch_gives_the_plain_chains_bits(monkeypatch, counters,
+                                                   overrides):
+    cfg = _cfg(**overrides)
+    batch = make_batch(cfg, seed=4, num_people=3, device="cpu")
+    model = _model(cfg)
+    step = make_eval_step(cfg, model, THRESHOLD)
+    want = step(batch)
+    with torch.inference_mode():
+        want_outs = model(batch, threshold=THRESHOLD)
+    assert counters() == (0, 0)
+    _as_if_on_the_card(monkeypatch)
+    calls = []
+
+    def spy(*args, **kwargs):
+        calls.append(args[0].shape)
+        return plain_dlt(*args, **kwargs)
+
+    monkeypatch.setattr(dlt_jacobi, "plain_dlt", spy)
+    got = step(batch)
+    with torch.inference_mode():
+        got_outs = model(batch, threshold=THRESHOLD)
+    assert len(calls) == 2 * LAYERS  # every layer took the fused branch
+    assert torch.equal(got, want)
+    for a, b in zip(got_outs, want_outs):
+        for key in ("pred_poses", "pred_logits", "pred_poses_2d"):
+            assert torch.equal(a[key], b[key]), key
+    # nothing launched on the CPU, and no Jacobi call went plain
+    assert counters() == (0, 0)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_training_keeps_the_plain_chain(monkeypatch, counters, remat):
+    cfg = _cfg(PARALLEL__REMAT_DECODER=remat)
+    batch = make_batch(cfg, seed=6, num_people=2, device="cpu")
+
+    def losses():
+        model = _model(cfg)
+        state, tx = create_train_state(cfg, model)
+        step = make_train_step(cfg, model, tx)
+        _, metrics = step(state, batch, torch.Generator().manual_seed(5))
+        return metrics
+
+    want = losses()
+    _as_if_on_the_card(monkeypatch)
+    got = losses()
+    assert set(got) == set(want)
+    for key in want:
+        assert torch.equal(torch.as_tensor(got[key]),
+                           torch.as_tensor(want[key])), key
+    launches, plain = counters()
+    assert launches == 0
+    # each layer's forward, and again in the remat recompute
+    assert plain == LAYERS * (2 if remat else 1)

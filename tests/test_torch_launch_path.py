@@ -1,9 +1,9 @@
 """The kernel wrappers' shared launch path (`ops/_build.py::Launcher`) and
 the launch-cost tool, on the CPU: every wrapper module launches through a
 Launcher whose last argument is the stream, built and bound only at its
-first call; the choice between the sampling kernels' vector and generic
-instances (`vector_width`); the probe wrappers' device check; and the tool
-refuses to run without a card.
+first call; each source's nvcc flags; the choice between the sampling
+kernels' vector and generic instances (`vector_width`); the probe wrappers'
+device check; and the tool refuses to run without a card.
 """
 
 import ctypes
@@ -12,9 +12,9 @@ from pathlib import Path
 import pytest
 import torch
 
-from mvgformer_tpu_torch.ops import (_build, deform_attn, gather_forms,
-                                     table_build, table_gather, window_block,
-                                     window_dma)
+from mvgformer_tpu_torch.ops import (_build, deform_attn, dlt_jacobi,
+                                     gather_forms, table_build, table_gather,
+                                     window_block, window_dma)
 
 LAUNCHERS = {
     "deform_sample": deform_attn._FORWARD,
@@ -28,6 +28,7 @@ LAUNCHERS = {
     "scale": gather_forms._SCALE,
     "table_slots": table_build._BUILD,  # B2's kernel with a slot map
     "noop": gather_forms._NOOP,
+    "dlt_jacobi": dlt_jacobi._LAUNCH,
 }
 
 
@@ -38,6 +39,19 @@ def test_every_wrapper_launches_through_a_launcher(name):
     assert launcher.src.parent == _build.CSRC and launcher.src.is_file()
     assert launcher.name in launcher.src.read_text()
     assert launcher.argtypes[-1] is ctypes.c_void_p  # the stream
+
+
+@pytest.mark.parametrize("src", sorted(p.name for p in
+                                       _build.CSRC.glob("*.cu")))
+def test_nvcc_flags_per_source(src):
+    """Every source takes the shared flags; only the DLT, which rounds
+    where the plain torch chain does, also turns off fused multiply-adds,
+    and its flags are part of its library's name."""
+    path = _build.CSRC / src
+    flags = _build.flags(path)
+    assert flags[:len(_build.NVCC_FLAGS)] == _build.NVCC_FLAGS
+    extra = flags[len(_build.NVCC_FLAGS):]
+    assert extra == (("-fmad=false",) if src == "dlt_jacobi.cu" else ())
 
 
 def test_launcher_binds_at_its_first_call_only():

@@ -4,7 +4,8 @@ same weights, carried across by `port_state_dict_from_jax`:
   * the PoseResNet backbone;
   * the whole forward on the three golden toy configs of
     tools/make_golden.py (dense_linalg, topk_jacobi, topk_jacobi_ptop4),
-    at the golden tolerance classes of tests/test_golden.py;
+    at the golden tolerance classes of tests/test_golden.py, also with the
+    DLT's dispatch deciding as on the card (ops/dlt_jacobi.py);
   * make_eval_step's pred;
   * the converter round trip through the JAX package's own converter;
   * the synthetic batch, made in numpy from the same seed.
@@ -85,6 +86,34 @@ def test_slice_matches_jax(name):
     assert len(outs) == len(r["outs"])
     for got, want in zip(outs, r["outs"]):
         _assert_golden_classes({k: v.numpy() for k, v in got.items()}, want)
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_slice_matches_jax_through_the_dlt_dispatch(name, monkeypatch):
+    """The golden forward with the DLT rule deciding as for CUDA tensors:
+    the Jacobi configs take the fused branch (on the CPU, the plain chain
+    as `fused_dlt` runs it), the others the plain chain; the outputs are
+    the undispatched forward's bits and within the golden classes of JAX's.
+    Nothing launches and no call counts as plain."""
+    from mvgformer_tpu_torch.ops import dlt_jacobi
+
+    r = _run(name)
+    batch = batch_from_jax(r["batch"])
+    with torch.no_grad():
+        want = r["model"](batch, threshold=THRESHOLD)
+    rule = dlt_jacobi.fused_path
+    monkeypatch.setattr(dlt_jacobi, "fused_path", lambda device, *args:
+                        rule(torch.device("cuda"), *args))
+    counts = (dlt_jacobi.fused_dlt.launches, dlt_jacobi.fused_dlt.plain_calls)
+    with torch.no_grad():
+        outs = r["model"](batch, threshold=THRESHOLD)
+    assert (dlt_jacobi.fused_dlt.launches,
+            dlt_jacobi.fused_dlt.plain_calls) == counts
+    for got, ref, jax_out in zip(outs, want, r["outs"]):
+        for key in got:
+            assert torch.equal(got[key], ref[key]), key
+        _assert_golden_classes({k: v.numpy() for k, v in got.items()},
+                               jax_out)
 
 
 def test_backbone_matches_jax():
