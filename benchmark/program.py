@@ -1,16 +1,20 @@
 """What the benchmark takes from the measured program, the PyTorch port
 `mvgformer_tpu_torch`: its configuration loader, its model builder, the
-serving entry `core.infer.make_eval_step` and its batch types. Nothing
-else of the benchmark imports the port.
+serving entry `core.infer.make_eval_step` and its batch types, and its
+counters (`counters`). Nothing else of the benchmark imports the port.
 """
 
 from __future__ import annotations
 
 import json
+import sys
 
 import torch
 
 BACKBONE_RANGE = "bench.backbone"
+# the port's counter registry, where it has one: a mapping of counter names
+# to counts in `utils/profiling.py`
+REGISTRY = "COUNTERS"
 
 
 def config(spec: dict):
@@ -94,3 +98,27 @@ def mark_backbone(net) -> None:
 
     net.backbone.register_forward_pre_hook(enter)
     net.backbone.register_forward_hook(leave)
+
+
+def counters() -> dict:
+    """A snapshot of the port's counters, by name: the serving DLT kernel's
+    `fused_dlt.launches` and `fused_dlt.plain_calls` (`ops/dlt_jacobi.py`),
+    each collective's forward calls as `collectives.<axis>.<kind>`
+    (`parallel/collectives.py::COUNTS`), and every count of the port's
+    registry (`utils/profiling.py::COUNTERS`) where it has one, under its
+    own name."""
+    from mvgformer_tpu_torch.ops.dlt_jacobi import fused_dlt
+    from mvgformer_tpu_torch.parallel import collectives
+    from mvgformer_tpu_torch.utils import profiling
+
+    out = {"fused_dlt.launches": fused_dlt.launches,
+           "fused_dlt.plain_calls": fused_dlt.plain_calls}
+    out.update((f"collectives.{k}", v) for k, v in collectives.COUNTS.items())
+    registry = getattr(profiling, REGISTRY, None)
+    if registry is None:
+        print(f"counters: the port has no registry "
+              f"utils/profiling.py::{REGISTRY}; the record holds only "
+              f"{', '.join(sorted(out))}", file=sys.stderr)
+    else:
+        out.update(registry)
+    return {k: int(v) for k, v in out.items()}

@@ -81,6 +81,15 @@ def forbidden_modules():
     return sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 
 
+def loads_forbidden() -> bool:
+    """Whether JAX or the JAX package is loaded in this process, named on
+    standard error where it is: a run that loads one prints no result."""
+    found = forbidden_modules()
+    if found:
+        print(f"loaded in the run: {', '.join(found)}", file=sys.stderr)
+    return bool(found)
+
+
 def require_cards(count: int) -> None:
     import torch
 
@@ -181,9 +190,7 @@ def main(argv=None) -> int:
 
     out = run_cell(bench, cell, args.seed, args.seconds, bool(args.trace),
                    torch.device("cuda", 0), T0)
-    found = forbidden_modules()
-    if found:
-        print(f"loaded in the run: {', '.join(found)}", file=sys.stderr)
+    if loads_forbidden():
         return 3
     result = out["result"]
     for name, c in result["checks"].items():

@@ -25,10 +25,16 @@ operations whose runtime call the window does not hold), so that the
 spans' ops plus the unspanned ones are the window's `device_ops`. Times
 are the profiler's microseconds, given in seconds.
 
+`trace.record` reduces every traced window's events here once and keeps
+`spans` and `unspanned` in the record that the readers of `benchmark/
+metrics/` read (`spanned`, `per_unit_ms`, `ops_per_unit`).
+
 `python3 -m benchmark.spans --workload <cell> --seed <n> --seconds <s>`
 runs a cell as `benchmark.run --trace 1` does and prints its result line
-with the spans of its traced window, their breakdown (`idle_by_span`) and
-the span metrics (`benchmark/metrics/`, `SPAN_METRICS`) beside it.
+with the record's spans beside it: `spans`, `unspanned`, the span metrics
+(`SPAN_METRICS`, also in the result's `metrics`) and the traced window's
+idle seconds. Like `benchmark.run`, it prints no result and exits 3 where
+JAX or the JAX package is loaded once the window has closed.
 """
 
 from __future__ import annotations
@@ -186,26 +192,8 @@ def ops_per_unit(record: dict, name: str, unit: str) -> Optional[float]:
     return entries[0]["ops"] / count
 
 
-# the profilers that closed while `keep` was on, the last one last
-KEPT: list = []
-
-
-def keep():
-    """Keep every profiler the run opens (`torch.profiler.profile`, which
-    `trace.traced` takes at call time) in KEPT once it closes."""
-    import torch.profiler
-
-    class Kept(torch.profiler.profile):
-        def __exit__(self, *exc):
-            out = super().__exit__(*exc)
-            KEPT.append(self)
-            return out
-
-    torch.profiler.profile = Kept
-
-
 def main(argv=None) -> int:
-    from benchmark import program, run
+    from benchmark import run
 
     parser = argparse.ArgumentParser(
         description="a cell's traced run with the program's spans")
@@ -219,30 +207,22 @@ def main(argv=None) -> int:
     run.require_cards(cell["chips"])
     import torch
 
-    keep()
     out = run.run_cell(bench, cell, args.seed, args.seconds, True,
                        torch.device("cuda", 0), run.T0)
-    record = out["record"]
-    got = reduce(KEPT[-1].events(), (program.BACKBONE_RANGE,))
-    if got["device_ops"] != record["device_ops"]:
-        raise RuntimeError(f"the spans count {got['device_ops']} device "
-                           f"operations, the trace {record['device_ops']}")
-    record.update(spans=got["spans"], unspanned=got["unspanned"])
-    result = out["result"]
-    result["breakdown"]["idle_by_span"] = got["idle_by_span"]
-    metrics = {}
-    for name in SPAN_METRICS:
-        value = run.module_at(run.HERE / "metrics" / f"{name}.py").read(
-            record)
-        if value is not None:
-            metrics[name] = value
-    spanned_idle = sum(v["idle_s"] for v in got["spans"].values())
+    if run.loads_forbidden():
+        return 3
+    record, result = out["record"], out["result"]
+    if "spans" not in record:
+        raise RuntimeError("the record holds no spans (see standard error)")
+    spanned_idle = sum(v["idle_s"] for v in record["spans"].values())
+    idle_s = spanned_idle + record["unspanned"]["idle_s"]
     result.update(
-        spans=got["spans"], unspanned=got["unspanned"],
-        span_metrics=metrics,
-        traced={"idle_s": got["idle_s"],
-                "spanned_idle_share": (spanned_idle / got["idle_s"]
-                                       if got["idle_s"] else None),
+        spans=record["spans"], unspanned=record["unspanned"],
+        span_metrics={n: m["value"] for n, m in result["metrics"].items()
+                      if n in SPAN_METRICS},
+        traced={"idle_s": idle_s,
+                "spanned_idle_share": spanned_idle / idle_s if idle_s
+                else None,
                 "units": record.get("frames", record.get("steps"))})
     print(json.dumps(result), flush=True)
     return 0

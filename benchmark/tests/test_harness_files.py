@@ -123,3 +123,10 @@ def test_layers_match_perf_md():
     perf = (CHECKOUT / "PERF.md").read_text()
     for metric in BENCH["per_layer"]:
         assert metric["layer"] in perf
+
+
+def test_every_reader_is_a_per_layer_entry():
+    """A reader in `metrics/` that no entry lists is read by no run."""
+    listed = {m["name"] for m in BENCH["per_layer"]}
+    readers = {p.name[:-3] for p in (run.HERE / "metrics").glob("*.py")}
+    assert readers == listed

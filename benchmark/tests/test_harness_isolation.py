@@ -8,12 +8,13 @@ import json
 import os
 import subprocess
 import sys
+import types
 
 import pytest
 
 from harness_toy import CHECKOUT
 
-from benchmark import run
+from benchmark import run, spans
 
 FORBIDDEN_REFERENCE = ("jax", "jaxlib", "flax", "mvgformer_tpu",
                        "mvgformer_tpu_torch")
@@ -57,3 +58,47 @@ def test_no_card_no_result():
         capture_output=True, text=True, env=env, cwd=CHECKOUT, timeout=300)
     assert out.returncode != 0
     assert out.stdout.strip() == ""
+
+
+def finished_run(*args, **kwargs):
+    """A cell's run as `run.run_cell` returns it, with spans in its record."""
+    record = {"spans": {"mvg.step": {"ops": 3, "idle_s": 0.002}},
+              "unspanned": {"ops": 1, "idle_s": 0.001}, "frames": 1}
+    result = {"correct": True, "attempted": 1, "failed": 0, "metrics": {},
+              "device": {"platform": "gpu"},
+              "checks": {"score_gap": {"value": 0.001, "limit": 0.01}}}
+    return {"record": record, "result": result}
+
+
+@pytest.mark.parametrize("loaded", [True, False], ids=["jax", "none"])
+@pytest.mark.parametrize("entry", ["benchmark.run", "benchmark.spans"])
+def test_forbidden_module_no_result(entry, loaded, monkeypatch, capsys):
+    """Either entry prints no result and exits 3 where JAX is loaded once
+    the run has ended, and prints its result where nothing is."""
+    main = (run.main if entry == "benchmark.run" else spans.main)
+    monkeypatch.setattr(run, "cache_dirs", lambda: None)
+    monkeypatch.setattr(run, "require_cards", lambda count: None)
+    monkeypatch.setattr(run, "run_cell", finished_run)
+    for name in run.forbidden_modules():
+        monkeypatch.delitem(sys.modules, name)
+    if loaded:
+        monkeypatch.setitem(sys.modules, "jax", types.ModuleType("jax"))
+    rc = main(["--workload", "dq_serve_live_b1", "--seed", str(2 ** 31 + 9),
+               "--seconds", "1"])
+    out = capsys.readouterr()
+    if loaded:
+        assert rc == 3
+        assert out.out.strip() == ""
+        assert "loaded in the run: jax" in out.err
+    else:
+        assert rc == 0
+        assert json.loads(out.out.strip().splitlines()[-1])["correct"]
+
+
+@pytest.mark.parametrize("path", sorted(
+    p for p in (CHECKOUT / "benchmark").rglob("*.py")
+    if "tests" not in p.parts and p.name != "program.py"),
+    ids=lambda p: str(p.relative_to(CHECKOUT / "benchmark")))
+def test_only_program_imports_the_port(path):
+    for name in imports(path):
+        assert name.split(".")[0] not in FORBIDDEN_REFERENCE, name

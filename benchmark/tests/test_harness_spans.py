@@ -1,5 +1,6 @@
-"""The program's spans in a traced window (`benchmark/spans.py`) and the
-readers of the span metrics, on synthetic profiler events."""
+"""The program's spans and counters in a traced window's record
+(`benchmark/spans.py`, `benchmark/trace.py`) and the readers of the span
+and counter metrics, on synthetic profiler events."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from harness_toy import CHECKOUT  # noqa: F401
 
 from torch.autograd import DeviceType  # noqa: E402
 
-from benchmark import run, spans  # noqa: E402
+from benchmark import program, run, spans, trace  # noqa: E402
 
 MAIN, AUTOGRAD = 1, 2
 
@@ -165,3 +166,132 @@ def test_span_readers_leave_out_what_did_not_run(name):
         assert reader.read(mvp) is None
     if name.endswith(".serve"):
         assert reader.read(TRAIN) is None
+
+
+# EVENTS less the device-side span of `mvg.layer0`, which the trace counts
+# as an operation and the spans do not
+TRACED = [e for e in EVENTS
+          if not (e.device_type == DeviceType.CUDA and e.name == "mvg.layer0")]
+
+
+def test_the_record_holds_the_spans_beside_its_keys():
+    got = trace.record(TRACED, 0.5, ("bench.backbone",))
+    # the keys the record held before it held the spans, as they were
+    assert got["window_s"] == 0.5
+    assert got["busy_s"] == pytest.approx(36e-6)
+    assert got["device_ops"] == 6
+    assert got["kernels"] == {"kernel": [pytest.approx(36e-6), 6]}
+    assert got["ranges"] == {"bench.backbone": 0.0}
+    assert got["breakdown"]["device_ops"] == [["kernel",
+                                               pytest.approx(36e-6)]]
+    assert got["breakdown"]["idle_gaps"] == [
+        ["mvg.step", pytest.approx(25e-6)],
+        ["mvg.layer0", pytest.approx(20e-6)],
+        ["mvg.dlt", pytest.approx(15e-6)],
+        ["mvg.layer0", pytest.approx(10e-6)],
+        ["harness", pytest.approx(2e-6)]]
+    # the spans, as `spans.reduce` gives them for the same events
+    want = spans.reduce(TRACED, ("bench.backbone",))
+    assert got["spans"] == want["spans"]
+    assert got["unspanned"] == want["unspanned"]
+    assert got["breakdown"]["idle_by_span"] == want["idle_by_span"]
+    assert sum(v["ops"] for v in got["spans"].values()) \
+        + got["unspanned"]["ops"] == got["device_ops"]
+    assert got["counters"] == {}
+
+
+def test_an_ops_mismatch_leaves_the_spans_out(capsys):
+    got = trace.record(EVENTS, 0.5, ("bench.backbone",))
+    assert got["device_ops"] == 7  # the span's device side counted
+    assert "spans" not in got and "unspanned" not in got
+    assert "idle_by_span" not in got["breakdown"]
+    assert "spans left out" in capsys.readouterr().err
+    # so the span readers read nothing, and the rest reads as before
+    record = dict(got, frames=1, frame_s=0.05)
+    for name in spans.SPAN_METRICS:
+        reader = run.module_at(run.HERE / "metrics" / f"{name}.py")
+        assert reader.read(record) is None
+    # [12, 60) joins [5, 15) and [45, 50): 55 + 10 + 5 + 1 us busy
+    assert got["busy_s"] == pytest.approx(71e-6)
+
+
+def test_the_span_readers_read_the_record():
+    record = dict(trace.record(TRACED, 0.5, ("bench.backbone",)),
+                  frames=2, frame_s=0.25)
+    read = {name: run.module_at(run.HERE / "metrics" / f"{name}.py").read(
+        record) for name in spans.SPAN_METRICS}
+    assert read["dlt_ops_per_frame.serve"] == 1.0  # 2 ops, 2 frames
+    # 20 us of the traced 0.5 s, at 0.25 untraced s a frame
+    assert read["dlt_host_ms.serve"] == pytest.approx(1e3 * 20e-6 / 0.5
+                                                      * 0.25)
+    assert read["decoder_host_ms.serve"] == pytest.approx(1e3 * 50e-6
+                                                          / 0.5 * 0.25)
+    assert read["projattn_host_ms.serve"] is None  # no such span ran
+    assert all(read[n] is None for n in spans.SPAN_METRICS
+               if n.endswith(".train"))
+
+
+def test_traced_records_the_counters_its_units_moved(monkeypatch):
+    """The port's counters, its registry where it has one, moved inside
+    the traced function, and only there."""
+    import collections
+
+    import torch
+
+    from mvgformer_tpu_torch.ops.dlt_jacobi import fused_dlt
+    from mvgformer_tpu_torch.parallel import collectives
+    from mvgformer_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(profiling, program.REGISTRY, collections.Counter(
+        {"model.calls": 4}), raising=False)
+    monkeypatch.setattr(fused_dlt, "launches", fused_dlt.launches + 3)
+    monkeypatch.setattr(collectives, "COUNTS", collections.Counter())
+    real = trace.record
+    # the CPU's profiler sees no device: the events of EVENTS stand in
+    monkeypatch.setattr(trace, "record", lambda events, *rest: real(
+        list(events) + TRACED, *rest))
+
+    def unit():
+        fused_dlt.launches += 4
+        fused_dlt.plain_calls += 1
+        collectives.COUNTS["view.all_gather"] += 2
+        getattr(profiling, program.REGISTRY)["model.calls"] += 1
+
+    got = trace.traced(unit, 2, ("bench.backbone",))
+    assert got["counters"] == {"fused_dlt.launches": 8,
+                               "fused_dlt.plain_calls": 2,
+                               "collectives.view.all_gather": 4,
+                               "model.calls": 2}
+    assert got["device_ops"] == 6 and "spans" in got
+
+
+@pytest.mark.parametrize("counters,value", [
+    ({"fused_dlt.launches": 8, "fused_dlt.plain_calls": 0}, 100.0),
+    ({"fused_dlt.launches": 0, "fused_dlt.plain_calls": 8}, 0.0),
+    ({"fused_dlt.launches": 3, "fused_dlt.plain_calls": 1}, 75.0),
+    ({"fused_dlt.launches": 0, "fused_dlt.plain_calls": 0}, None),
+    ({}, None)])
+def test_dlt_fused_pct(counters, value):
+    reader = run.module_at(run.HERE / "metrics" / "dlt_fused_pct.serve.py")
+    assert reader.read({"counters": counters}) == value
+    assert reader.read({}) is None  # a record without counters
+
+
+def test_counters_say_when_the_port_has_no_registry(monkeypatch, capsys):
+    """Without the port's registry the snapshot holds the counters it reads
+    by name and says on standard error which registry it missed; with it,
+    every count of the registry and no such line."""
+    import collections
+
+    from mvgformer_tpu_torch.utils import profiling
+
+    monkeypatch.delattr(profiling, program.REGISTRY, raising=False)
+    got = program.counters()
+    assert {"fused_dlt.launches", "fused_dlt.plain_calls"} <= set(got)
+    assert f"no registry utils/profiling.py::{program.REGISTRY}" \
+        in capsys.readouterr().err
+    monkeypatch.setattr(profiling, program.REGISTRY, collections.Counter(
+        {"model.calls": 2}), raising=False)
+    assert program.counters()["model.calls"] == 2
+    assert capsys.readouterr().err == ""

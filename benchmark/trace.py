@@ -5,13 +5,23 @@ The record holds the window's wall seconds, the device's busy seconds (the
 union of every kernel, copy and set interval), the device operations
 counted, each device operation's seconds and count by name, and the device
 seconds of the benchmark's own profiler ranges (the CUDA time that the
-profiler attributes to each range's events).
+profiler attributes to each range's events). From the program it holds
+
+  * `spans` and `unspanned`: the window's device operations, host time and
+    idle gaps charged to the program's `mvg.` spans (`benchmark/spans.py`),
+    and `breakdown["idle_by_span"]`. Left out, with a line on standard
+    error, where the spans' operations and the unspanned ones do not add
+    up to `device_ops`;
+  * `counters`: each of the program's counters (`program.counters`) moved
+    by the traced units, as the difference of a snapshot after them and
+    one before.
 """
 
 from __future__ import annotations
 
+import sys
 import time
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, Iterable, List, Mapping, Optional, Tuple
 
 
 # host events of the profiler's own bookkeeping, which name no gap
@@ -34,10 +44,12 @@ def traced(fn: Callable[[], None], units: int,
            ranges: Tuple[str, ...] = ()) -> dict:
     """Trace `units` calls of fn (each ends with its result on the host)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from benchmark import program
+
     torch.cuda.synchronize()
+    before = program.counters()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -45,7 +57,25 @@ def traced(fn: Callable[[], None], units: int,
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    counters = moved(before, program.counters())
+    t1 = time.perf_counter()
     events = prof.events()
+    t2 = time.perf_counter()
+    out = record(events, wall, ranges, counters)
+    print(f"trace: {len(events)} events read in {t2 - t1:.3f} s, "
+          f"reduced in {time.perf_counter() - t2:.3f} s", file=sys.stderr)
+    return out
+
+
+def record(events: Iterable, wall: float, ranges: Tuple[str, ...] = (),
+           counters: Optional[Mapping[str, int]] = None) -> dict:
+    """The record of a traced window's profiler events (`prof.events()`),
+    its wall seconds, and the program's counters that it moved."""
+    from torch.autograd import DeviceType
+
+    from benchmark import spans
+
+    events = list(events)
     device, host = [], []
     kernels: Dict[str, List[float]] = {}
     range_s = {name: 0.0 for name in ranges}
@@ -64,11 +94,30 @@ def traced(fn: Callable[[], None], units: int,
                 range_s[e.name] += _device_us(e) / 1e6
     if not device:
         raise RuntimeError("the profiler saw no device operation")
-    return {"window_s": wall,
-            "busy_s": sum(b - a for a, b in merged(device)) / 1e6,
-            "device_ops": len(device),
-            "kernels": kernels, "ranges": range_s,
-            "breakdown": breakdown(kernels, device, host)}
+    out = {"window_s": wall,
+           "busy_s": sum(b - a for a, b in merged(device)) / 1e6,
+           "device_ops": len(device),
+           "kernels": kernels, "ranges": range_s,
+           "breakdown": breakdown(kernels, device, host),
+           "counters": dict(counters or {})}
+    # `reduce` charges each device operation it counts to a span or to
+    # `unspanned`
+    got = spans.reduce(events, ranges)
+    if got["device_ops"] == out["device_ops"]:
+        out.update(spans=got["spans"], unspanned=got["unspanned"])
+        out["breakdown"]["idle_by_span"] = got["idle_by_span"]
+    else:
+        print(f"spans left out: they charge {got['device_ops']} device "
+              f"operations, the trace counts {out['device_ops']}",
+              file=sys.stderr)
+    return out
+
+
+def moved(before: Mapping[str, int], after: Mapping[str, int]
+          ) -> Dict[str, int]:
+    """Each counter's difference, after less before, by name."""
+    return {name: after.get(name, 0) - before.get(name, 0)
+            for name in sorted(set(before) | set(after))}
 
 
 def _device_us(event) -> float:
