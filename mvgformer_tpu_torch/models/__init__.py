@@ -1,4 +1,5 @@
-"""Model layer: backbone, DQ decoder, MVGFormer top model, MvP baseline."""
+"""Model layer: backbone, DQ decoder, MVGFormer top model, the MvP and
+VoxelPose baselines."""
 
 from __future__ import annotations
 
@@ -8,9 +9,11 @@ import torch
 
 from mvgformer_tpu_torch.config import Config
 
-# the cfg.TRANSFORMER values: the paper model and the MvP baseline
+# the cfg.TRANSFORMER values: the paper model, the MvP baseline and the
+# volumetric VoxelPose baseline (serving only)
 DQ_TRANSFORMER = "dq_transformer"
 MVP_TRANSFORMER = "multi_view_pose_transformer"
+VOXELPOSE = "voxelpose"
 
 
 def build_model(cfg: Config, generator: Optional[torch.Generator] = None,
@@ -26,9 +29,13 @@ def build_model(cfg: Config, generator: Optional[torch.Generator] = None,
         from mvgformer_tpu_torch.models.mvp_decoder import MvPTransformer
 
         return MvPTransformer(cfg, generator=generator, device=device)
+    if cfg.TRANSFORMER == VOXELPOSE:
+        from mvgformer_tpu_torch.models.voxelpose import VoxelPose
+
+        return VoxelPose(cfg, generator=generator, device=device)
     raise ValueError(
         f"unknown TRANSFORMER {cfg.TRANSFORMER!r}; expected "
-        f"{DQ_TRANSFORMER!r} or {MVP_TRANSFORMER!r}")
+        f"{DQ_TRANSFORMER!r}, {MVP_TRANSFORMER!r} or {VOXELPOSE!r}")
 
 
 def is_dq(cfg: Config) -> bool:
@@ -36,3 +43,11 @@ def is_dq(cfg: Config) -> bool:
     initial query grid to match on and a layer 1 that takes a window plan,
     rather than the MvP baseline."""
     return cfg.TRANSFORMER == DQ_TRANSFORMER
+
+
+def refuse_voxelpose(cfg: Config, what: str) -> None:
+    """Raise where `what` is asked of VoxelPose, which the port serves
+    only (`core/infer.py::make_eval_step`)."""
+    if cfg.TRANSFORMER == VOXELPOSE:
+        raise ValueError(f"{what}: the port serves VoxelPose only "
+                         f"(make_eval_step), it does not train it")

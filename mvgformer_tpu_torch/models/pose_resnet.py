@@ -4,7 +4,9 @@ Port of `mvgformer_tpu/models/pose_resnet.py`, with the original torch
 parameter names (`conv1`, `layer1.0.conv1`, `layer1.0.downsample.0`,
 `deconv_layers.{0,3,6}`, ...). The forward returns the three *pre-BN*
 deconv outputs selected by `use_feat_level`. BatchNorm always uses its
-running statistics (eps 1e-5): the backbone is frozen.
+running statistics (eps 1e-5): the backbone is frozen. VoxelPose's backbone
+(`heatmap_joints`) adds the published heatmap head, `final_layer`: the last
+deconvolution's BN and ReLU, then a 1x1 convolution to one map per joint.
 
 Public tensors are NHWC, like the JAX package. Inside, the image batch is a
 channels_last NCHW tensor, the layout cuDNN convolves fastest.
@@ -12,7 +14,7 @@ channels_last NCHW tensor, the layout cuDNN convolves fastest.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -88,7 +90,8 @@ class PoseResNet(nn.Module):
     def __init__(self, num_layers: int = 50,
                  deconv_filters: Sequence[int] = (256, 256, 256),
                  dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 heatmap_joints: Optional[int] = None):
         super().__init__()
         self.dtype = dtype
         self.conv1 = _conv(3, 64, 7, 2, 3, generator)
@@ -117,10 +120,20 @@ class PoseResNet(nn.Module):
             deconv += [dc, nn.BatchNorm2d(f), nn.ReLU(inplace=True)]
             inplanes = f
         self.deconv_layers = nn.Sequential(*deconv)
+        self.final_layer = None
+        if heatmap_joints is not None:
+            # built for VoxelPose alone, so the other models' state dicts
+            # (and the weights drawn for them by name) stay as they are
+            self.final_layer = nn.Conv2d(inplanes, heatmap_joints, 1)
+            with torch.no_grad():
+                nn.init.normal_(self.final_layer.weight, 0.0, 0.001,
+                                generator=generator)
+                self.final_layer.bias.zero_()
 
     def forward(self, x: torch.Tensor,
-                use_feat_level: Sequence[int] = (0, 1, 2)
-                ) -> List[torch.Tensor]:
+                use_feat_level: Sequence[int] = (0, 1, 2)):
+        """The pre-BN levels of `use_feat_level`, or where the heatmap
+        head was built (VoxelPose's backbone) its heatmaps (N, J, h, w)."""
         x = x.to(self.dtype).permute(0, 3, 1, 2)  # channels_last NCHW view
         x = F.relu(_bn(_conv_fwd(x, self.conv1), self.bn1))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
@@ -132,5 +145,8 @@ class PoseResNet(nn.Module):
             x = _conv_fwd(x, self.deconv_layers[3 * di])
             feats.append(x)  # pre-BN, as in the reference forward
             x = F.relu(_bn(x, self.deconv_layers[3 * di + 1]))
+        head = self.final_layer
+        if head is not None:
+            return F.conv2d(x, head.weight.to(x.dtype), head.bias.to(x.dtype))
         return [f.permute(0, 2, 3, 1).contiguous()
                 for i, f in enumerate(feats) if i in tuple(use_feat_level)]

@@ -5,13 +5,17 @@ marks a layer of the program on `torch.profiler`'s timeline, the clock of
 the card's activity, while a profiler records, and costs one flag check
 otherwise; `SPANS` names every span the program opens. `trace()` writes a
 profiler trace of a block as a Chrome trace, the spans above the ops and
-kernels they launch. On the card, `count_syncs` counts the synchronizing
-operations a call makes and `profile_window` the device's busy and idle
-time over a profiler window.
+kernels they launch. `COUNTERS` is the port's counter registry: `count(name,
+n)` adds to a named count that the host already knows (no device read), and
+the benchmark's traced runs record each count that their units moved. On
+the card, `count_syncs` counts the synchronizing operations a call makes
+and `profile_window` the device's busy and idle time over a profiler
+window.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import tempfile
@@ -24,11 +28,25 @@ import torch.autograd.profiler as _autograd_profiler
 
 # every span the program opens: the step of serving (`core/infer.py`) or
 # training (`core/train.py`), and inside it the model's layers; LAYER is
-# the name of decoder layer l (from 0), `LAYER.format(l)`
+# the name of decoder layer l (from 0), `LAYER.format(l)`; `mvg.vp.*` are
+# VoxelPose's (`models/voxelpose.py`)
 LAYER = "mvg.layer{}"
 SPANS = ("mvg.step", "mvg.backbone", "mvg.init", LAYER, "mvg.project",
          "mvg.projattn", "mvg.topk", "mvg.dlt", "mvg.pred", "mvg.match",
-         "mvg.forward", "mvg.loss", "mvg.backward", "mvg.update")
+         "mvg.forward", "mvg.loss", "mvg.backward", "mvg.update",
+         "mvg.vp.volume", "mvg.vp.cpn", "mvg.vp.propose", "mvg.vp.prn",
+         "mvg.vp.softargmax")
+
+# the port's counter registry, by name: VoxelPose's `voxelpose.root_volumes`
+# and `voxelpose.prn_volumes` (the volumes its two V2V networks computed)
+COUNTERS: collections.Counter = collections.Counter()
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to the registry's count `name`. `n` is a number the host
+    holds already (a shape, a batch size), never a device value, so that
+    counting adds no synchronization."""
+    COUNTERS[name] += n
 
 
 class _Off:

@@ -286,7 +286,8 @@ def test_build_model_dispatch(transformer, cls):
 
 def test_build_model_unknown_transformer_raises():
     cfg = mvp_cfg()
-    cfg.TRANSFORMER = "voxelpose"
+    # a name neither package builds (the port builds "voxelpose" too)
+    cfg.TRANSFORMER = "pictorial_structures"
     with pytest.raises(ValueError, match="TRANSFORMER"):
         jax_build_model(cfg)
     with pytest.raises(ValueError, match="TRANSFORMER"):
