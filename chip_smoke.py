@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--parent DIR] [--benches-only] [--dlt-only]
+                          [--point-topm-only]
 
 Runs from the root of a checkout, needs one CUDA card and nvcc (CUDA_HOME or
 /usr/local/cuda), and builds the port's kernels from the checkout's sources
@@ -8,9 +9,10 @@ into build/kernels/. Phases, each printed on its own line; any failure
 exits non-zero:
 
   1. find the card and print its name and power limit;
-  2. build the seven sources at once (deformable sampling, the two window
+  2. build the eight sources at once (deformable sampling, the two window
      kernels, the corner-table build, the table gather-reduce forward and
-     backward, the serving DLT and the probe kernels' gather forms), one
+     backward, the serving DLT, point-top-m and the probe kernels' gather
+     forms), one
      nvcc each, and
      print ptxas's registers, stack and spill bytes per kernel instance;
   3. hold the deformable-sampling kernel against its plain PyTorch version
@@ -216,6 +218,13 @@ exits non-zero:
      training; 26c `python3 -m benchmark.spans` on dq_serve_live_b1 and
      dq_serve_offline_b8 (10 s each): `mvg.dlt`'s ops and host ms a frame,
      the device ops a frame and the idle share.
+ 27. point-top-m in ProjAttn (`ops/point_topm.py`, one kernel per decoder
+     layer): 27a at the live dense layer's shape (5, 15360, 8, 3, 8) and a
+     top-64 layer's (5, 960, 8, 3, 8), m 4, the kernel against the plain
+     chain (kept locations equal, weights within rtol 1e-6), timed as the
+     other kernels beside the plain chain's `plain_ms` and the bound; 27b
+     the flagship bf16 model serves a frame at batch 1 and at batch 8:
+     `point_topm.launches` one up per decoder layer.
 
 Phase 10 also holds F.embedding_bag, the library call of B3's function,
 against B3's plain versions and times it. The models, batches and window
@@ -226,7 +235,8 @@ turns by tools/launch_cost.py before the table. With --benches-only,
 phases 1, 2 and 25 run and nothing else: a reading of the benches inside
 this script, to set beside their standalone runs; it prints no kernel
 table and no device line. With --dlt-only, phases 1, 2, 14's launch floor
-and 26 run and nothing else.
+and 26 run and nothing else; with --point-topm-only, phases 1, 2, 14's
+launch floor and 27.
 
 The last three lines are the kernel table (each kernel's launches on its
 path, worst error, ms, device_ms where measured, plain ms, library ms or
@@ -257,9 +267,9 @@ import torch
 from mvgformer_tpu_torch import bench
 from mvgformer_tpu_torch.device import card_line
 from mvgformer_tpu_torch.ops import (_build, deform_attn, dlt_jacobi,
-                                     gather_forms, sampling, table_build,
-                                     table_gather, window_block, window_dma,
-                                     window_sampling)
+                                     gather_forms, point_topm, sampling,
+                                     table_build, table_gather, window_block,
+                                     window_dma, window_sampling)
 from mvgformer_tpu_torch.tools.launch_cost import (B1_SHAPES,
                                                    DLT_SPACE_CENTER,
                                                    FLAGSHIP_LEVELS,
@@ -318,6 +328,12 @@ DLT_POINTS, DLT_VIEWS = 960, 5
 DLT_SPAN_CELLS = ("dq_serve_live_b1", "dq_serve_offline_b8")
 DLT_SPAN_SECONDS = "10"
 DLT_SPAN_SEED = "1800000018"
+# phase 27: point-top-m at the live dense layer's rows and a top-64
+# layer's, (N, Lq, H, Lt, P), m 4; the weights' tolerance (the kept sum is
+# added in another order than torch.sum's)
+TOPM_SHAPES = ((5, 15360, 8, 3, 8), (5, 960, 8, 3, 8))
+TOPM_M = 4
+TOPM_RTOL = 1e-6
 # launch_cost's kernel sets timed against the parent (--parent)
 PARENT_KERNELS = "deform,window_block,window_dma,table_build,table_slots"
 NO_LIBRARY = {
@@ -331,6 +347,8 @@ NO_LIBRARY = {
     "build_corner_table": "none: a pad, four slices and a concatenation",
     "fused_dlt": "none: no library call runs the chain; torch.linalg.eigh "
                  "solves only its 4 x 4 step, by another algorithm",
+    "point_topm": "none: torch.topk has no rule among equal values; the "
+                  "gathers and the renormalisation are further calls",
     "table_slots": "none: a pad, four slices and a concatenation",
     "gather_reduce_backward": "none in bfloat16: PyTorch's CUDA "
                               "embedding_bag has no bfloat16 backward for "
@@ -4107,6 +4125,88 @@ def dlt_phase(card, floor_ms):
     return shapes, counts, spans
 
 
+def topm_inputs(shape, seed):
+    """ProjAttn's operands of point-top-m on the card: weights softmaxed
+    over (Lt, P) from normal logits, locations uniform in [0, 1]."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    N, Lq, H, Lt, P = shape
+    logits = torch.randn((N, Lq, H, Lt * P), generator=gen, device="cuda")
+    weights = torch.softmax(logits, dim=-1).reshape(shape)
+    locations = torch.rand(shape + (2,), generator=gen, device="cuda")
+    return weights, locations
+
+
+def topm_kernel(card, floor_ms):
+    """Phase 27a: the point-top-m kernel against the plain chain at a
+    served frame's two shapes, and timed. Returns a `by_shape` entry per
+    shape."""
+    shapes = []
+    for i, shape in enumerate(TOPM_SHAPES):
+        w, loc = topm_inputs(shape, SEED + 500 + i)
+        with torch.inference_mode():
+            got_w, got_loc = point_topm.point_topm(w, loc, TOPM_M)
+            want_w, want_loc = point_topm.plain_point_topm(w, loc, TOPM_M)
+        rel = float(((got_w - want_w).abs() / want_w.abs()).max())
+        kernel = functools.partial(point_topm.point_topm, w, loc, TOPM_M)
+        plain = functools.partial(point_topm.plain_point_topm, w, loc,
+                                  TOPM_M)
+        with torch.inference_mode():
+            dev, host = device_ms(kernel)
+            shapes.append({
+                "at": f"float32 N={shape[0]} Lq={shape[1]} H={shape[2]} "
+                      f"Lt={shape[3]} P={shape[4]} m={TOPM_M}",
+                "locations_equal": bool(torch.equal(got_loc, want_loc)),
+                "max_rel_err": rel, "ms": cuda_ms(kernel), "device_ms": dev,
+                "host_us": host, "plain_ms": cuda_ms(plain, runs=5),
+                "bound_ms": bounds.point_topm(*shape, TOPM_M).bound_ms,
+                "floor_ms": floor_ms})
+        if not shapes[-1]["locations_equal"] or not rel <= TOPM_RTOL:
+            fail(f"the point-top-m kernel at {shape}: {shapes[-1]}")
+        del w, loc, got_w, got_loc, want_w, want_loc
+    phase("point_topm_kernel", by_shape=shapes,
+          ptxas=_build.kernel_report(_build.CSRC / "point_topm.cu"),
+          card=card)
+    return shapes
+
+
+def topm_counts(card):
+    """Phase 27b: `point_topm.launches` over one served flagship frame at
+    batch 1 and at batch 8: one launch per decoder layer."""
+    from mvgformer_tpu_torch.core.infer import make_eval_step
+    from mvgformer_tpu_torch.data.synthetic import make_batch
+    from mvgformer_tpu_torch.models.mvgformer import MVGFormer
+
+    cfg = flagship_cfg("bfloat16")
+    model = MVGFormer(cfg, generator=torch.Generator().manual_seed(SEED))
+    step = make_eval_step(cfg, model, THRESHOLD)
+    counts = {}
+    for B in DLT_BATCHES:
+        frame = make_batch(cfg, batch_size=B, seed=SEED + 600 + B,
+                           num_people=3, cam_seed=SEED)
+        before = profiling.COUNTERS[point_topm.COUNTER]
+        step(frame)
+        torch.cuda.synchronize()
+        counts[f"serve_b{B}"] = (profiling.COUNTERS[point_topm.COUNTER]
+                                 - before)
+    want = {f"serve_b{B}": cfg.DECODER.num_decoder_layers
+            for B in DLT_BATCHES}
+    phase("point_topm_counts", launches=counts, card=card)
+    if counts != want:
+        fail(f"point_topm's launches {counts}, expected {want}")
+    del model, step
+    torch.cuda.empty_cache()
+    return counts
+
+
+def topm_phase(card, floor_ms):
+    """Phase 27: point-top-m in ProjAttn (27a-27b)."""
+    t0 = time.perf_counter()
+    shapes = topm_kernel(card, floor_ms)
+    counts = topm_counts(card)
+    phase("point_topm", seconds=time.perf_counter() - t0, card=card)
+    return shapes, counts
+
+
 def parent_vs_change(card, parent):
     """B1 at B1_SHAPES, B4 and B5 on the K = 28 plan, B2 on the flagship
     value's level views and the table slots' five maps at their two sizes,
@@ -4161,6 +4261,10 @@ def main(argv=None):
                         help="build the sources, read the launch floor, "
                         "run phase 26 alone (the serving DLT kernel) and "
                         "stop; prints no result line")
+    parser.add_argument("--point-topm-only", action="store_true",
+                        help="build the sources, read the launch floor, "
+                        "run phase 27 alone (the point-top-m kernel) and "
+                        "stop; prints no result line")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs one GPU")
@@ -4186,6 +4290,9 @@ def main(argv=None):
         return
     if args.dlt_only:
         dlt_phase(card, launch_floor(card))
+        return
+    if args.point_topm_only:
+        topm_phase(card, launch_floor(card))
         return
 
     worst_f32, b1_shapes = check_kernel(card)
@@ -4275,6 +4382,7 @@ def main(argv=None):
     ablation_stats, tool_runs = tools_phase(card)
     bench_runs = bench_phase(card)
     dlt_shapes, dlt_launches, _ = dlt_phase(card, floor_ms)
+    topm_shapes, topm_launches = topm_phase(card, floor_ms)
     mvp = {"serve_launches": mvp_serve_launches,
            "b1_device_ms_per_launch":
                mvp_serve_prof["b1_device_ms_per_launch"]}
@@ -4404,6 +4512,18 @@ def main(argv=None):
         bounds.dlt_jacobi(1, DLT_POINTS, DLT_VIEWS), dlt_rows[0]["at"],
         by_shape=dlt_rows, device_ms=dlt_rows[0]["device_ms"],
         ptxas=reports["dlt_jacobi.cu"]))
+    # a served frame: the dense layer 1, then the top-64 layers
+    topm_rows = [{**sh, "launches": n} for sh, n in zip(
+        topm_shapes, (1, topm_launches["serve_b1"] - 1))]
+    kernels.append(kernel_row(
+        point_topm.point_topm, "point_topm.cu",
+        "none (mvgformer_tpu/ops/projattn.py: lax.top_k and the gathers, "
+        "which XLA fuses)", topm_launches["serve_b1"],
+        topm_rows[0]["max_rel_err"], topm_rows[0]["ms"],
+        topm_rows[0]["plain_ms"], None,
+        bounds.point_topm(*TOPM_SHAPES[0], TOPM_M), topm_rows[0]["at"],
+        by_shape=topm_rows, device_ms=topm_rows[0]["device_ms"],
+        ptxas=reports["point_topm.cu"]))
     for fn, source, replaces, also, library, probe_shape in PROBE_ROWS:
         kernels.append(probe_row(fn, source, replaces, also, library,
                                  probe_shape, probe_stats[fn],

@@ -79,7 +79,8 @@ MODEL_KERNELS = (deform_attn.deform_sample, window_block.window_block_matmul,
                  table_gather.gather_reduce_forward,
                  table_gather.gather_reduce_backward)
 MODEL_SOURCES = ("deform_sample.cu", "window_block.cu", "window_dma.cu",
-                 "table_build.cu", "table_gather.cu", "dlt_jacobi.cu")
+                 "table_build.cu", "table_gather.cu", "dlt_jacobi.cu",
+                 "point_topm.cu")
 # B1's kernel function, as the profiler names it
 B1_KERNEL = "deform_sample_fwd_kernel"
 HOST_OPS = 2000

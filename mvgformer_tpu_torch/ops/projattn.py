@@ -13,7 +13,9 @@ windowed serving path) it goes through `ops.window_sampling.window_sample`
 and the window kernels instead. In training (`train=True`) it goes through
 the differentiable corner-table sampler `ops.sampling.deform_sample_corner`
 and its table-build and gather-reduce kernels, as JAX's ProjAttn samples
-through `deform_sample_corner` whenever it trains.
+through `deform_sample_corner` whenever it trains. Point-top-m (serving
+only) goes through `ops.point_topm.point_topm`, one kernel launch per call
+on CUDA tensors.
 
 `posembed_mode` (DECODER.projattn_posembed_mode, the MvP baseline's):
 'use_rayconv' concatenates each pixel's camera ray direction (3 channels)
@@ -34,6 +36,7 @@ from torch import nn
 from mvgformer_tpu_torch.device import constant
 from mvgformer_tpu_torch.models.mlp import Dense
 from mvgformer_tpu_torch.ops.deform_attn import deform_sample
+from mvgformer_tpu_torch.ops.point_topm import point_topm as select_point_topm
 from mvgformer_tpu_torch.ops.sampling import (bilinear_sample,
                                               deform_sample_corner)
 from mvgformer_tpu_torch.ops.window_sampling import WindowPlan, window_sample
@@ -190,12 +193,9 @@ class ProjAttn(nn.Module):
             if point_topm is not None and point_topm < P:
                 # keep the top-m points per (query, head, level) and
                 # renormalize over (level, point) so the mass stays 1
-                idx = top_indices(weights, int(point_topm))
-                w_sel = torch.gather(weights, -1, idx)
-                kept = w_sel.sum(dim=(-2, -1), keepdim=True)
-                weights = w_sel / torch.clamp(kept, min=1e-6)
-                locations = torch.gather(
-                    locations, 4, idx[..., None].expand(idx.shape + (2,)))
+                with span("mvg.point_topm"):
+                    weights, locations = select_point_topm(
+                        weights, locations, int(point_topm))
 
             if taps is not None:
                 for key, val in (("sampling_locations", locations),

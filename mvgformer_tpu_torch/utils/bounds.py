@@ -294,3 +294,17 @@ def dlt_jacobi(B: int, N: int, V: int) -> Work:
     points = B * N
     return Work(points * (12 * V + 1 + 12) + B * V * 27 * 4,
                 points * (V * DLT_OPS_PER_VIEW + DLT_OPS_PER_POINT))
+
+
+# ---------------------------------------------------------------------------
+# point-top-m in ProjAttn (serving)
+# ---------------------------------------------------------------------------
+
+
+def point_topm(N: int, Lq: int, H: int, Lt: int, P: int, m: int) -> Work:
+    """Point-top-m of P points on N x Lq x H rows of Lt levels, float32:
+    each row's Lt x P weights and Lt x P x 2 locations read, its Lt x m
+    weights and Lt x m x 2 locations written; an add into the kept sum and
+    a division per kept weight (the ranks are comparisons, no FLOPs)."""
+    rows = N * Lq * H
+    return Work(rows * Lt * (P + m) * 3 * 4, rows * Lt * m * 2)

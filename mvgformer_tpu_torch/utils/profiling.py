@@ -28,17 +28,19 @@ import torch.autograd.profiler as _autograd_profiler
 
 # every span the program opens: the step of serving (`core/infer.py`) or
 # training (`core/train.py`), and inside it the model's layers; LAYER is
-# the name of decoder layer l (from 0), `LAYER.format(l)`; `mvg.vp.*` are
-# VoxelPose's (`models/voxelpose.py`)
+# the name of decoder layer l (from 0), `LAYER.format(l)`;
+# `mvg.point_topm` is point-top-m inside ProjAttn (`ops/projattn.py`);
+# `mvg.vp.*` are VoxelPose's (`models/voxelpose.py`)
 LAYER = "mvg.layer{}"
 SPANS = ("mvg.step", "mvg.backbone", "mvg.init", LAYER, "mvg.project",
          "mvg.projattn", "mvg.topk", "mvg.dlt", "mvg.pred", "mvg.match",
          "mvg.forward", "mvg.loss", "mvg.backward", "mvg.update",
          "mvg.vp.volume", "mvg.vp.cpn", "mvg.vp.propose", "mvg.vp.prn",
-         "mvg.vp.softargmax")
+         "mvg.vp.softargmax", "mvg.point_topm")
 
 # the port's counter registry, by name: VoxelPose's `voxelpose.root_volumes`
 # and `voxelpose.prn_volumes` (the volumes its two V2V networks computed)
+# and `point_topm.launches` (`ops/point_topm.py`)
 COUNTERS: collections.Counter = collections.Counter()
 
 

@@ -92,3 +92,15 @@ def test_take_along_and_scale():
     # elements (0,0) (0,1) (3,2) and (1,1): (0,0) and (3,2) twice
     assert work.bytes == 4 * 4 + idx.numel() * 4 + idx.numel() * 4
     assert bounds.scale(1000, 2) == bounds.Work(4000, 1000)
+
+
+@pytest.mark.parametrize("P,m", [(8, 4), (8, 2)])
+def test_point_topm_reads_every_point_and_writes_the_kept(P, m):
+    # the live dense layer: 5 views x 15,360 queries x 8 heads, 3 levels
+    rows, Lt = 5 * 15360 * 8, 3
+    work = bounds.point_topm(5, 15360, 8, Lt, P, m)
+    weights_in, loc_in = rows * Lt * P * 4, rows * Lt * P * 2 * 4
+    weights_out, loc_out = rows * Lt * m * 4, rows * Lt * m * 2 * 4
+    assert work.bytes == weights_in + loc_in + weights_out + loc_out
+    assert work.flops == 2 * rows * Lt * m
+    assert work.bound_by == "bytes"

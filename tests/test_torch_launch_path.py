@@ -13,8 +13,8 @@ import pytest
 import torch
 
 from mvgformer_tpu_torch.ops import (_build, deform_attn, dlt_jacobi,
-                                     gather_forms, table_build, table_gather,
-                                     window_block, window_dma)
+                                     gather_forms, point_topm, table_build,
+                                     table_gather, window_block, window_dma)
 
 LAUNCHERS = {
     "deform_sample": deform_attn._FORWARD,
@@ -29,6 +29,7 @@ LAUNCHERS = {
     "table_slots": table_build._BUILD,  # B2's kernel with a slot map
     "noop": gather_forms._NOOP,
     "dlt_jacobi": dlt_jacobi._LAUNCH,
+    "point_topm": point_topm._LAUNCH,
 }
 
 

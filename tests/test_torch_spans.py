@@ -151,6 +151,8 @@ def test_dq_eval_step_spans_nest_as_the_layers(dq_serve):
     assert "mvg.topk" in _inside(spans, LAYER.format(0))[0]
     assert "mvg.topk" not in _inside(spans, LAYER.format(1))[0]
     assert sum(n == "mvg.projattn" for n, *_ in spans) == LAYERS
+    # point-top-m, once inside each layer's ProjAttn
+    assert _inside(spans, "mvg.projattn") == [{"mvg.point_topm"}] * LAYERS
 
 
 def test_mvp_eval_step_has_no_dlt(mvp_serve):
@@ -189,3 +191,7 @@ def test_every_span_is_named_in_spans(dq_serve, mvp_serve, vp_serve,
     assert named == set(SPANS)
     assert len(SPANS) == len(set(SPANS))
     assert all(n.startswith("mvg.") for n in SPANS)
+    # no span's name starts with another's: the benchmark's readers match
+    # a span by the prefix of its name
+    for a in SPANS:
+        assert not any(b != a and b.startswith(a) for b in SPANS), a
