@@ -14,9 +14,9 @@
 //            sweeps, D x dehomogenised
 //   out    = mask[b, n] ? x : 0
 //
-// which is geometry/cameras.py::undistort_points, geometry/transforms.py::
-// apply_affine, torch.softmax and geometry/triangulate.py::triangulate_dlt
-// with solver 'jacobi', each in float32.
+// which is ops/dlt_jacobi.py::plain_dlt, the layer's plain chain:
+// image_points (step 8) then solve_views (step 9) with solver 'jacobi', in
+// float32.
 //
 // What bounds it: launches, not the card. A served frame has 960 points
 // (top-64 queries x 15 joints) per layer, 7,680 at batch 8, each a few

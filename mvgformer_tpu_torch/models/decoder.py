@@ -1,8 +1,8 @@
 """Dynamic-query decoder: iterative project -> attend -> refine -> triangulate.
 
 Port of `mvgformer_tpu/models/decoder.py`: the FFN, threshold (or 'all')
-query filtering, the in-layer top-K of layer 1, the decoder-level top-K
-compaction of the later layers and point-top-m in serving; in training
+query filtering, the top-K of layer 1 (selected once, in the layer; the
+decoder runs the later layers on it) and point-top-m in serving; in training
 (`train=True`) the gt-match query mask, dropout at JAX's sites, the
 corner-table sampler, TRAIN.TRI_GRAD_CLIP and per-layer
 rematerialization (PARALLEL.REMAT_DECODER), with no compaction, point-top-m
@@ -45,16 +45,16 @@ Per layer:
   3. projective attention over the per-view feature maps (ProjAttn);
   4. fuse the mean over views into the query features, then the FFN;
   5. classify queries and derive the active mask;
-  6. (layer 1 with top-K) keep the top-K queries for stages 7-9;
+  6. (layer 1 with top-K) select the top-K queries for stages 7-9;
   7. per-view 2D offsets and confidences;
-  8. inverse crop affine and undistortion;
-  9. confidence-weighted DLT (or structural) triangulation, the optional
-     bayesian blend, the masked dense update.
+  8. inverse crop affine and undistortion (`dlt_jacobi.image_points`);
+  9. confidence-weighted DLT (`dlt_jacobi.solve_views`) or structural
+     triangulation, masked; the optional bayesian blend, masked again.
 
 On the card a serving call with the Jacobi solver and every view on this
-process runs steps 8-9 up to the masked update as one kernel
-(`ops/dlt_jacobi.py`, rule `fused_path`); training, a view split, the CPU
-and the other solvers run them as plain torch ops.
+process runs steps 8-9 up to the masked points as one kernel
+(`dlt_jacobi.fused_dlt`, rule `fused_path`); training, a view split, the
+CPU and the other solvers call the two functions of the plain chain.
 """
 
 from __future__ import annotations
@@ -69,13 +69,10 @@ from torch.utils.checkpoint import checkpoint
 from mvgformer_tpu_torch.data.meta import ViewData
 from mvgformer_tpu_torch.device import constant
 from mvgformer_tpu_torch.geometry.cameras import (project_points,
-                                                  projection_matrices,
-                                                  undistort_points)
+                                                  projection_matrices)
 from mvgformer_tpu_torch.geometry.structural import (HumanTree,
                                                      structural_triangulate)
 from mvgformer_tpu_torch.geometry.transforms import apply_affine
-from mvgformer_tpu_torch.geometry.triangulate import (clip_cotangent,
-                                                      triangulate_dlt)
 from mvgformer_tpu_torch.models.attention import MultiheadAttention
 from mvgformer_tpu_torch.models.mlp import Dense, OffsetNet
 from mvgformer_tpu_torch.ops import dlt_jacobi
@@ -342,9 +339,10 @@ class DQDecoderLayer(nn.Module):
                               parallelism (view_data and src_views then
                               hold this rank's views), or None.
         Returns:
-            (tgt_update, new_refs (B, Nq, 3), refined_2d (B, V, Nq, 2),
-             projs_2d (B, V, Nq, 2), class_prob (B, Q, 2), escaped mass of
-             the windowed sampler or None)
+            (tgt_update, new_refs (B, Nqc, 3), refined_2d (B, V, Nqc, 2),
+             projs_2d (B, V, Nqc, 2), class_prob (B, Q, 2), escaped mass of
+             the windowed sampler or None, sel): sel (B, K) the top-K queries
+             that steps 7-9 ran on (Nqc = K * J), or None (Nqc = Nq)
         """
         B, Nq, C = tgt.shape
         V = view_data.num_views  # this rank's views
@@ -410,21 +408,18 @@ class DQDecoderLayer(nn.Module):
                 raise ValueError(filter_method)
         mask_nq = query_mask.repeat_interleave(J, dim=1)  # (B, Nq)
 
-        # (6) in-layer compaction: stages 7-9 run on the top-K queries
+        # (6) layer 1's top-K: stages 7-9 run on these queries alone
         sel = None
-        Qc = Q
         if (triangulate_topk is not None and not train
                 and triangulate_topk < Q):
             with span("mvg.topk"):
                 sel = top_indices(class_prob[..., 1], triangulate_topk)
-                Qc = triangulate_topk
                 attn = _take_queries(attn.transpose(0, 1), sel, J,
                                      2).transpose(0, 1)
                 ref_norm = _take_queries(ref_norm, sel, J, 2)
                 mask_nq = _take_queries(mask_nq, sel, J, 1)
                 reference_points = _take_queries(reference_points, sel, J,
                                                  1)
-        Nqc = Qc * J
 
         # (7) per-view offsets + confidences
         out2d, conf_logits = self.pose_embed(attn)
@@ -434,88 +429,71 @@ class DQDecoderLayer(nn.Module):
         conf_logits = conf_logits.float()
 
         with span("mvg.dlt"):
-            fused = dlt_jacobi.fused_path(
-                refined_abs.device, self.triangulation_solver, split,
-                refined_abs, conf_logits)
-            if fused:
+            if dlt_jacobi.fused_path(refined_abs.device,
+                                     self.triangulation_solver, split,
+                                     refined_abs, conf_logits):
                 # (8-9) one kernel on the card: the serving Jacobi DLT from
                 # the refined points to the masked new refs
                 new_refs = dlt_jacobi.fused_dlt(
                     refined_abs, conf_logits, mask_nq, view_data.inv_affine,
                     view_data.cameras, proj_mats)
             else:
-                # (8) masked-out queries triangulate the image centre, a safe
-                # stand-in, before the inverse affine and undistortion
-                tri_in = torch.where(mask_nq[None, :, :, None], refined_abs,
-                                     img_wh * 0.5)
-                orig = apply_affine(tri_in.transpose(0, 1),
-                                    view_data.inv_affine)
-                orig_undist = undistort_points(orig, view_data.cameras,
-                                               iter_num=5)
+                # (8) masked-out queries triangulate the image centre
+                points = dlt_jacobi.image_points(
+                    refined_abs, mask_nq, img_wh * 0.5, view_data.inv_affine,
+                    view_data.cameras)
                 if split:
                     # the softmax over views and the solve need every view: one
                     # all-gather of the points and the logits, in view order
                     packed = collectives.all_gather(torch.cat(
-                        [orig_undist, conf_logits.transpose(0, 1)[..., None]],
+                        [points, conf_logits.transpose(0, 1)[..., None]],
                         dim=-1), grid, dim=1)  # (B, V, Nqc, 3)
-                    orig_undist = packed[..., :2]
+                    points = packed[..., :2]
                     conf_logits = packed[..., 2].transpose(0, 1)
-                    V = packed.shape[1]
-                conf = torch.softmax(conf_logits, dim=0)
-
-                # (9) triangulate, then the masked dense update
+                # (9) triangulate, zeros for the masked-out queries
                 if self.triangulation_solver == "st":
-                    # structural triangulation, one person per query
-                    pts_p = orig_undist.transpose(1, 2).reshape(
-                        B * Qc, J, V, 2).transpose(1, 2)  # (B*Qc, V, J, 2)
+                    # structural triangulation, one person P per query
+                    V, Nqc = points.shape[1:3]
+                    P = B * Nqc // J
+                    conf = torch.softmax(conf_logits, dim=0)
+                    pts_p = points.transpose(1, 2).reshape(
+                        P, J, V, 2).transpose(1, 2)  # (P, V, J, 2)
                     conf_p = conf.permute(1, 2, 0).reshape(
-                        B * Qc, J, V).transpose(1, 2)  # (B*Qc, V, J)
-                    pm_p = proj_mats[:, None].expand(B, Qc, V, 3, 4).reshape(
-                        B * Qc, V, 3, 4)
-                    lengths = self.st_bone_lengths[None].expand(B * Qc, J - 1)
+                        P, J, V).transpose(1, 2)  # (P, V, J)
+                    pm_p = proj_mats[:, None].expand(
+                        B, Nqc // J, V, 3, 4).reshape(P, V, 3, 4)
+                    lengths = self.st_bone_lengths[None].expand(P, J - 1)
                     new_refs = structural_triangulate(
                         pm_p, pts_p, conf_p, lengths, n_steps=self.st_n_steps,
                         conversion=self.st_conversion).reshape(B, Nqc, 3)
+                    new_refs = torch.where(mask_nq[..., None], new_refs, 0.0)
                 else:
-                    pts = orig_undist.transpose(1, 2)  # (B, Nqc, V, 2)
-                    conf_bqv = conf.permute(1, 2, 0)  # (B, Nqc, V)
-                    if train and self.tri_grad_clip is not None:
-                        # TRAIN.TRI_GRAD_CLIP: bound the solver-amplified
-                        # cotangents reaching the offset net and the confidence
-                        # head
-                        pts = clip_cotangent(pts, self.tri_grad_clip)
-                        conf_bqv = clip_cotangent(conf_bqv[..., None],
-                                                  self.tri_grad_clip)[..., 0]
-                    pm = proj_mats[:, None].expand(B, Nqc, V, 3, 4)
-                    new_refs = triangulate_dlt(
-                        pm, pts, conf_bqv, solver=self.triangulation_solver)
+                    new_refs = dlt_jacobi.solve_views(
+                        points, conf_logits, mask_nq, proj_mats,
+                        self.triangulation_solver,
+                        self.tri_grad_clip if train else None)
             if hasattr(self, "bayesian_conf"):
-                # blend with the layer's input pose by a learned confidence
+                # blend with the layer's input pose by a learned confidence,
+                # which brings the masked-out queries back: zero them again
                 bconf = collectives.view_mean(torch.sigmoid(
                     self.bayesian_conf(attn)), grid).float()  # (B, Nqc, 1)
-                new_refs = (bconf * new_refs
-                            + (1 - bconf) * reference_points.float())
-            if not fused or hasattr(self, "bayesian_conf"):
-                # the kernel zeroes masked-out queries; the blend brings
-                # them back
-                new_refs = torch.where(mask_nq[..., None], new_refs, 0.0)
+                new_refs = torch.where(
+                    mask_nq[..., None],
+                    bconf * new_refs + (1 - bconf) * reference_points.float(),
+                    0.0)
             m4 = mask_nq[:, None, :, None]
             refined_out = torch.where(m4, refined_abs.transpose(0, 1), 0.0)
             projs_out = torch.where(m4, projs_abs.transpose(0, 1), 0.0)
-        if sel is not None:
-            with span("mvg.topk"):
-                new_refs = _scatter_queries(new_refs, sel, Q, J, 1)
-                refined_out = _scatter_queries(refined_out, sel, Q, J, 2)
-                projs_out = _scatter_queries(projs_out, sel, Q, J, 2)
         return (tgt_update, new_refs, refined_out, projs_out, class_prob,
-                escaped)
+                escaped, sel)
 
 class DQDecoder(nn.Module):
     """Stack of decoder layers collecting per-layer outputs.
 
-    topk_queries: after the first layer keep the top-K queries by class
-    score and run the later layers compacted; their outputs are scattered
-    back to dense (dropped queries read as zeros).
+    topk_queries: the first layer selects the top-K queries by class
+    score and runs its steps 7-9 on them; the later layers run on them
+    alone. What ran compacted is scattered back to dense here (dropped
+    queries read as zeros).
 
     window_plan and layer1_offset_clamp reach the first layer only, whose
     sampling centers are the static grid; the first layer's output dict
@@ -592,6 +570,13 @@ class DQDecoder(nn.Module):
         proj_mats = collectives.all_gather(
             projection_matrices(view_data.cameras, inv_trans=True), grid,
             dim=1)
+
+        def dense(x, key):
+            """An output computed on the top-K queries `sel`, scattered back
+            to dense: the dropped queries read as zeros."""
+            return _scatter_queries(x, sel, Q, 1 if key == "class_prob" else J,
+                                    2 if key.endswith("_2d") else 1)
+
         for lid, layer in enumerate(self.stack):
             with span(LAYER.format(lid)):
                 kwargs = dict(
@@ -613,36 +598,29 @@ class DQDecoder(nn.Module):
                 else:
                     res = checkpoint(layer, *args, use_reentrant=False,
                                      **kwargs)
-                out, refs, ref2d, projs2d, class_prob, escaped = res
-                if sel is None:
-                    outputs.append({"hs": out, "refs": refs,
-                                    "refs_2d": ref2d, "projs_2d": projs2d,
-                                    "class_prob": class_prob})
-                    if escaped is not None:
-                        outputs[-1]["escaped_mass"] = \
-                            collectives.all_reduce_sum(escaped, grid)
-                else:
-                    outputs.append({
-                        "hs": _scatter_queries(out, sel, Q, J, 1),
-                        "refs": _scatter_queries(refs, sel, Q, J, 1),
-                        "refs_2d": _scatter_queries(ref2d, sel, Q, J, 2),
-                        "projs_2d": _scatter_queries(projs2d, sel, Q, J,
-                                                     2),
-                        "class_prob": _scatter_queries(class_prob, sel, Q, 1,
-                                                       1),
-                    })
-                if box is not None:
-                    # bound only the next layer's input; the outputs above
-                    # keep the raw predictions
-                    refs = torch.clamp(refs, lo, hi)
-                if (topk_queries is not None and sel is None and lid == 0
-                        and topk_queries < Q):
+                out, refs, ref2d, projs2d, class_prob, escaped, selected = res
+                outs = {"hs": out, "refs": refs, "refs_2d": ref2d,
+                        "projs_2d": projs2d, "class_prob": class_prob}
+                if selected is not None:
                     with span("mvg.topk"):
-                        sel = top_indices(class_prob[..., 1], topk_queries)
+                        # layer 1 ran steps 7-9 on its top-K queries; the
+                        # later layers run on them alone
+                        sel = selected
+                        for key in ("refs", "refs_2d", "projs_2d"):
+                            outs[key] = dense(outs[key], key)
                         out = _take_queries(out, sel, J, 1)
-                        refs = _take_queries(refs, sel, J, 1)
                         if qpos is not None:
                             qpos = _take_queries(qpos, sel, J, 1)
                         if query_mask is not None:
                             query_mask = torch.gather(query_mask, 1, sel)
+                elif sel is not None:
+                    outs = {key: dense(x, key) for key, x in outs.items()}
+                if escaped is not None:
+                    outs["escaped_mass"] = collectives.all_reduce_sum(escaped,
+                                                                      grid)
+                outputs.append(outs)
+                if box is not None:
+                    # bound only the next layer's input; the outputs above
+                    # keep the raw predictions
+                    refs = torch.clamp(refs, lo, hi)
         return outputs

@@ -1,21 +1,20 @@
-"""The serving Jacobi DLT on the card: one hand-written kernel per decoder
-layer for `DQDecoderLayer`'s steps 8-9.
+"""Steps 8-9 of `DQDecoderLayer`: the plain chain, and the serving Jacobi
+DLT as one hand-written kernel per decoder layer on the card.
 
-`fused_dlt` computes what the layer's plain chain computes from the refined
-2D points to the masked 3D points (`plain_dlt`): the inverse crop affine,
-the 5-iteration undistortion, the softmax of the confidence logits over the
-views, the confidence-weighted DLT with its degenerate guard, the column
-equilibration, the Gram matrix, 6 cyclic Jacobi sweeps, the eigenvector of
-the smallest eigenvalue, the dehomogenisation and the query mask.
-
-    * CUDA tensors launch `csrc/dlt_jacobi.cu` (forward only), or raise.
-    * CPU tensors go to `plain_dlt`.
+The plain chain is two functions, split where a view split all-gathers:
+`image_points` (step 8, per view: a stand-in for masked-out points, the
+inverse crop affine, the 5-iteration undistortion) and `solve_views` (step
+9, across views: the softmax of the logits over the views, the optional
+gradient clip, the confidence-weighted DLT, the query mask). `plain_dlt`
+is the two with the 'jacobi' solver and `fused_dlt`'s signature: the
+kernel's reference. `fused_dlt` launches `csrc/dlt_jacobi.cu` (forward
+only) on CUDA tensors and runs `plain_dlt` on CPU ones.
 
 `fused_path` is the layer's dispatch rule, from what the call can observe:
 the kernel runs where the points are on the card, the solver is 'jacobi',
 nothing needs a gradient and every view is on this process. Training (the
-kernel has no backward), a view split (its all-gather sits inside the
-chain), the CPU and the other solvers keep the plain chain.
+kernel has no backward), a view split, the CPU and the other solvers call
+the two functions of the plain chain.
 
 `fused_dlt.launches` counts kernel launches; `fused_dlt.plain_calls` counts
 the CUDA Jacobi calls that `fused_path` sent to the plain chain. Nothing
@@ -26,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -33,7 +33,8 @@ from mvgformer_tpu_torch.device import constant
 from mvgformer_tpu_torch.geometry.cameras import (CameraParams,
                                                   undistort_points)
 from mvgformer_tpu_torch.geometry.transforms import apply_affine
-from mvgformer_tpu_torch.geometry.triangulate import triangulate_dlt
+from mvgformer_tpu_torch.geometry.triangulate import (clip_cotangent,
+                                                      triangulate_dlt)
 from mvgformer_tpu_torch.ops import _build
 
 _SRC = _build.CSRC / "dlt_jacobi.cu"
@@ -70,23 +71,43 @@ def fused_path(device: torch.device, solver: str, split: bool,
     return True
 
 
+def image_points(refined: torch.Tensor, mask: torch.Tensor,
+                 stand_in: torch.Tensor, inv_affine: torch.Tensor,
+                 cameras: CameraParams) -> torch.Tensor:
+    """Step 8: (B, V, N, 2) undistorted image px of the net-image px
+    `refined` (V, B, N, 2); where `mask` (B, N) is False, of `stand_in`."""
+    tri_in = torch.where(mask[None, :, :, None], refined, stand_in)
+    orig = apply_affine(tri_in.transpose(0, 1), inv_affine)
+    return undistort_points(orig, cameras, iter_num=5)
+
+
+def solve_views(points: torch.Tensor, logits: torch.Tensor,
+                mask: torch.Tensor, proj: torch.Tensor, solver: str,
+                grad_clip: Optional[float] = None) -> torch.Tensor:
+    """Step 9: (B, N, 3) points triangulated by `solver` from `points`
+    (B, V, N, 2), weighted by the softmax over views of `logits` (V, B, N),
+    through `proj` (B, V, 3, 4); zero where `mask` (B, N) is False.
+    `grad_clip` bounds the cotangents the solve sends back."""
+    B, V, N, _ = points.shape
+    pts = points.transpose(1, 2)  # (B, N, V, 2)
+    conf = torch.softmax(logits, dim=0).permute(1, 2, 0)  # (B, N, V)
+    if grad_clip is not None:
+        pts = clip_cotangent(pts, grad_clip)
+        conf = clip_cotangent(conf[..., None], grad_clip)[..., 0]
+    pm = proj[:, None].expand(B, N, V, 3, 4)
+    new_refs = triangulate_dlt(pm, pts, conf, solver=solver)
+    return torch.where(mask[..., None], new_refs, 0.0)
+
+
 def plain_dlt(refined: torch.Tensor, logits: torch.Tensor,
               mask: torch.Tensor, inv_affine: torch.Tensor,
               cameras: CameraParams, proj: torch.Tensor) -> torch.Tensor:
-    """The plain chain of `DQDecoderLayer`'s steps 8-9 for the 'jacobi'
-    solver with every view on this process: masked-out points triangulate
-    a stand-in, the net image's corner (the layer's is its centre; no point
-    reads another's), and come out as zeros. Arguments as `fused_dlt`'s."""
-    V, B, N, _ = refined.shape
-    tri_in = torch.where(mask[None, :, :, None], refined,
-                         constant(0.0, refined.dtype, refined.device))
-    orig = apply_affine(tri_in.transpose(0, 1), inv_affine)
-    orig_undist = undistort_points(orig, cameras, iter_num=5)
-    conf = torch.softmax(logits, dim=0)
-    pm = proj[:, None].expand(B, N, V, 3, 4)
-    new_refs = triangulate_dlt(pm, orig_undist.transpose(1, 2),
-                               conf.permute(1, 2, 0), solver="jacobi")
-    return torch.where(mask[..., None], new_refs, 0.0)
+    """Steps 8-9 with the 'jacobi' solver, arguments as `fused_dlt`'s.
+    Masked-out points stand in at the net image's corner (the layer's at
+    its centre): no point reads another's, and they come out as zeros."""
+    corner = constant(0.0, refined.dtype, refined.device)
+    points = image_points(refined, mask, corner, inv_affine, cameras)
+    return solve_views(points, logits, mask, proj, "jacobi")
 
 
 def _check(refined, logits, mask, inv_affine, cameras, proj):

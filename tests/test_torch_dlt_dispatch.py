@@ -11,7 +11,10 @@ CPU, at toy widths:
     counts nothing; with the rule told the points are on the card, the
     fused branch (on the CPU, `plain_dlt`) gives the plain chain's bits,
     with and without bayesian_update and top-K, and a training step keeps
-    the plain chain, counts its calls and gives the same losses.
+    the plain chain, counts its calls and gives the same losses; the plain
+    chain is `image_points` then `solve_views` for each DLT solver;
+  * a served top-K frame selects its queries once, in layer 1, and gives
+    the dense frame's pred at them.
 """
 
 import pytest
@@ -22,7 +25,7 @@ from mvgformer_tpu_torch.core.infer import make_eval_step
 from mvgformer_tpu_torch.core.train import create_train_state, make_train_step
 from mvgformer_tpu_torch.data.synthetic import make_batch
 from mvgformer_tpu_torch.geometry.cameras import CameraParams
-from mvgformer_tpu_torch.models import build_model
+from mvgformer_tpu_torch.models import build_model, decoder
 from mvgformer_tpu_torch.ops import dlt_jacobi
 from mvgformer_tpu_torch.ops.dlt_jacobi import fused_dlt, fused_path, plain_dlt
 from torch_one_thread import one_torch_thread  # noqa: F401
@@ -160,13 +163,33 @@ def _serve(cfg, batch):
     return make_eval_step(cfg, _model(cfg), THRESHOLD)(batch)
 
 
+def _spy(monkeypatch, name):
+    """Record the arguments of every call of dlt_jacobi's `name`."""
+    calls, original = [], getattr(dlt_jacobi, name)
+
+    def spy(*args, **kwargs):
+        calls.append(args)
+        return original(*args, **kwargs)
+
+    monkeypatch.setattr(dlt_jacobi, name, spy)
+    return calls
+
+
 @pytest.mark.parametrize("solver", ["jacobi", "eigh", "svd", "st"])
-def test_served_layers_on_the_cpu_take_the_plain_chain(counters, solver):
+def test_served_layers_on_the_cpu_take_the_plain_chain(monkeypatch, counters,
+                                                       solver):
     cfg = _cfg(DECODER__triangulation_method=solver)
     batch = make_batch(cfg, seed=2, num_people=2, device="cpu")
+    step8 = _spy(monkeypatch, "image_points")
+    step9 = _spy(monkeypatch, "solve_views")
     pred = _serve(cfg, batch)
     assert torch.isfinite(pred).all()
     assert counters() == (0, 0)
+    # every layer's step 8, and a DLT solver's step 9, on the one chain;
+    # 'st' solves in the layer
+    assert len(step8) == LAYERS
+    assert [args[4] for args in step9] == (
+        [] if solver == "st" else [solver] * LAYERS)
 
 
 def _as_if_on_the_card(monkeypatch):
@@ -211,6 +234,40 @@ def test_fused_branch_gives_the_plain_chains_bits(monkeypatch, counters,
             assert torch.equal(a[key], b[key]), key
     # nothing launched on the CPU, and no Jacobi call went plain
     assert counters() == (0, 0)
+
+
+def test_served_topk_selects_once_a_frame(monkeypatch):
+    """Layer 1's top-K is selected once a frame, in the layer; the later
+    layers and the outputs use that selection. At the kept queries the
+    pred is the dense frame's (no top-K), bit for bit; the dropped ones
+    read as zeros, flagged."""
+    cfg = _cfg(DECODER__inference_topk_queries=8)
+    batch = make_batch(cfg, seed=4, num_people=3, device="cpu")
+    model = _model(cfg)
+    taken, original = [], decoder.top_indices
+
+    def spy(scores, k):
+        taken.append(original(scores, k))
+        return taken[-1]
+
+    monkeypatch.setattr(decoder, "top_indices", spy)
+    step = make_eval_step(cfg, model, THRESHOLD)
+    pred = step(batch)
+    assert len(taken) == 1
+    assert torch.equal(step(batch), pred)
+    assert len(taken) == 2
+    cfg.DECODER.inference_topk_queries = None
+    dense = make_eval_step(cfg, model, THRESHOLD)(batch)
+    assert len(taken) == 2
+    rows = torch.arange(pred.shape[0])[:, None]
+    sel = taken[0]
+    assert sel.shape == (pred.shape[0], 8)
+    assert torch.equal(pred[rows, sel], dense[rows, sel])
+    dropped = torch.ones(pred.shape[:2], dtype=torch.bool)
+    dropped[rows, sel] = False
+    assert torch.equal(pred[dropped][..., :3],
+                       torch.zeros_like(pred[dropped][..., :3]))
+    assert (pred[dropped][..., 3] == -1.0).all()
 
 
 @pytest.mark.parametrize("remat", [False, True])
