@@ -206,16 +206,25 @@ exits non-zero:
      a 2 x 2 grid of ranks sharing the card. Each runs with the kernel
      counts set to 0 before it (`path_launches`; the dry run's on its rank
      0).
- 26. the serving Jacobi DLT (`ops/dlt_jacobi.py`, one kernel per decoder
-     layer): 26a at a served layer's shapes, 960 points a frame and 5
-     views at batch 1 and 8, the kernel against the plain chain (the
-     largest gap on points inside the capture space), timed as the other
-     kernels (`ms`, `device_ms`, `host_us`) beside the plain chain's
-     `plain_ms` and the launch floor; 26b the flagship bf16 model serves a
-     frame at batch 1 and at batch 8, and trains one step, with the DLT's
-     counts set to 0 before each: a launch per layer and no plain call in
-     serving, no launch and a plain call per layer and recompute in
-     training; 26c `python3 -m benchmark.spans` on dq_serve_live_b1 and
+ 26. the Jacobi DLT (`ops/dlt_jacobi.py`, one forward kernel per decoder
+     layer, and one backward kernel in training): 26a at a served layer's
+     shapes, 960 points a frame and 5 views at batch 1 and 8, the forward
+     kernel against the plain chain (the largest gap on points inside the
+     capture space), timed as the other kernels (`ms`, `device_ms`,
+     `host_us`) beside the plain chain's `plain_ms` and the launch floor;
+     26b at the training layer's shape (1, 15360, 5) the backward kernel's
+     gradients of the refined points and logits against autograd through
+     `plain_dlt` on the same inputs, both held to the float64 gradient
+     (within 2x of float32 autograd's error at the 50/90/99% quantiles of
+     the points' errors, 4x at the worst; masked points exact zeros, kept
+     ones finite), and the backward timed alone beside the plain chain's
+     autograd backward and its bound, the forward at that shape beside
+     the plain chain's forward; 26c the flagship bf16 model serves
+     a frame at batch 1 and at batch 8, and trains one step, with the
+     DLT's counts set to 0 before each: a launch per layer and no plain
+     call in serving, a forward launch per layer and recompute, a
+     backward launch per layer and no plain call in training; 26d
+     `python3 -m benchmark.spans` on dq_serve_live_b1 and
      dq_serve_offline_b8 (10 s each): `mvg.dlt`'s ops and host ms a frame,
      the device ops a frame and the idle share.
  27. point-top-m in ProjAttn (`ops/point_topm.py`, one kernel per decoder
@@ -266,6 +275,7 @@ import torch
 
 from mvgformer_tpu_torch import bench
 from mvgformer_tpu_torch.device import card_line
+from mvgformer_tpu_torch.geometry.cameras import CameraParams
 from mvgformer_tpu_torch.ops import (_build, deform_attn, dlt_jacobi,
                                      gather_forms, point_topm, sampling,
                                      table_build, table_gather, window_block,
@@ -328,6 +338,13 @@ DLT_POINTS, DLT_VIEWS = 960, 5
 DLT_SPAN_CELLS = ("dq_serve_live_b1", "dq_serve_offline_b8")
 DLT_SPAN_SECONDS = "10"
 DLT_SPAN_SEED = "1800000018"
+# phase 26b: the training layer's DLT backward, 1 x 1024 queries x 15
+# joints over 5 views; the quantiles of the points' gradient errors and
+# the factor over float32 autograd's error allowed at each (the card
+# tests' rule)
+DLT_BWD_SHAPE = (1, 15360, 5)
+DLT_BWD_QUANTILES = (0.5, 0.9, 0.99, 1.0)
+DLT_BWD_FACTORS = (2.0, 2.0, 2.0, 4.0)
 # phase 27: point-top-m at the live dense layer's rows and a top-64
 # layer's, (N, Lq, H, Lt, P), m 4; the weights' tolerance (the kept sum is
 # added in another order than torch.sum's)
@@ -4046,11 +4063,124 @@ def dlt_kernel(card, floor_ms):
     return shapes
 
 
+@contextlib.contextmanager
+def float32_casts_lifted():
+    """The plain chain in its inputs' dtype throughout: its casts to float32
+    (`triangulate_dlt`'s and `jacobi4_smallest`'s `.float()`) are the
+    identity inside."""
+    cast = torch.Tensor.float
+    torch.Tensor.float = lambda self: self
+    try:
+        yield
+    finally:
+        torch.Tensor.float = cast
+
+
+def dlt_graph(fn, ops):
+    """fn's (B, N, 3) points with the refined points and logits as fresh
+    leaves that require grad, and the leaves."""
+    leaves = (ops["refined"].detach().clone().requires_grad_(),
+              ops["logits"].detach().clone().requires_grad_())
+    return fn(**dict(ops, refined=leaves[0], logits=leaves[1])), leaves
+
+
+def point_errors(got, want, mask):
+    """Each kept point's |got - want| / |want| over its views' entries, in
+    float64, where `want` is not zero."""
+    def rows(t):
+        return t.movedim(0, 2).reshape(mask.numel(), -1)[mask.reshape(-1)]
+    g, w = rows(got.double()), rows(want.double())
+    norm = w.norm(dim=1)
+    keep = norm > 0
+    return (g - w)[keep].norm(dim=1) / norm[keep]
+
+
+def dlt_backward(card, floor_ms):
+    """Phase 26b: the backward kernel at the training layer's shape against
+    autograd through `plain_dlt` on the same inputs and cotangent, both
+    held to the float64 gradient (the plain chain with its float32 casts
+    lifted): the kernel's error at each quantile of DLT_BWD_QUANTILES
+    within DLT_BWD_FACTORS of float32 autograd's, masked points exact
+    zeros, kept ones finite. Timed alone (`torch.autograd.grad` on one
+    forward's graph) beside the plain chain's autograd backward, and the
+    forward at this shape (`forward`) beside the plain chain's."""
+    B, N, V = DLT_BWD_SHAPE
+    ops = dlt_inputs(B, N, V, seed=SEED + 24)
+    grad = torch.randn(B, N, 3, generator=torch.Generator().manual_seed(
+        SEED + 24)).cuda()
+    backward = profiling.COUNTERS[dlt_jacobi.BACKWARD_COUNTER]
+    out, leaves = dlt_graph(dlt_jacobi.fused_dlt, ops)
+    got = torch.autograd.grad(out, leaves, grad)
+    backward = profiling.COUNTERS[dlt_jacobi.BACKWARD_COUNTER] - backward
+    out, leaves = dlt_graph(dlt_jacobi.plain_dlt, ops)
+    plain = torch.autograd.grad(out, leaves, grad)
+    ops64 = {k: v.double() if v.is_floating_point() else v
+             for k, v in ops.items() if k != "cameras"}
+    ops64["cameras"] = CameraParams(**{
+        name: getattr(ops["cameras"], name).double()
+        for name in ("R", "T", "f", "c", "k", "p")})
+    with float32_casts_lifted():
+        out, leaves = dlt_graph(dlt_jacobi.plain_dlt, ops64)
+        truth = torch.autograd.grad(out, leaves, grad.double())
+    mask = ops["mask"]
+    q = torch.tensor(DLT_BWD_QUANTILES, dtype=torch.float64, device="cuda")
+    factors = torch.tensor(DLT_BWD_FACTORS, dtype=torch.float64,
+                           device="cuda")
+    errors = {}
+    for name, g, p, t in zip(("d_refined", "d_logits"), got, plain, truth):
+        ours = torch.quantile(point_errors(g, t, mask), q)
+        theirs = torch.quantile(point_errors(p, t, mask), q)
+        errors[name] = {
+            "quantiles": list(DLT_BWD_QUANTILES), "kernel": ours.tolist(),
+            "autograd_f32": theirs.tolist(),
+            "within": bool((ours <= theirs * factors + 1e-7).all()),
+            "masked_zero": bool((g[:, ~mask] == 0).all()),
+            "finite": bool(torch.isfinite(g[:, mask]).all())}
+    out, leaves = dlt_graph(dlt_jacobi.fused_dlt, ops)
+    fused = functools.partial(torch.autograd.grad, out, leaves, grad,
+                              retain_graph=True)
+    plain_out, plain_leaves = dlt_graph(dlt_jacobi.plain_dlt, ops)
+    plain = functools.partial(torch.autograd.grad, plain_out, plain_leaves,
+                              grad, retain_graph=True)
+    dev, host = device_ms(fused)
+    work = bounds.dlt_jacobi_bwd(B, N, V)
+    # the forward at this shape as training calls it: leaves that require
+    # grad, so each call also records its autograd node (the plain chain
+    # its graph)
+    fused_fwd = functools.partial(dlt_jacobi.fused_dlt,
+                                  **dict(ops, refined=leaves[0],
+                                         logits=leaves[1]))
+    plain_fwd = functools.partial(dlt_jacobi.plain_dlt,
+                                  **dict(ops, refined=plain_leaves[0],
+                                         logits=plain_leaves[1]))
+    fwd_dev, fwd_host = device_ms(fused_fwd)
+    row = {"at": f"float32 B={B} N={N} V={V} (the training layer's 1024 "
+                 f"queries x 15 joints)",
+           "errors": errors,
+           "max_rel_err": errors["d_refined"]["kernel"][-1],
+           "backward_launches": backward,
+           "ms": cuda_ms(fused), "device_ms": dev, "host_us": host,
+           "plain_ms": cuda_ms(plain, runs=5, warmup=1),
+           "bound_ms": work.bound_ms, "bound_by": work.bound_by,
+           "floor_ms": floor_ms,
+           "forward": {"ms": cuda_ms(fused_fwd), "device_ms": fwd_dev,
+                       "host_us": fwd_host,
+                       "plain_ms": cuda_ms(plain_fwd, runs=5, warmup=1),
+                       "bound_ms": bounds.dlt_jacobi(B, N, V).bound_ms}}
+    phase("dlt_backward", **row, card=card)
+    if backward != 1 or not all(e["within"] and e["masked_zero"]
+                                and e["finite"] for e in errors.values()):
+        fail(f"the DLT backward kernel: {row}")
+    del out, leaves, plain_out, plain_leaves
+    return row
+
+
 def dlt_counts(card):
-    """Phase 26b: fused_dlt's counts over one served flagship frame at
+    """Phase 26c: fused_dlt's counts over one served flagship frame at
     batch 1 and at batch 8 and over one flagship training step, each from
-    0: a launch per layer and no plain call in serving, no launch and a
-    plain call per layer (again in the remat recompute) in training."""
+    0: a launch per layer and no plain call in serving; in training a
+    forward launch per layer (again in the remat recompute), a backward
+    launch per layer and no plain call."""
     from mvgformer_tpu_torch.core.infer import make_eval_step
     from mvgformer_tpu_torch.core.train import (create_train_state,
                                                 make_train_step)
@@ -4075,25 +4205,29 @@ def dlt_counts(card):
     batch = make_batch(cfg, batch_size=1, seed=SEED + 400, num_people=3,
                        cam_seed=SEED)
     dlt_jacobi.fused_dlt.launches = dlt_jacobi.fused_dlt.plain_calls = 0
+    backward = profiling.COUNTERS[dlt_jacobi.BACKWARD_COUNTER]
     train_step(state, batch, torch.Generator().manual_seed(SEED))
     torch.cuda.synchronize()
     counts["train"] = (dlt_jacobi.fused_dlt.launches,
                        dlt_jacobi.fused_dlt.plain_calls)
+    backward = profiling.COUNTERS[dlt_jacobi.BACKWARD_COUNTER] - backward
     remat = 2 if cfg.PARALLEL.REMAT_DECODER else 1
     want = {**{f"serve_b{B}": (layers, 0) for B in DLT_BATCHES},
-            "train": (0, remat * layers)}
+            "train": (remat * layers, 0)}
     phase("dlt_counts", launches_plain_calls=counts,
+          train_backward_launches=backward,
           engagement={k: (n / (n + p) if n + p else None)
                       for k, (n, p) in counts.items()}, card=card)
-    if counts != want:
-        fail(f"fused_dlt's counts {counts}, expected {want}")
+    if counts != want or backward != layers:
+        fail(f"fused_dlt's counts {counts}, expected {want}; backward "
+             f"launches {backward}, expected {layers}")
     del model, state
     torch.cuda.empty_cache()
-    return counts
+    return counts, backward
 
 
 def dlt_spans(card):
-    """Phase 26c: `python3 -m benchmark.spans` on the two DQ serving cells,
+    """Phase 26d: `python3 -m benchmark.spans` on the two DQ serving cells,
     each in its own process: `mvg.dlt`'s device ops and untraced host ms a
     frame (the span metrics), the traced device ops a frame and the idle
     share."""
@@ -4116,13 +4250,16 @@ def dlt_spans(card):
 
 
 def dlt_phase(card, floor_ms):
-    """Phase 26: the serving Jacobi DLT kernel (26a-26c)."""
+    """Phase 26: the Jacobi DLT kernels (26a-26d). Returns the forward's
+    shapes, the backward's row (with its launches in a training step),
+    the counts and the spans."""
     t0 = time.perf_counter()
     shapes = dlt_kernel(card, floor_ms)
-    counts = dlt_counts(card)
+    backward = dlt_backward(card, floor_ms)
+    counts, backward["launches"] = dlt_counts(card)
     spans = dlt_spans(card)
     phase("dlt", seconds=time.perf_counter() - t0, card=card)
-    return shapes, counts, spans
+    return shapes, backward, counts, spans
 
 
 def topm_inputs(shape, seed):
@@ -4381,7 +4518,7 @@ def main(argv=None):
     phase("view_parallelism", seconds=time.perf_counter() - t_vp, card=card)
     ablation_stats, tool_runs = tools_phase(card)
     bench_runs = bench_phase(card)
-    dlt_shapes, dlt_launches, _ = dlt_phase(card, floor_ms)
+    dlt_shapes, dlt_bwd, dlt_launches, _ = dlt_phase(card, floor_ms)
     topm_shapes, topm_launches = topm_phase(card, floor_ms)
     mvp = {"serve_launches": mvp_serve_launches,
            "b1_device_ms_per_launch":
@@ -4502,6 +4639,10 @@ def main(argv=None):
                  "bound_ms": bounds.dlt_jacobi(
                      B, DLT_POINTS, DLT_VIEWS).bound_ms}
                 for B, sh in zip(DLT_BATCHES, dlt_shapes)]
+    # a training step's forward launches (the remat recompute's too), with
+    # the plain chain's forward as it records its graph
+    dlt_rows.append({"at": dlt_bwd["at"], "launches": dlt_launches["train"][0],
+                     **dlt_bwd["forward"]})
     kernels.append(kernel_row(
         dlt_jacobi.fused_dlt, "dlt_jacobi.cu",
         "mvgformer_tpu/geometry/triangulate.py:jacobi4_smallest (plain "
@@ -4512,6 +4653,16 @@ def main(argv=None):
         bounds.dlt_jacobi(1, DLT_POINTS, DLT_VIEWS), dlt_rows[0]["at"],
         by_shape=dlt_rows, device_ms=dlt_rows[0]["device_ms"],
         ptxas=reports["dlt_jacobi.cu"]))
+    # its backward in a training step; `plain_ms` autograd's backward of
+    # the plain chain
+    kernels.append(kernel_row(
+        dlt_jacobi.fused_dlt, "dlt_jacobi.cu",
+        "jax.grad through the same chain (XLA's fused VJP of "
+        "jacobi4_smallest's sweeps)", dlt_bwd["launches"], None,
+        dlt_bwd["ms"], dlt_bwd["plain_ms"], None,
+        bounds.dlt_jacobi_bwd(*DLT_BWD_SHAPE), dlt_bwd["at"],
+        name="fused_dlt.backward", max_rel_err=dlt_bwd["max_rel_err"],
+        errors=dlt_bwd["errors"], device_ms=dlt_bwd["device_ms"]))
     # a served frame: the dense layer 1, then the top-64 layers
     topm_rows = [{**sh, "launches": n} for sh, n in zip(
         topm_shapes, (1, topm_launches["serve_b1"] - 1))]

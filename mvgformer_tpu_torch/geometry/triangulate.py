@@ -10,10 +10,11 @@ dehomogenize. Solvers:
                 equilibrated 4x4 Gram matrix;
     'jacobi' -- the same Gram matrix solved by a fixed-sweep cyclic Jacobi
                 loop written as elementwise tensor math (the flagship
-                serving solver). Plain torch ops here: the CPU and the
-                training path, and the reference of the serving kernel
-                `ops/dlt_jacobi.py`, which runs a decoder layer's whole
-                DLT on the card in one launch.
+                solver). Plain torch ops here: the CPU and view-split
+                path, and the reference of the kernels of
+                `ops/dlt_jacobi.py`, which run a decoder layer's whole DLT
+                on the card in one launch, and its backward (the VJP of
+                these fixed sweeps) in one more.
 """
 
 from __future__ import annotations

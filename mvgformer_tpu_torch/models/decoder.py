@@ -51,10 +51,11 @@ Per layer:
   9. confidence-weighted DLT (`dlt_jacobi.solve_views`) or structural
      triangulation, masked; the optional bayesian blend, masked again.
 
-On the card a serving call with the Jacobi solver and every view on this
-process runs steps 8-9 up to the masked points as one kernel
-(`dlt_jacobi.fused_dlt`, rule `fused_path`); training, a view split, the
-CPU and the other solvers call the two functions of the plain chain.
+On the card a call with the Jacobi solver and every view on this process
+runs steps 8-9 up to the masked points as one kernel, and in training its
+backward as one more (`dlt_jacobi.fused_dlt`, rule `fused_path`); a view
+split, the CPU and the other solvers call the two functions of the plain
+chain.
 """
 
 from __future__ import annotations
@@ -430,13 +431,14 @@ class DQDecoderLayer(nn.Module):
 
         with span("mvg.dlt"):
             if dlt_jacobi.fused_path(refined_abs.device,
-                                     self.triangulation_solver, split,
-                                     refined_abs, conf_logits):
-                # (8-9) one kernel on the card: the serving Jacobi DLT from
-                # the refined points to the masked new refs
+                                     self.triangulation_solver, split):
+                # (8-9) one kernel on the card: the Jacobi DLT from the
+                # refined points to the masked new refs (in training, one
+                # more for its backward)
                 new_refs = dlt_jacobi.fused_dlt(
                     refined_abs, conf_logits, mask_nq, view_data.inv_affine,
-                    view_data.cameras, proj_mats)
+                    view_data.cameras, proj_mats,
+                    self.tri_grad_clip if train else None)
             else:
                 # (8) masked-out queries triangulate the image centre
                 points = dlt_jacobi.image_points(

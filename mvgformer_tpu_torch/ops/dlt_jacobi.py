@@ -1,5 +1,6 @@
-"""Steps 8-9 of `DQDecoderLayer`: the plain chain, and the serving Jacobi
-DLT as one hand-written kernel per decoder layer on the card.
+"""Steps 8-9 of `DQDecoderLayer`: the plain chain, and the Jacobi DLT as one
+hand-written kernel per decoder layer on the card, with a hand-written
+backward kernel for training.
 
 The plain chain is two functions, split where a view split all-gathers:
 `image_points` (step 8, per view: a stand-in for masked-out points, the
@@ -7,18 +8,24 @@ inverse crop affine, the 5-iteration undistortion) and `solve_views` (step
 9, across views: the softmax of the logits over the views, the optional
 gradient clip, the confidence-weighted DLT, the query mask). `plain_dlt`
 is the two with the 'jacobi' solver and `fused_dlt`'s signature: the
-kernel's reference. `fused_dlt` launches `csrc/dlt_jacobi.cu` (forward
-only) on CUDA tensors and runs `plain_dlt` on CPU ones.
+kernels' reference. `fused_dlt` launches `csrc/dlt_jacobi.cu` on CUDA
+tensors and runs `plain_dlt` on CPU ones. Where `refined` or `logits`
+needs a gradient it is an autograd node whose backward launches the
+backward kernel: the VJP of the same chain, clip included, recomputed from
+the inputs, which are all it keeps. Without a gradient it is the one
+forward launch and no node.
 
 `fused_path` is the layer's dispatch rule, from what the call can observe:
-the kernel runs where the points are on the card, the solver is 'jacobi',
-nothing needs a gradient and every view is on this process. Training (the
-kernel has no backward), a view split, the CPU and the other solvers call
-the two functions of the plain chain.
+the kernel runs where the points are on the card, the solver is 'jacobi'
+and every view is on this process, in serving and in training alike. A
+view split, the CPU and the other solvers call the two functions of the
+plain chain.
 
-`fused_dlt.launches` counts kernel launches; `fused_dlt.plain_calls` counts
-the CUDA Jacobi calls that `fused_path` sent to the plain chain. Nothing
-else changes them.
+`fused_dlt.launches` counts forward launches; `fused_dlt.plain_calls`
+counts the CUDA Jacobi calls that `fused_path` sent to the plain chain;
+the registry's `dlt_jacobi.backward_launches`
+(`utils/profiling.py::COUNTERS`) counts backward launches. Nothing else
+changes them.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from mvgformer_tpu_torch.device import constant
 from mvgformer_tpu_torch.geometry.cameras import (CameraParams,
@@ -36,6 +44,7 @@ from mvgformer_tpu_torch.geometry.transforms import apply_affine
 from mvgformer_tpu_torch.geometry.triangulate import (clip_cotangent,
                                                       triangulate_dlt)
 from mvgformer_tpu_torch.ops import _build
+from mvgformer_tpu_torch.utils.profiling import count
 
 _SRC = _build.CSRC / "dlt_jacobi.cu"
 # the kernel keeps a point's views in registers: the survey's 3-10 views
@@ -52,20 +61,24 @@ _LAUNCH = _build.Launcher(
     [ctypes.c_void_p] + [ctypes.c_int64] * 4
     + [ctypes.c_void_p] + [ctypes.c_int64] * 3
     + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+_LAUNCH_BWD = _build.Launcher(
+    _SRC, "mvg_dlt_jacobi_bwd",
+    [ctypes.c_void_p] + [ctypes.c_int64] * 4
+    + [ctypes.c_void_p] + [ctypes.c_int64] * 3
+    + [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 3
+    + [ctypes.c_void_p] * 2 + [ctypes.c_float] + [ctypes.c_int] * 4
+    + [ctypes.c_void_p])
+BACKWARD_COUNTER = "dlt_jacobi.backward_launches"
 
 
-def fused_path(device: torch.device, solver: str, split: bool,
-               *inputs: torch.Tensor) -> bool:
-    """Whether a DQ layer's steps 8-9 on `device` take the kernel: CUDA,
-    the 'jacobi' solver, no view split, and no input that needs a gradient
-    (grad mode off, as under the eval step's inference mode, or no input
-    requiring grad). A CUDA Jacobi call that takes the plain chain counts
-    in `fused_dlt.plain_calls`."""
+def fused_path(device: torch.device, solver: str, split: bool) -> bool:
+    """Whether a DQ layer's steps 8-9 on `device` take the kernels: CUDA,
+    the 'jacobi' solver and no view split, with or without a gradient. A
+    CUDA Jacobi call that takes the plain chain (a view split) counts in
+    `fused_dlt.plain_calls`."""
     if device.type != "cuda" or solver != "jacobi":
         return False
-    needs_grad = torch.is_grad_enabled() and any(t.requires_grad
-                                                 for t in inputs)
-    if split or needs_grad:
+    if split:
         fused_dlt.plain_calls += 1
         return False
     return True
@@ -101,13 +114,14 @@ def solve_views(points: torch.Tensor, logits: torch.Tensor,
 
 def plain_dlt(refined: torch.Tensor, logits: torch.Tensor,
               mask: torch.Tensor, inv_affine: torch.Tensor,
-              cameras: CameraParams, proj: torch.Tensor) -> torch.Tensor:
+              cameras: CameraParams, proj: torch.Tensor,
+              grad_clip: Optional[float] = None) -> torch.Tensor:
     """Steps 8-9 with the 'jacobi' solver, arguments as `fused_dlt`'s.
     Masked-out points stand in at the net image's corner (the layer's at
     its centre): no point reads another's, and they come out as zeros."""
     corner = constant(0.0, refined.dtype, refined.device)
     points = image_points(refined, mask, corner, inv_affine, cameras)
-    return solve_views(points, logits, mask, proj, "jacobi")
+    return solve_views(points, logits, mask, proj, "jacobi", grad_clip)
 
 
 def _check(refined, logits, mask, inv_affine, cameras, proj):
@@ -129,20 +143,77 @@ def _check(refined, logits, mask, inv_affine, cameras, proj):
         raise ValueError(f"inputs on several devices: {devices}")
 
 
+def _launch(refined, logits, mask, inv_affine, f, c, k, p, proj):
+    B, N = mask.shape
+    out = torch.empty((B, N, 3), dtype=torch.float32, device=refined.device)
+    if B * N == 0:
+        return out
+    _LAUNCH(refined, refined.data_ptr(), *refined.stride(),
+            logits.data_ptr(), *logits.stride(), mask.data_ptr(),
+            inv_affine.data_ptr(), f.data_ptr(), c.data_ptr(), k.data_ptr(),
+            p.data_ptr(), proj.data_ptr(), out.data_ptr(), B, N,
+            refined.shape[0])
+    fused_dlt.launches += 1
+    return out
+
+
+class _FusedDLT(torch.autograd.Function):
+    """The forward kernel as an autograd node: it keeps its inputs alone,
+    and its backward launches the backward kernel on them."""
+
+    @staticmethod
+    def forward(ctx, refined, logits, mask, inv_affine, f, c, k, p, proj,
+                grad_clip):
+        ctx.save_for_backward(refined, logits, mask, inv_affine, f, c, k, p,
+                              proj)
+        ctx.grad_clip = grad_clip
+        return _launch(refined, logits, mask, inv_affine, f, c, k, p, proj)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        refined, logits, mask, inv_affine, f, c, k, p, proj = \
+            ctx.saved_tensors
+        V, B, N, _ = refined.shape
+        d_refined = torch.empty((V, B, N, 2), dtype=torch.float32,
+                                device=refined.device)
+        d_logits = torch.empty((V, B, N), dtype=torch.float32,
+                               device=refined.device)
+        if B * N:
+            clip = ctx.grad_clip
+            _LAUNCH_BWD(refined, refined.data_ptr(), *refined.stride(),
+                        logits.data_ptr(), *logits.stride(),
+                        mask.data_ptr(), inv_affine.data_ptr(),
+                        f.data_ptr(), c.data_ptr(), k.data_ptr(),
+                        p.data_ptr(), proj.data_ptr(), grad.data_ptr(),
+                        *grad.stride(), d_refined.data_ptr(),
+                        d_logits.data_ptr(),
+                        0.0 if clip is None else clip,
+                        0 if clip is None else 1, B, N, V)
+            count(BACKWARD_COUNTER)
+        needs = ctx.needs_input_grad
+        return (d_refined if needs[0] else None,
+                d_logits if needs[1] else None) + (None,) * 8
+
+
 def fused_dlt(refined: torch.Tensor, logits: torch.Tensor,
               mask: torch.Tensor, inv_affine: torch.Tensor,
-              cameras: CameraParams, proj: torch.Tensor) -> torch.Tensor:
+              cameras: CameraParams, proj: torch.Tensor,
+              grad_clip: Optional[float] = None) -> torch.Tensor:
     """(B, N, 3) triangulated points, zero where `mask` is False.
 
     refined (V, B, N, 2) net-image px and logits (V, B, N), float32 at any
     strides; mask (B, N) bool; inv_affine (B, V, 2, 3) net -> full image;
     the cameras' f, c, p (B, V, 2) and k (B, V, 3); proj (B, V, 3, 4):
-    float32 and, on CUDA, contiguous. V at most MAX_VIEWS on CUDA, and no
-    input may require grad there (the kernel has no backward).
+    float32 and, on CUDA, contiguous. V at most MAX_VIEWS on CUDA. The
+    gradient reaches `refined` and `logits` alone: on CUDA no other input
+    may require one. `grad_clip` (TRAIN.TRI_GRAD_CLIP) bounds each view's
+    point and weight cotangent, as `solve_views`'s.
     """
     _check(refined, logits, mask, inv_affine, cameras, proj)
     if refined.device.type == "cpu":
-        return plain_dlt(refined, logits, mask, inv_affine, cameras, proj)
+        return plain_dlt(refined, logits, mask, inv_affine, cameras, proj,
+                         grad_clip)
     if refined.device.type != "cuda":
         raise ValueError(f"unsupported device {refined.device}")
     # refined and logits go at their strides, the rest contiguous
@@ -157,24 +228,20 @@ def fused_dlt(refined: torch.Tensor, logits: torch.Tensor,
     for name, t in {"mask": mask, **per_view}.items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if torch.is_grad_enabled() and (refined.requires_grad
-                                    or logits.requires_grad):
-        raise NotImplementedError(
-            "fused_dlt has no backward kernel; call it under "
-            "torch.no_grad() or on tensors that do not require grad")
-    V, B, N, _ = refined.shape
-    if V > MAX_VIEWS:
-        raise ValueError(f"{V} views: the kernel takes at most {MAX_VIEWS}")
-    out = torch.empty((B, N, 3), dtype=torch.float32, device=refined.device)
-    if B * N == 0:
-        return out
-    _LAUNCH(refined, refined.data_ptr(), *refined.stride(),
-            logits.data_ptr(), *logits.stride(), mask.data_ptr(),
-            inv_affine.data_ptr(), cameras.f.data_ptr(), cameras.c.data_ptr(),
-            cameras.k.data_ptr(), cameras.p.data_ptr(), proj.data_ptr(),
-            out.data_ptr(), B, N, V)
-    fused_dlt.launches += 1
-    return out
+    if refined.shape[0] > MAX_VIEWS:
+        raise ValueError(f"{refined.shape[0]} views: the kernel takes at "
+                         f"most {MAX_VIEWS}")
+    operands = (refined, logits, mask, inv_affine, cameras.f, cameras.c,
+                cameras.k, cameras.p, proj)
+    if torch.is_grad_enabled():
+        for name, t in per_view.items():
+            if t.requires_grad:
+                raise ValueError(f"{name} requires grad: the backward "
+                                 "kernel sends cotangents to refined and "
+                                 "logits alone")
+        if refined.requires_grad or logits.requires_grad:
+            return _FusedDLT.apply(*operands, grad_clip)
+    return _launch(*operands)
 
 
 fused_dlt.launches = 0

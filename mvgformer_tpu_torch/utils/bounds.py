@@ -296,6 +296,26 @@ def dlt_jacobi(B: int, N: int, V: int) -> Work:
                 points * (V * DLT_OPS_PER_VIEW + DLT_OPS_PER_POINT))
 
 
+# float32 operations per point of the DLT's backward (csrc/dlt_jacobi.cu):
+# the forward again (above), then its reverse: per view the system's rows
+# in two passes (408), the clip and the softmax (16), the undistortion's
+# iterates again and their reverse (393); per point the dehomogenisation
+# and the rescale (28) and 36 rotations of about 100. A rotation's state
+# replayed from its sweep's first state (90 rotations of 56) is not
+# counted: a kernel that kept every state would not do that work.
+DLT_BWD_OPS_PER_VIEW = DLT_OPS_PER_VIEW + 408 + 16 + 393
+DLT_BWD_OPS_PER_POINT = DLT_OPS_PER_POINT + 28 + 36 * 100
+
+
+def dlt_jacobi_bwd(B: int, N: int, V: int) -> Work:
+    """The backward of `dlt_jacobi`'s call: its inputs read again with the
+    cotangent of the 3D point (12 bytes a point), the cotangents of the
+    refined points and logits written (12 a point and view)."""
+    points = B * N
+    return Work(points * (24 * V + 1 + 24) + B * V * 27 * 4,
+                points * (V * DLT_BWD_OPS_PER_VIEW + DLT_BWD_OPS_PER_POINT))
+
+
 # ---------------------------------------------------------------------------
 # point-top-m in ProjAttn (serving)
 # ---------------------------------------------------------------------------

@@ -39,8 +39,10 @@ SPANS = ("mvg.step", "mvg.backbone", "mvg.init", LAYER, "mvg.project",
          "mvg.vp.softargmax", "mvg.point_topm")
 
 # the port's counter registry, by name: VoxelPose's `voxelpose.root_volumes`
-# and `voxelpose.prn_volumes` (the volumes its two V2V networks computed)
-# and `point_topm.launches` (`ops/point_topm.py`)
+# and `voxelpose.prn_volumes` (the volumes its two V2V networks computed),
+# `point_topm.launches` (`ops/point_topm.py`) and
+# `dlt_jacobi.backward_launches` (the DLT's backward kernel,
+# `ops/dlt_jacobi.py`)
 COUNTERS: collections.Counter = collections.Counter()
 
 

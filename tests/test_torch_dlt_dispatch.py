@@ -2,17 +2,17 @@
 CPU, at toy widths:
 
   * the rule `fused_path`: the kernel on CUDA for the 'jacobi' solver when
-    no input needs a gradient and the views are not split; grad-enabled
-    inputs, a split grid, 'eigh', 'svd', 'st' and the CPU take the plain
-    chain, and only CUDA Jacobi calls count in `fused_dlt.plain_calls`;
+    the views are not split, in every grad mode; a split grid, 'eigh',
+    'svd', 'st' and the CPU take the plain chain, and only CUDA Jacobi
+    calls count in `fused_dlt.plain_calls`;
   * `fused_dlt` on CPU tensors is `plain_dlt`, launches nothing, and checks
     shapes and devices first;
   * a served toy model on the CPU, each solver, takes the plain chain and
     counts nothing; with the rule told the points are on the card, the
     fused branch (on the CPU, `plain_dlt`) gives the plain chain's bits,
-    with and without bayesian_update and top-K, and a training step keeps
-    the plain chain, counts its calls and gives the same losses; the plain
-    chain is `image_points` then `solve_views` for each DLT solver;
+    with and without bayesian_update and top-K, and so does a training
+    step, its clip passed on, with and without remat; the plain chain is
+    `image_points` then `solve_views` for each DLT solver;
   * a served top-K frame selects its queries once, in layer 1, and gives
     the dense frame's pred at them.
 """
@@ -69,40 +69,18 @@ def counters():
                     fused_dlt.plain_calls - start[1])
 
 
-def _points(requires_grad=False):
-    return (torch.zeros(3, 1, 8, 2, requires_grad=requires_grad),
-            torch.zeros(3, 1, 8))
-
-
-@pytest.mark.parametrize("device,solver,split,grad,want,plain", [
-    (CUDA, "jacobi", False, "inference", True, 0),
-    (CUDA, "jacobi", False, "no_grad", True, 0),
-    (CUDA, "jacobi", False, "enabled, no input requires it", True, 0),
-    (CUDA, "jacobi", False, "enabled", False, 1),
-    (CUDA, "jacobi", True, "inference", False, 1),
-    (CUDA, "jacobi", True, "enabled", False, 1),
-    (CUDA, "eigh", False, "inference", False, 0),
-    (CUDA, "svd", False, "inference", False, 0),
-    (CUDA, "st", False, "inference", False, 0),
-    (CUDA, "eigh", False, "enabled", False, 0),
-    (torch.device("cpu"), "jacobi", False, "inference", False, 0),
-    (torch.device("cpu"), "jacobi", False, "enabled", False, 0),
-])
-def test_fused_path_rule(counters, device, solver, split, grad, want,
-                         plain):
-    if grad == "inference":
-        with torch.inference_mode():
-            inputs = _points()
-            got = fused_path(device, solver, split, *inputs)
-    elif grad == "no_grad":
-        inputs = _points(requires_grad=True)
-        with torch.no_grad():
-            got = fused_path(device, solver, split, *inputs)
-    else:
-        inputs = _points(requires_grad=grad == "enabled")
-        got = fused_path(device, solver, split, *inputs)
-    assert got is want
-    assert counters() == (0, plain)
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("solver", ["jacobi", "eigh", "svd", "st"])
+@pytest.mark.parametrize("device", [CUDA, torch.device("cpu")],
+                         ids=["cuda", "cpu"])
+def test_fused_path_rule(counters, device, solver, split):
+    """The rule reads the device, the solver and the split alone: the
+    kernels on CUDA with 'jacobi' and every view on this process, in
+    serving and training alike; a CUDA Jacobi call under a view split
+    counts as plain, and nothing else counts."""
+    cuda_jacobi = device.type == "cuda" and solver == "jacobi"
+    assert fused_path(device, solver, split) is (cuda_jacobi and not split)
+    assert counters() == (0, int(cuda_jacobi and split))
 
 
 def _operands(B=2, N=6, V=3, seed=0):
@@ -272,24 +250,39 @@ def test_served_topk_selects_once_a_frame(monkeypatch):
 
 @pytest.mark.parametrize("remat", [False, True])
 def test_training_keeps_the_plain_chain(monkeypatch, counters, remat):
-    cfg = _cfg(PARALLEL__REMAT_DECODER=remat)
+    """Training keeps the plain chain's bits through the fused branch. A
+    training step on the CPU runs the plain chain; with the rule told the
+    points are on the card, every layer takes the fused branch (on the
+    CPU, `plain_dlt`, with the layer's TRI_GRAD_CLIP), again in the remat
+    recompute, and the losses and the updated parameters are the plain
+    chain's bits. Nothing launches, and no call counts as plain."""
+    cfg = _cfg(PARALLEL__REMAT_DECODER=remat, TRAIN__TRI_GRAD_CLIP=1.0)
     batch = make_batch(cfg, seed=6, num_people=2, device="cpu")
 
-    def losses():
+    def step_once():
         model = _model(cfg)
         state, tx = create_train_state(cfg, model)
         step = make_train_step(cfg, model, tx)
         _, metrics = step(state, batch, torch.Generator().manual_seed(5))
-        return metrics
+        return metrics, {k: v.detach().clone()
+                         for k, v in model.named_parameters()}
 
-    want = losses()
+    want, want_params = step_once()
     _as_if_on_the_card(monkeypatch)
-    got = losses()
+    clips = []
+
+    def spy(*args, **kwargs):
+        clips.append(args[6])
+        return plain_dlt(*args, **kwargs)
+
+    monkeypatch.setattr(dlt_jacobi, "plain_dlt", spy)
+    got, got_params = step_once()
     assert set(got) == set(want)
     for key in want:
         assert torch.equal(torch.as_tensor(got[key]),
                            torch.as_tensor(want[key])), key
-    launches, plain = counters()
-    assert launches == 0
+    for key in want_params:
+        assert torch.equal(got_params[key], want_params[key]), key
     # each layer's forward, and again in the remat recompute
-    assert plain == LAYERS * (2 if remat else 1)
+    assert clips == [1.0] * LAYERS * (2 if remat else 1)
+    assert counters() == (0, 0)
