@@ -211,8 +211,10 @@ exits non-zero:
      shapes, 960 points a frame and 5 views at batch 1 and 8, the forward
      kernel against the plain chain (the largest gap on points inside the
      capture space), timed as the other kernels (`ms`, `device_ms`,
-     `host_us`) beside the plain chain's `plain_ms` and the launch floor;
-     26b at the training layer's shape (1, 15360, 5) the backward kernel's
+     `host_us`) beside the plain chain's `plain_ms` and the launch floor,
+     then at the volumetric cell's pelvis (B 1, N 1, V 4: zero logits,
+     mask true, the cell's rig) over 64 subjects placed as its frames
+     place them, with the same tolerance; 26b at the training layer's shape (1, 15360, 5) the backward kernel's
      gradients of the refined points and logits against autograd through
      `plain_dlt` on the same inputs, both held to the float64 gradient
      (within 2x of float32 autograd's error at the 50/90/99% quantiles of
@@ -220,13 +222,15 @@ exits non-zero:
      ones finite), and the backward timed alone beside the plain chain's
      autograd backward and its bound, the forward at that shape beside
      the plain chain's forward; 26c the flagship bf16 model serves
-     a frame at batch 1 and at batch 8, and trains one step, with the
-     DLT's counts set to 0 before each: a launch per layer and no plain
-     call in serving, a forward launch per layer and recompute, a
-     backward launch per layer and no plain call in training; 26d
-     `python3 -m benchmark.spans` on dq_serve_live_b1 and
-     dq_serve_offline_b8 (10 s each): `mvg.dlt`'s ops and host ms a frame,
-     the device ops a frame and the idle share.
+     a frame at batch 1 and at batch 8, and trains one step, and the
+     volumetric cell's configuration serves a frame at full width, with
+     the DLT's counts set to 0 before each: a launch per layer and no
+     plain call in serving, a forward launch per layer and recompute, a
+     backward launch per layer and no plain call in training, one launch,
+     no plain call and no host synchronization in the volumetric step;
+     26d `python3 -m benchmark.spans` on dq_serve_live_b1,
+     dq_serve_offline_b8 and ltvol_serve_live_b1 (10 s each): `mvg.dlt`'s
+     ops and host ms a frame, the device ops a frame and the idle share.
  27. point-top-m in ProjAttn (`ops/point_topm.py`, one kernel per decoder
      layer): 27a at the live dense layer's shape (5, 15360, 8, 3, 8) and a
      top-64 layer's (5, 960, 8, 3, 8), m 4, the kernel against the plain
@@ -332,12 +336,22 @@ WINDOWED_VALIDATE = ("DECODER.layer1_windowed_sampling=true",
                      "DECODER.layer1_window_impl=pallas_dma")
 # phase 26: a served layer's DLT at batch 1 (live) and 8, 960 points a
 # frame (top-64 x 15 joints), 5 views; the benchmark cells it runs
-# benchmark.spans on, and the seconds of each
+# benchmark.spans on (the volumetric cell's pelvis opens `mvg.dlt` too),
+# and the seconds of each
 DLT_BATCHES = (1, 8)
 DLT_POINTS, DLT_VIEWS = 960, 5
-DLT_SPAN_CELLS = ("dq_serve_live_b1", "dq_serve_offline_b8")
+DLT_SPAN_CELLS = ("dq_serve_live_b1", "dq_serve_offline_b8",
+                  "ltvol_serve_live_b1")
 DLT_SPAN_SECONDS = "10"
 DLT_SPAN_SEED = "1800000018"
+# the volumetric cell's configuration and traffic: 26a's pelvis shape is
+# its DLT of the base joint, one point a frame over its four views
+# (`models/volumetric.py::pelvis`), on its rig, at DLT_PELVIS_DRAWS
+# subject positions placed as its frames place them; 26c serves one of its
+# frames at full width
+LT_CONFIG = REPO / "benchmark" / "configs" / "ltvol_h36m4.json"
+LT_TRAFFIC = REPO / "benchmark" / "traffic" / "serve_live_solo_b1.json"
+DLT_PELVIS_DRAWS = 64
 # phase 26b: the training layer's DLT backward, 1 x 1024 queries x 15
 # joints over 5 views; the quantiles of the points' gradient errors and
 # the factor over float32 autograd's error allowed at each (the card
@@ -4027,9 +4041,75 @@ def bench_phase(card):
     return runs
 
 
+def lt_cell():
+    """The volumetric cell's configuration and traffic."""
+    return (json.loads(LT_CONFIG.read_text()),
+            json.loads(LT_TRAFFIC.read_text()))
+
+
+def pelvis_inputs(seed, noise_px=2.0, device="cuda"):
+    """`fused_dlt`'s keyword arguments as the volumetric model's pelvis
+    stage gives them, at (B 1, N 1, V 4): the cell's rig (its camera ring
+    at its `cam_seed`, the full frame as the crop), the base joint of one
+    subject placed as the cell's frames place it, projected into the
+    network image plus `noise_px` of gaussian noise (the soft-argmax's
+    error), zero logits (equal weights) and the mask true."""
+    from benchmark import frames
+    from mvgformer_tpu_torch.geometry.cameras import (project_points,
+                                                      projection_matrices)
+    from mvgformer_tpu_torch.geometry.transforms import apply_affine
+
+    spec, traffic = lt_cell()
+    s = spec["settings"]
+    rig = {k: v[None] for k, v in
+           frames.make_rig(spec, traffic, "cpu").items()}
+    cams = CameraParams(**{k: rig[k] for k in "RTfckp"})
+    V = rig["R"].shape[1]
+    rng = np.random.default_rng(seed)
+    world = frames.people(1, np.asarray(spec["t_pose"]),
+                          s["MULTI_PERSON.SPACE_CENTER"],
+                          rng)[:, s["NETWORK.BASE_JOINT"]]
+    pix = project_points(
+        torch.from_numpy(world)[None, None].expand(1, V, 1, 3), cams)
+    net = apply_affine(pix, rig["affine"])  # (1, V, 1, 2)
+    net = net + noise_px * torch.from_numpy(
+        rng.standard_normal(tuple(net.shape)).astype(np.float32))
+    ops = dict(refined=net.transpose(0, 1).contiguous(),
+               logits=torch.zeros(V, 1, 1),
+               mask=torch.ones(1, 1, dtype=torch.bool),
+               inv_affine=rig["inv_affine"],
+               proj=projection_matrices(cams, inv_trans=True))
+    ops = {k: v.to(device) for k, v in ops.items()}
+    ops["cameras"] = CameraParams(**{
+        k: getattr(cams, k).to(device) for k in ("R", "T", "f", "c", "k",
+                                                 "p")})
+    return ops
+
+
+def lt_step(seed, device="cuda", **settings):
+    """The volumetric cell's served step at its configuration (with
+    `settings` over it) on weights drawn from `seed`, and two frames of
+    its traffic as the port's batches."""
+    from benchmark import frames, program, weights
+
+    spec, traffic = lt_cell()
+    spec["settings"].update(settings)
+    cfg = program.config(spec)
+    net = program.model(cfg, device)
+    weights.load(net, weights.draw(weights.float_shapes(net), seed, device))
+    ring = frames.make_ring(spec, dict(traffic, ring_frames=2), seed, device)
+    step = program.eval_step(cfg, net,
+                             spec["settings"]["MULTI_PERSON.THRESHOLD"])
+    J = len(spec["t_pose"])
+    return step, [program.batch(ring.views[i:i + 1].to(device),
+                                ring.rig_batch(1), 1, J) for i in range(2)]
+
+
 def dlt_kernel(card, floor_ms):
     """Phase 26a: the DLT kernel against the plain chain at a served
-    layer's shapes, and timed. Returns a `by_shape` entry per batch."""
+    layer's shapes, and timed, then at the volumetric cell's pelvis
+    shape over DLT_PELVIS_DRAWS subjects. Returns a `by_shape` entry per
+    batch, then the pelvis's."""
     center = torch.tensor(DLT_SPACE_CENTER)
     half = torch.tensor([4000.0, 4000.0, 1000.0])
     shapes = []
@@ -4057,6 +4137,28 @@ def dlt_kernel(card, floor_ms):
             "floor_ms": floor_ms})
         if over or not shapes[-1]["masked_zero"]:
             fail(f"the DLT kernel at B {B}: {shapes[-1]}")
+    draws = [pelvis_inputs(SEED + 2500 + i) for i in range(DLT_PELVIS_DRAWS)]
+    errs, over, finite = [], 0, True
+    for ops in draws:
+        got = dlt_jacobi.fused_dlt(**ops)
+        want = dlt_jacobi.plain_dlt(**ops)
+        gap = (got - want).abs()
+        errs.append(float(gap.max()))
+        over += int((gap > 0.05 + 1e-5 * want.abs()).sum())
+        finite = finite and bool(torch.isfinite(got).all())
+    fused = functools.partial(dlt_jacobi.fused_dlt, **draws[0])
+    plain = functools.partial(dlt_jacobi.plain_dlt, **draws[0])
+    dev, host = device_ms(fused)
+    V = draws[0]["refined"].shape[0]
+    shapes.append({
+        "at": f"float32 B=1 N=1 V={V} (the volumetric cell's pelvis: zero "
+              f"logits, mask true, its rig)",
+        "views": V, "draws": DLT_PELVIS_DRAWS, "max_abs_err_mm": max(errs),
+        "over_tolerance": over, "finite": finite,
+        "ms": cuda_ms(fused), "device_ms": dev, "host_us": host,
+        "plain_ms": cuda_ms(plain, runs=5, warmup=1), "floor_ms": floor_ms})
+    if over or not finite:
+        fail(f"the DLT kernel at the pelvis shape: {shapes[-1]}")
     phase("dlt_kernel", by_shape=shapes,
           ptxas=_build.kernel_report(_build.CSRC / "dlt_jacobi.cu"),
           card=card)
@@ -4177,10 +4279,12 @@ def dlt_backward(card, floor_ms):
 
 def dlt_counts(card):
     """Phase 26c: fused_dlt's counts over one served flagship frame at
-    batch 1 and at batch 8 and over one flagship training step, each from
-    0: a launch per layer and no plain call in serving; in training a
-    forward launch per layer (again in the remat recompute), a backward
-    launch per layer and no plain call."""
+    batch 1 and at batch 8, over one flagship training step and over one
+    frame of the volumetric cell served at full width, each from 0: a
+    launch per layer and no plain call in serving; in training a forward
+    launch per layer (again in the remat recompute), a backward launch per
+    layer and no plain call; one launch, no plain call and no host
+    synchronization in the volumetric step."""
     from mvgformer_tpu_torch.core.infer import make_eval_step
     from mvgformer_tpu_torch.core.train import (create_train_state,
                                                 make_train_step)
@@ -4212,25 +4316,41 @@ def dlt_counts(card):
                        dlt_jacobi.fused_dlt.plain_calls)
     backward = profiling.COUNTERS[dlt_jacobi.BACKWARD_COUNTER] - backward
     remat = 2 if cfg.PARALLEL.REMAT_DECODER else 1
+    del model, state
+    torch.cuda.empty_cache()
+    step, batches = lt_step(SEED + 25)
+    step(batches[0])  # the first call makes the cached constants
+    torch.cuda.synchronize()
+    dlt_jacobi.fused_dlt.launches = dlt_jacobi.fused_dlt.plain_calls = 0
+    pred, lt_syncs = profiling.count_syncs(step, batches[1])
+    torch.cuda.synchronize()
+    counts["lt_serve_b1"] = (dlt_jacobi.fused_dlt.launches,
+                             dlt_jacobi.fused_dlt.plain_calls)
+    lt_pred = {"shape": list(pred.shape),
+               "finite": bool(torch.isfinite(pred).all())}
     want = {**{f"serve_b{B}": (layers, 0) for B in DLT_BATCHES},
-            "train": (remat * layers, 0)}
+            "train": (remat * layers, 0), "lt_serve_b1": (1, 0)}
     phase("dlt_counts", launches_plain_calls=counts,
-          train_backward_launches=backward,
+          train_backward_launches=backward, lt_syncs=lt_syncs,
+          lt_pred=lt_pred,
           engagement={k: (n / (n + p) if n + p else None)
                       for k, (n, p) in counts.items()}, card=card)
     if counts != want or backward != layers:
         fail(f"fused_dlt's counts {counts}, expected {want}; backward "
              f"launches {backward}, expected {layers}")
-    del model, state
+    if lt_syncs or not lt_pred["finite"]:
+        fail(f"the volumetric step: {lt_syncs} syncs, pred {lt_pred}")
+    del step, batches, pred
     torch.cuda.empty_cache()
     return counts, backward
 
 
 def dlt_spans(card):
-    """Phase 26d: `python3 -m benchmark.spans` on the two DQ serving cells,
-    each in its own process: `mvg.dlt`'s device ops and untraced host ms a
-    frame (the span metrics), the traced device ops a frame and the idle
-    share."""
+    """Phase 26d: `python3 -m benchmark.spans` on the two DQ serving cells
+    and the volumetric one, each in its own process: `mvg.dlt`'s device
+    ops a frame, and where the cell reports them its span metrics
+    (`mvg.dlt`'s untraced host ms a frame among them), the traced device
+    ops a frame and the idle share."""
     out = {}
     for cell in DLT_SPAN_CELLS:
         proc = subprocess.run(
@@ -4240,12 +4360,16 @@ def dlt_spans(card):
         if proc.returncode != 0:
             fail(f"benchmark.spans on {cell}: {proc.stderr[-2000:]}")
         res = json.loads(proc.stdout.strip().splitlines()[-1])
-        out[cell] = {"dlt_span": res["spans"].get("mvg.dlt"),
+        dlt = res["spans"].get("mvg.dlt")
+        units = res["traced"]["units"]
+        out[cell] = {"dlt_span": dlt,
+                     "dlt_ops_per_unit": dlt["ops"] / units if dlt else None,
                      "span_metrics": res["span_metrics"],
                      "metrics": res["metrics"], "correct": res["correct"],
-                     "checks": res["checks"],
-                     "units": res["traced"]["units"]}
+                     "checks": res["checks"], "units": units}
         phase("dlt_spans", cell=cell, **out[cell], card=card)
+        if dlt is None:
+            fail(f"benchmark.spans on {cell}: no `mvg.dlt` span")
     return out
 
 
@@ -4639,6 +4763,11 @@ def main(argv=None):
                  "bound_ms": bounds.dlt_jacobi(
                      B, DLT_POINTS, DLT_VIEWS).bound_ms}
                 for B, sh in zip(DLT_BATCHES, dlt_shapes)]
+    # the volumetric cell's pelvis, a launch a frame
+    pelvis = dlt_shapes[len(DLT_BATCHES)]
+    dlt_rows.append({**pelvis, "launches": dlt_launches["lt_serve_b1"][0],
+                     "bound_ms": bounds.dlt_jacobi(
+                         1, 1, pelvis["views"]).bound_ms})
     # a training step's forward launches (the remat recompute's too), with
     # the plain chain's forward as it records its graph
     dlt_rows.append({"at": dlt_bwd["at"], "launches": dlt_launches["train"][0],

@@ -44,6 +44,14 @@ class NetworkConfig:
     USE_GT: bool = False
     BETA: float = 100.0
     INPUT_SIZE: int = 512
+    # The port's own keys, for the volumetric Learnable Triangulation model
+    # (`models/volumetric.py`; its yaml's `model.heatmap_multiplier`, and
+    # the widths its code fixes): the multiplier of the heatmaps' 2D
+    # soft-argmax, the processed feature width, and the joint whose
+    # triangulation places the cube.
+    HEATMAP_MULTIPLIER: float = 100.0
+    VOLUME_FEATURES: int = 32
+    BASE_JOINT: int = 6
 
 
 @dataclass

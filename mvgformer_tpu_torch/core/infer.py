@@ -20,7 +20,7 @@ from mvgformer_tpu_torch.config import Config
 from mvgformer_tpu_torch.core.nms import apply_pose_nms
 from mvgformer_tpu_torch.data.meta import Batch
 from mvgformer_tpu_torch.data.prefetch import DevicePlacer
-from mvgformer_tpu_torch.models import VOXELPOSE, is_dq
+from mvgformer_tpu_torch.models import is_dq, serves_poses
 from mvgformer_tpu_torch.models.voxelpose import voxel_pred
 from mvgformer_tpu_torch.ops.window_sampling import WindowPlan
 from mvgformer_tpu_torch.parallel.mesh import (DataParallel, gather_objects,
@@ -41,26 +41,27 @@ def make_eval_step(cfg: Config, model: torch.nn.Module, threshold: float,
     with_escape_telemetry: return (pred, escaped_mass) instead, the
     attention mass that escaped the windows of layer 1 as a float32 scalar
     tensor (0 without a plan). The MvP baseline takes no plan: passing
-    one raises; neither does VoxelPose (`models/voxelpose.py`), whose
-    model gives the pred's poses and root scores directly.
+    one raises; neither do the volumetric models (`models/voxelpose.py`,
+    `models/volumetric.py`; `models.serves_poses`), which give the pred's
+    poses and scores directly.
     dp: the (data x view) grid under data or view parallelism; the batch
     is this rank's shard (`parallel.shard_batch`) and every rank calls the
     step in turn. Under a view split the pred is the frame's, the same
     bits on every rank of a data row, and a plan of the rig's views is cut
-    to the rank's. VoxelPose takes no view split."""
+    to the rank's. The volumetric models take no view split."""
     model.eval()
     dq = is_dq(cfg)
     if window_plan is not None and not dq:
         raise ValueError("the window plan is for the DQ model's layer 1; "
                          "the MvP baseline takes none")
-    voxel = cfg.TRANSFORMER == VOXELPOSE
-    if voxel and dp is not None and dp.views > 1:
-        raise ValueError("VoxelPose takes no view split")
+    volumetric = serves_poses(cfg)
+    if volumetric and dp is not None and dp.views > 1:
+        raise ValueError(f"{cfg.TRANSFORMER} takes no view split")
 
     @torch.inference_mode()
     def eval_step(batch: Batch):
         with span("mvg.step"):
-            if voxel:
+            if volumetric:
                 poses, scores = model(batch, threshold=threshold)
                 with span("mvg.pred"):
                     pred = voxel_pred(poses, scores, threshold)

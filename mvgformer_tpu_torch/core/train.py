@@ -41,7 +41,7 @@ import torch
 from mvgformer_tpu_torch.config import Config
 from mvgformer_tpu_torch.core.criterion import compute_losses, match_queries
 from mvgformer_tpu_torch.data.meta import Batch
-from mvgformer_tpu_torch.models import is_dq, refuse_voxelpose
+from mvgformer_tpu_torch.models import is_dq, refuse_volumetric
 from mvgformer_tpu_torch.ops.window_sampling import WindowPlan
 from mvgformer_tpu_torch.parallel.mesh import DataParallel, all_reduce_grads
 from mvgformer_tpu_torch.utils.profiling import span
@@ -267,7 +267,7 @@ def make_train_step(cfg: Config, model: torch.nn.Module, tx: Optimizer,
     module). Dropout must draw the same masks on the ranks of a data row:
     seed `generator` by data row (TRAIN.SEED + dp.data_rank), not by
     rank."""
-    refuse_voxelpose(cfg, "make_train_step")
+    refuse_volumetric(cfg, "make_train_step")
     dq = is_dq(cfg)
     distributed = dp is not None and dp.distributed
     gt_match = cfg.DECODER.gt_match and dq
@@ -338,7 +338,7 @@ def make_eval_loss_step(cfg: Config, model: torch.nn.Module, threshold: float,
     each layer's own outputs. The MvP baseline takes no window plan: passing
     one raises. dp: the grid under data or view parallelism (the batch is
     this rank's shard), as `make_train_step` takes it."""
-    refuse_voxelpose(cfg, "make_eval_loss_step")
+    refuse_volumetric(cfg, "make_eval_loss_step")
     dq = is_dq(cfg)
     if window_plan is not None and not dq:
         raise ValueError("the window plan is for the DQ model's layer 1; "

@@ -81,7 +81,13 @@ def project_points(x: torch.Tensor, cam: CameraParams,
                    deal_distortion: bool = True) -> torch.Tensor:
     """Project world points (..., N, 3) to pixels (..., N, 2), with the
     reference's +1e-5 depth epsilon."""
-    xcam = world_to_camera(x, cam)
+    return camera_to_pixels(world_to_camera(x, cam), cam, deal_distortion)
+
+
+def camera_to_pixels(xcam: torch.Tensor, cam: CameraParams,
+                     deal_distortion: bool = True) -> torch.Tensor:
+    """Camera-frame points (..., N, 3) to pixels (..., N, 2), the second
+    half of `project_points`, for a caller that reads the depth too."""
     y = xcam[..., :2] / (xcam[..., 2:3] + 1e-5)
     if deal_distortion:
         y = _distort(y, cam)

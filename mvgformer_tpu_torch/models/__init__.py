@@ -1,5 +1,5 @@
-"""Model layer: backbone, DQ decoder, MVGFormer top model, the MvP and
-VoxelPose baselines."""
+"""Model layer: backbone, DQ decoder, MVGFormer top model, the MvP
+baseline and the volumetric models (VoxelPose, Learnable Triangulation)."""
 
 from __future__ import annotations
 
@@ -10,10 +10,15 @@ import torch
 from mvgformer_tpu_torch.config import Config
 
 # the cfg.TRANSFORMER values: the paper model, the MvP baseline and the
-# volumetric VoxelPose baseline (serving only)
+# volumetric models, VoxelPose and Learnable Triangulation's (serving only)
 DQ_TRANSFORMER = "dq_transformer"
 MVP_TRANSFORMER = "multi_view_pose_transformer"
 VOXELPOSE = "voxelpose"
+VOLUMETRIC_TRIANGULATION = "volumetric_triangulation"
+# the models that give the served pred's poses and scores directly, which
+# the port serves and does not train, by name
+POSE_MODELS = {VOXELPOSE: "VoxelPose",
+               VOLUMETRIC_TRIANGULATION: "the volumetric triangulation model"}
 
 
 def build_model(cfg: Config, generator: Optional[torch.Generator] = None,
@@ -33,9 +38,16 @@ def build_model(cfg: Config, generator: Optional[torch.Generator] = None,
         from mvgformer_tpu_torch.models.voxelpose import VoxelPose
 
         return VoxelPose(cfg, generator=generator, device=device)
+    if cfg.TRANSFORMER == VOLUMETRIC_TRIANGULATION:
+        from mvgformer_tpu_torch.models.volumetric import (
+            VolumetricTriangulation)
+
+        return VolumetricTriangulation(cfg, generator=generator,
+                                       device=device)
     raise ValueError(
         f"unknown TRANSFORMER {cfg.TRANSFORMER!r}; expected "
-        f"{DQ_TRANSFORMER!r}, {MVP_TRANSFORMER!r} or {VOXELPOSE!r}")
+        f"{DQ_TRANSFORMER!r}, {MVP_TRANSFORMER!r}, {VOXELPOSE!r} or "
+        f"{VOLUMETRIC_TRIANGULATION!r}")
 
 
 def is_dq(cfg: Config) -> bool:
@@ -45,9 +57,16 @@ def is_dq(cfg: Config) -> bool:
     return cfg.TRANSFORMER == DQ_TRANSFORMER
 
 
-def refuse_voxelpose(cfg: Config, what: str) -> None:
-    """Raise where `what` is asked of VoxelPose, which the port serves
-    only (`core/infer.py::make_eval_step`)."""
-    if cfg.TRANSFORMER == VOXELPOSE:
-        raise ValueError(f"{what}: the port serves VoxelPose only "
+def serves_poses(cfg: Config) -> bool:
+    """Whether cfg.TRANSFORMER selects a model that gives the served
+    pred's poses and scores directly (`POSE_MODELS`)."""
+    return cfg.TRANSFORMER in POSE_MODELS
+
+
+def refuse_volumetric(cfg: Config, what: str) -> None:
+    """Raise where `what` is asked of a model of `POSE_MODELS`, which the
+    port serves only (`core/infer.py::make_eval_step`)."""
+    if serves_poses(cfg):
+        raise ValueError(f"{what}: the port serves "
+                         f"{POSE_MODELS[cfg.TRANSFORMER]} only "
                          f"(make_eval_step), it does not train it")

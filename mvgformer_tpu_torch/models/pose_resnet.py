@@ -4,9 +4,11 @@ Port of `mvgformer_tpu/models/pose_resnet.py`, with the original torch
 parameter names (`conv1`, `layer1.0.conv1`, `layer1.0.downsample.0`,
 `deconv_layers.{0,3,6}`, ...). The forward returns the three *pre-BN*
 deconv outputs selected by `use_feat_level`. BatchNorm always uses its
-running statistics (eps 1e-5): the backbone is frozen. VoxelPose's backbone
-(`heatmap_joints`) adds the published heatmap head, `final_layer`: the last
-deconvolution's BN and ReLU, then a 1x1 convolution to one map per joint.
+running statistics (eps 1e-5): the backbone is frozen. The volumetric
+models' backbone (`heatmap_joints`) adds the published heatmap head,
+`final_layer`: the last deconvolution's BN and ReLU, then a 1x1 convolution
+to one map per joint; Learnable Triangulation's also takes the head's input,
+the features after that BN and ReLU (`with_features`).
 
 Public tensors are NHWC, like the JAX package. Inside, the image batch is a
 channels_last NCHW tensor, the layout cuDNN convolves fastest.
@@ -122,8 +124,9 @@ class PoseResNet(nn.Module):
         self.deconv_layers = nn.Sequential(*deconv)
         self.final_layer = None
         if heatmap_joints is not None:
-            # built for VoxelPose alone, so the other models' state dicts
-            # (and the weights drawn for them by name) stay as they are
+            # built for the volumetric models alone, so the other models'
+            # state dicts (and the weights drawn for them by name) stay as
+            # they are
             self.final_layer = nn.Conv2d(inplanes, heatmap_joints, 1)
             with torch.no_grad():
                 nn.init.normal_(self.final_layer.weight, 0.0, 0.001,
@@ -131,9 +134,12 @@ class PoseResNet(nn.Module):
                 self.final_layer.bias.zero_()
 
     def forward(self, x: torch.Tensor,
-                use_feat_level: Sequence[int] = (0, 1, 2)):
+                use_feat_level: Sequence[int] = (0, 1, 2),
+                with_features: bool = False):
         """The pre-BN levels of `use_feat_level`, or where the heatmap
-        head was built (VoxelPose's backbone) its heatmaps (N, J, h, w)."""
+        head was built (the volumetric models' backbone) its heatmaps
+        (N, J, h, w), and with `with_features` the features it reads
+        (N, C, h, w) beside them. Both are channels_last NCHW."""
         x = x.to(self.dtype).permute(0, 3, 1, 2)  # channels_last NCHW view
         x = F.relu(_bn(_conv_fwd(x, self.conv1), self.bn1))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
@@ -147,6 +153,7 @@ class PoseResNet(nn.Module):
             x = F.relu(_bn(x, self.deconv_layers[3 * di + 1]))
         head = self.final_layer
         if head is not None:
-            return F.conv2d(x, head.weight.to(x.dtype), head.bias.to(x.dtype))
+            hm = F.conv2d(x, head.weight.to(x.dtype), head.bias.to(x.dtype))
+            return (hm, x) if with_features else hm
         return [f.permute(0, 2, 3, 1).contiguous()
                 for i, f in enumerate(feats) if i in tuple(use_feat_level)]

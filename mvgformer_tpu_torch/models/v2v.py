@@ -1,18 +1,27 @@
-"""V2VNet: the 3D encoder-decoder of VoxelPose's two networks.
+"""The 3D encoder-decoders of the volumetric models (after Moon et al.'s
+V2V-PoseNet), with their published parameter names.
 
-Port of `lib/models/v2v_net.py` of microsoft/voxelpose-pytorch (after
-Moon et al.'s V2V-PoseNet), with its parameter names: a 7^3 front
-convolution to 16 channels and a residual block to 32, an encoder of two
-2x max pools with residual blocks 32 -> 64 -> 128 and a middle block, a
-decoder of two stride-2 transposed convolutions (kernel 2) with residual
-skips at 64 and 32 channels, and a 1x1x1 output convolution. Every
+`V2VNet` ports `lib/models/v2v_net.py` of microsoft/voxelpose-pytorch,
+VoxelPose's two networks: a 7^3 front convolution to 16 channels and a
+residual block to 32, an encoder of two 2x max pools with residual blocks
+32 -> 64 -> 128 and a middle block, a decoder of two stride-2 transposed
+convolutions (kernel 2) with residual skips at 64 and 32 channels, and a
+1x1x1 output convolution.
+
+`V2VModel` ports `mvn/models/v2v.py` of karfly/learnable-triangulation-pose,
+the volumetric Learnable Triangulation model's network: the same blocks,
+two more residual blocks in front, five pooling levels (32 -> 64 -> 128,
+then 128 three times, down to 1/32 of the side), and behind the decoder a
+residual block and two 1^3 convolution blocks before the output.
+
+Both encoder-decoders are `EncoderDecorder` at their level widths. Every
 convolution has a bias; BatchNorm runs on its running statistics in eval
 mode. Volumes are NCDHW float32.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -65,28 +74,49 @@ class Upsample3DBlock(nn.Module):
 
 
 class EncoderDecorder(nn.Module):
-    """The published class name, misspelt as there."""
+    """The published class name, misspelt as there. `widths` are the
+    channels at each level, the input's first: level i pools by 2 and
+    widens widths[i - 1] -> widths[i] (`encoder_res<i>`), keeps a skip of
+    its input (`skip_res<i>`), and on the way back comes up through
+    `decoder_res<i>` and `decoder_upsample<i>`. The modules are made in
+    the published order, so the state dict's is the published one."""
 
-    def __init__(self):
+    def __init__(self, widths: Sequence[int] = (32, 64, 128)):
         super().__init__()
-        self.encoder_res1 = Res3DBlock(32, 64)
-        self.encoder_res2 = Res3DBlock(64, 128)
-        self.mid_res = Res3DBlock(128, 128)
-        self.decoder_res2 = Res3DBlock(128, 128)
-        self.decoder_upsample2 = Upsample3DBlock(128, 64)
-        self.decoder_res1 = Res3DBlock(64, 64)
-        self.decoder_upsample1 = Upsample3DBlock(64, 32)
-        self.skip_res1 = Res3DBlock(32, 32)
-        self.skip_res2 = Res3DBlock(64, 64)
+        self.levels = len(widths) - 1
+        for i in range(1, self.levels + 1):
+            setattr(self, f"encoder_res{i}",
+                    Res3DBlock(widths[i - 1], widths[i]))
+        self.mid_res = Res3DBlock(widths[-1], widths[-1])
+        for i in range(self.levels, 0, -1):
+            setattr(self, f"decoder_res{i}", Res3DBlock(widths[i], widths[i]))
+            setattr(self, f"decoder_upsample{i}",
+                    Upsample3DBlock(widths[i], widths[i - 1]))
+        for i in range(1, self.levels + 1):
+            setattr(self, f"skip_res{i}",
+                    Res3DBlock(widths[i - 1], widths[i - 1]))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        skip_x1 = self.skip_res1(x)
-        x = self.encoder_res1(F.max_pool3d(x, 2, stride=2))
-        skip_x2 = self.skip_res2(x)
-        x = self.encoder_res2(F.max_pool3d(x, 2, stride=2))
-        x = self.decoder_res2(self.mid_res(x))
-        x = self.decoder_upsample2(x) + skip_x2
-        return self.decoder_upsample1(self.decoder_res1(x)) + skip_x1
+        skips = []
+        for i in range(1, self.levels + 1):
+            skips.append(getattr(self, f"skip_res{i}")(x))
+            x = getattr(self, f"encoder_res{i}")(F.max_pool3d(x, 2, stride=2))
+        x = self.mid_res(x)
+        for i in range(self.levels, 0, -1):
+            x = getattr(self, f"decoder_res{i}")(x)
+            x = getattr(self, f"decoder_upsample{i}")(x) + skips[i - 1]
+        return x
+
+
+def init_published_(net: nn.Module,
+                    generator: Optional[torch.Generator]) -> None:
+    """The published init of every 3D convolution: N(0, INIT_STD), bias
+    0."""
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, (nn.Conv3d, nn.ConvTranspose3d)):
+                nn.init.normal_(m.weight, 0.0, INIT_STD, generator=generator)
+                m.bias.zero_()
 
 
 class V2VNet(nn.Module):
@@ -99,13 +129,30 @@ class V2VNet(nn.Module):
             Basic3DBlock(input_channels, 16, 7), Res3DBlock(16, 32))
         self.encoder_decoder = EncoderDecorder()
         self.output_layer = nn.Conv3d(32, output_channels, 1)
-        with torch.no_grad():
-            for m in self.modules():
-                if isinstance(m, (nn.Conv3d, nn.ConvTranspose3d)):
-                    nn.init.normal_(m.weight, 0.0, INIT_STD,
-                                    generator=generator)
-                    m.bias.zero_()
+        init_published_(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.encoder_decoder(self.front_layers(x))
         return self.output_layer(x)
+
+
+class V2VModel(nn.Module):
+    """(N, in, D, H, W) -> (N, out, D, H, W); D, H and W divisible by
+    32."""
+
+    def __init__(self, input_channels: int, output_channels: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.front_layers = nn.Sequential(
+            Basic3DBlock(input_channels, 16, 7), Res3DBlock(16, 32),
+            Res3DBlock(32, 32), Res3DBlock(32, 32))
+        self.encoder_decoder = EncoderDecorder((32, 64, 128, 128, 128, 128))
+        self.back_layers = nn.Sequential(
+            Res3DBlock(32, 32), Basic3DBlock(32, 32, 1),
+            Basic3DBlock(32, 32, 1))
+        self.output_layer = nn.Conv3d(32, output_channels, 1)
+        init_published_(self, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.encoder_decoder(self.front_layers(x))
+        return self.output_layer(self.back_layers(x))

@@ -81,14 +81,35 @@ def grid_points(centers: torch.Tensor, size: Sequence[float],
                 bins: Sequence[int]) -> torch.Tensor:
     """(..., prod(bins), 3) mm: the points of the grid of `grid_axes`, x
     slowest and z fastest (the published meshgrid)."""
-    lead = centers.shape[:-1]
+    return grid_of(grid_axes(centers, size, bins))
+
+
+def grid_of(axes: Sequence[torch.Tensor]) -> torch.Tensor:
+    """(..., X * Y * Z, 3): the points of the grid whose x, y and z
+    coordinates are `axes` (..., X), (..., Y), (..., Z), x slowest and z
+    fastest (a meshgrid's 'ij' order)."""
+    lead = axes[0].shape[:-1]
+    bins = tuple(a.shape[-1] for a in axes)
     points = []
-    for a, axis in enumerate(grid_axes(centers, size, bins)):
+    for a, axis in enumerate(axes):
         shape = [1, 1, 1]
         shape[a] = bins[a]
-        points.append(axis.reshape(lead + tuple(shape)).expand(
-            lead + tuple(bins)))
+        points.append(axis.reshape(lead + tuple(shape)).expand(lead + bins))
     return torch.stack(points, dim=-1).reshape(lead + (-1, 3))
+
+
+def soft_argmax(volumes: torch.Tensor, beta: float,
+                axes: Sequence[torch.Tensor]) -> torch.Tensor:
+    """(N, J, 3): the expected grid point under the softmax of beta x
+    each volume (N, J, X, Y, Z) over its voxels, on the grid of `axes`
+    (N, X), (N, Y), (N, Z), summed axis by axis over the softmax's
+    marginals (the grid is the product of its axes)."""
+    N, J = volumes.shape[:2]
+    prob = F.softmax(beta * volumes.reshape(N, J, -1),
+                     dim=-1).reshape(volumes.shape)
+    return torch.stack([
+        (prob.sum(dim=rest) * axis[:, None]).sum(-1)
+        for rest, axis in zip(((3, 4), (2, 4), (2, 3)), axes)], -1)
 
 
 def sample_volume(heatmaps: torch.Tensor, view_data: ViewData,
@@ -203,13 +224,8 @@ class VoxelPose(nn.Module):
             volumes = self.pose_net(cubes)
         count("voxelpose.prn_volumes", B * M)
         with span("mvg.vp.softargmax"):
-            prob = F.softmax(cfg.NETWORK.BETA * volumes.reshape(B * M, J, N),
-                             dim=-1).reshape((B * M, J) + pose_bins)
-            # the expected point, axis by axis over the grid's marginals
-            axes = grid_axes(centers.reshape(B * M, 3), pose_size, pose_bins)
-            poses = torch.stack([
-                (prob.sum(dim=rest) * axis[:, None]).sum(-1)
-                for rest, axis in zip(((3, 4), (2, 4), (2, 3)), axes)], -1)
+            poses = soft_argmax(volumes, cfg.NETWORK.BETA, grid_axes(
+                centers.reshape(B * M, 3), pose_size, pose_bins))
             poses = torch.where(valid[..., None, None],
                                 poses.reshape(B, M, J, 3), 0.0)
         return poses, scores

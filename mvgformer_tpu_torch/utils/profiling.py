@@ -30,19 +30,22 @@ import torch.autograd.profiler as _autograd_profiler
 # training (`core/train.py`), and inside it the model's layers; LAYER is
 # the name of decoder layer l (from 0), `LAYER.format(l)`;
 # `mvg.point_topm` is point-top-m inside ProjAttn (`ops/projattn.py`);
-# `mvg.vp.*` are VoxelPose's (`models/voxelpose.py`)
+# `mvg.vp.*` are VoxelPose's (`models/voxelpose.py`), `mvg.lt.*` the
+# volumetric Learnable Triangulation model's (`models/volumetric.py`)
 LAYER = "mvg.layer{}"
 SPANS = ("mvg.step", "mvg.backbone", "mvg.init", LAYER, "mvg.project",
          "mvg.projattn", "mvg.topk", "mvg.dlt", "mvg.pred", "mvg.match",
          "mvg.forward", "mvg.loss", "mvg.backward", "mvg.update",
          "mvg.vp.volume", "mvg.vp.cpn", "mvg.vp.propose", "mvg.vp.prn",
-         "mvg.vp.softargmax", "mvg.point_topm")
+         "mvg.vp.softargmax", "mvg.point_topm", "mvg.lt.pelvis",
+         "mvg.lt.volume", "mvg.lt.v2v", "mvg.lt.softargmax")
 
 # the port's counter registry, by name: VoxelPose's `voxelpose.root_volumes`
 # and `voxelpose.prn_volumes` (the volumes its two V2V networks computed),
-# `point_topm.launches` (`ops/point_topm.py`) and
-# `dlt_jacobi.backward_launches` (the DLT's backward kernel,
-# `ops/dlt_jacobi.py`)
+# `volumetric.view_volumes` (the per-view feature volumes that the
+# Learnable Triangulation model sampled), `point_topm.launches`
+# (`ops/point_topm.py`) and `dlt_jacobi.backward_launches` (the DLT's
+# backward kernel, `ops/dlt_jacobi.py`)
 COUNTERS: collections.Counter = collections.Counter()
 
 

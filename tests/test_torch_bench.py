@@ -60,6 +60,7 @@ from mvgformer_tpu_torch.core.train import create_train_state, make_train_step
 from mvgformer_tpu_torch.data.synthetic import batch_from_jax
 from mvgformer_tpu_torch.models.mvgformer import MVGFormer
 from mvgformer_tpu_torch.utils.jax_convert import port_state_dict_from_jax
+from test_torch_config import PORT_ONLY
 from test_torch_train_step import _jacobi_hosted
 from torch_one_thread import one_torch_thread  # noqa: F401
 
@@ -81,14 +82,16 @@ jbench_detail = _root_script("bench_detail")
 
 
 def _tree(cfg):
-    """A config as {dotted key: (type name, value)}."""
+    """A config as {dotted key: (type name, value)}, without the port's
+    own keys (`PORT_ONLY`), which the JAX package's config does not
+    have."""
     flat = {}
 
     def walk(d, path):
         for k, v in d.items():
             if isinstance(v, dict):
                 walk(v, f"{path}{k}.")
-            else:
+            elif path + k not in PORT_ONLY:
                 flat[path + k] = (type(v).__name__, v)
     walk(dataclasses.asdict(cfg), "")
     return flat
@@ -100,7 +103,8 @@ def _jax_cfg(cfg):
     for name, value in dataclasses.asdict(cfg).items():
         if isinstance(value, dict):
             for key, v in value.items():
-                setattr(getattr(jcfg, name), key, copy.deepcopy(v))
+                if f"{name}.{key}" not in PORT_ONLY:
+                    setattr(getattr(jcfg, name), key, copy.deepcopy(v))
         else:
             setattr(jcfg, name, value)
     assert _tree(jcfg) == _tree(cfg)

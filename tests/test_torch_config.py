@@ -1,7 +1,9 @@
 """The port's own config tree (mvgformer_tpu_torch/config.py) against the
 JAX package's (mvgformer_tpu/config.py): the same tree and values for the
 defaults and every YAML under configs/, the same dotted overrides, and the
-same KeyError for a key that does not exist."""
+same KeyError for a key that does not exist. The port's tree holds the
+JAX package's and, besides, exactly the keys of PORT_ONLY, for models the
+JAX package does not build, at the defaults named there."""
 
 import dataclasses
 import glob
@@ -19,6 +21,11 @@ OVERRIDES = ["DECODER.nhead=4", "DECODER.use_feat_level=[0,2]",
              "TRAIN.LR=1e-3", "PARALLEL.REMAT_DECODER=false",
              "DECODER.inference_topk_queries=64", "DATASET.CAMERA_NUM=3",
              "NETWORK.IMAGE_SIZE=480,256", "OUTPUT_DIR=/tmp/x"]
+# the keys of the volumetric Learnable Triangulation model
+# (`models/volumetric.py`), with their types and defaults
+PORT_ONLY = {"NETWORK.HEATMAP_MULTIPLIER": ("float", 100.0),
+             "NETWORK.VOLUME_FEATURES": ("int", 32),
+             "NETWORK.BASE_JOINT": ("int", 6)}
 
 
 def _tree(cfg):
@@ -37,6 +44,14 @@ def _tree(cfg):
     return flat
 
 
+def _shared(cfg):
+    """The port's tree without its own keys, which hold their defaults
+    (no YAML under configs/ and no override below sets them)."""
+    tree = _tree(cfg)
+    assert {k: tree.pop(k) for k in PORT_ONLY} == PORT_ONLY
+    return tree
+
+
 def test_the_configs_directory_is_found():
     assert len(YAMLS) >= 5, YAMLS
 
@@ -45,7 +60,7 @@ def test_the_configs_directory_is_found():
 def test_load_config_equals_jax(yaml_path):
     path = None if yaml_path is None else os.path.join(REPO, yaml_path)
     want = _tree(jconfig.load_config(path))
-    got = _tree(tconfig.load_config(path))
+    got = _shared(tconfig.load_config(path))
     assert got == want
 
 
@@ -54,7 +69,7 @@ def test_dotted_overrides_equal_jax(yaml_path):
     path = None if yaml_path is None else os.path.join(REPO, yaml_path)
     want = jconfig.load_config(path, OVERRIDES)
     got = tconfig.load_config(path, OVERRIDES)
-    assert _tree(got) == _tree(want)
+    assert _shared(got) == _tree(want)
     assert got.DECODER.use_feat_level == [0, 2]
     assert got.NETWORK.IMAGE_SIZE == [480, 256]
     assert got.PARALLEL.REMAT_DECODER is False

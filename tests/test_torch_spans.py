@@ -1,8 +1,8 @@
 """The port's spans (`utils/profiling.py::span`, `SPANS`) on the CPU, at
 toy widths: with no profiler running a span never reaches the profiler's
 range; under `torch.profiler` a DQ eval step with top-K, an MvP eval step,
-a VoxelPose eval step and a DQ training step with remat open the spans of
-`SPANS`, nested as
+a VoxelPose eval step, a volumetric Learnable Triangulation eval step and a
+DQ training step with remat open the spans of `SPANS`, nested as
 the layers are (the step, then the backbone, the init, each decoder layer
 and the pred or the match, forward, loss, backward and update; inside a
 DQ layer the projection, ProjAttn, the top-K and the DLT), and a traced
@@ -49,6 +49,13 @@ def _cfg(transformer="dq", **overrides):
         cfg.DECODER.num_instance = cfg.MULTI_PERSON.MAX_PEOPLE_NUM
         cfg.MULTI_PERSON.INITIAL_CUBE_SIZE = [8, 8, 4]
         cfg.PICT_STRUCT.CUBE_SIZE = [8, 8, 8]
+    if transformer == "volumetric":
+        cfg.TRANSFORMER = "volumetric_triangulation"
+        cfg.NETWORK.IMAGE_SIZE = [64, 64]
+        cfg.NETWORK.VOLUME_FEATURES = 4
+        cfg.DECODER.num_instance = 1
+        cfg.MULTI_PERSON.MAX_PEOPLE_NUM = 1
+        cfg.PICT_STRUCT.CUBE_SIZE = [32, 32, 32]
     for key, value in overrides.items():
         section, name = key.split("__")
         setattr(getattr(cfg, section), name, value)
@@ -102,6 +109,14 @@ def vp_serve():
     cfg = _cfg("voxelpose")
     step = make_eval_step(cfg, _model(cfg), THRESHOLD)
     batch = make_batch(cfg, seed=2, num_people=2, device="cpu")
+    return _traced(lambda: step(batch))[1]
+
+
+@pytest.fixture(scope="module")
+def lt_serve():
+    cfg = _cfg("volumetric")
+    step = make_eval_step(cfg, _model(cfg), THRESHOLD)
+    batch = make_batch(cfg, seed=2, num_people=1, device="cpu")
     return _traced(lambda: step(batch))[1]
 
 
@@ -184,8 +199,8 @@ def test_train_step_spans_in_order_and_losses_unchanged(dq_train):
 
 
 def test_every_span_is_named_in_spans(dq_serve, mvp_serve, vp_serve,
-                                     dq_train):
-    opened = {n for n, *_ in dq_serve[2] + mvp_serve + vp_serve
+                                     lt_serve, dq_train):
+    opened = {n for n, *_ in dq_serve[2] + mvp_serve + vp_serve + lt_serve
               + dq_train[1][1]}
     named = {LAYER if LAYER_NAME.match(n) else n for n in opened}
     assert named == set(SPANS)
